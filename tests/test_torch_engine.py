@@ -61,22 +61,23 @@ def test_engine_matches_tpuir(h, w):
 def test_zoo_missing_checkpoint_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         zoo.get_model_instance("denoising", "gaussian", "Restormer", gray=False, sigma=25,
-                               weights_dir=str(tmp_path))
+                               weights_dir=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize(
     "model_name,kw,err",
     [
         ("Restormer", dict(precision="serving"), NotImplementedError),
-        ("MaIR", {}, NotImplementedError),
+        ("MaIR", dict(subtask="real", sigma=None), NotImplementedError),  # MaIRUNet
         ("DnCNN", {}, NotImplementedError),
         ("Restormer", dict(sigma=35), ValueError),
     ],
 )
 def test_zoo_refuses_what_is_not_ported(tmp_path, model_name, kw, err):
-    kw = dict(dict(gray=False, sigma=25, weights_dir=str(tmp_path)), **kw)
+    kw = dict(dict(subtask="gaussian", gray=False, sigma=25, weights_dir=str(tmp_path),
+                   device="cpu"), **kw)
     with pytest.raises(err):
-        zoo.get_model_instance("denoising", "gaussian", model_name, **kw)
+        zoo.get_model_instance("denoising", kw.pop("subtask"), model_name, **kw)
 
 
 def test_zoo_full_width_matches_tpuir(tmp_path):

@@ -1,5 +1,6 @@
-"""The port's host helpers against tpuir.core's, bit for bit, and the port's
-import boundary (no JAX, no Flax).
+"""The port's host helpers against tpuir's, bit for bit (tpuir.core's NumPy
+helpers, the patch table of tpuir.config, the host gather and blend of
+tpuir.native), and the port's import boundary (no tpuir, no JAX, no Flax).
 
 ``tpuir.core`` imports JAX, so it is imported inside the tests (the
 reference side) and this file still collects where JAX is absent."""
@@ -11,7 +12,8 @@ import sys
 import numpy as np
 import pytest
 
-from tpuir_torch.core import degrade, image_io, metrics, tiling
+from tpuir_torch import config
+from tpuir_torch.core import degrade, image_io, metrics, native, tiling
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,16 +85,59 @@ def test_metrics_equal(shape, dtype):
     assert got == want and np.isfinite(got).all()
 
 
+def test_patch_config_equal():
+    from tpuir import config as jconfig
+
+    assert config.PATCH_CONFIG == jconfig.PATCH_CONFIG
+    assert config.ROOT_WEIGHTS_DIR == jconfig.ROOT_WEIGHTS_DIR
+    for model in ("REDNet", "DnCNN", "DeblurGANv2 Inception", "DeblurGANv2 MobileNet",
+                  "Restormer", "MaIR", "Nope"):
+        for task, sub in (("denoising", "gaussian"), ("denoising", "real"),
+                          ("deblurring", "motion"), ("deblurring", "defocus")):
+            assert config.get_patch_config(task, sub, model) == \
+                jconfig.get_patch_config(task, sub, model)
+
+
+# the engine's tile grids of Restormer's three smoke requests (patch 256,
+# overlap 48) and of a MaIR request (patch 128, overlap 32)
+@pytest.mark.parametrize("h,w,ps,ov", [(512, 512, 256, 48), (481, 321, 256, 48),
+                                       (200, 150, 256, 48), (256, 256, 128, 32)])
+def test_gather_and_blend_equal(h, w, ps, ov):
+    from tpuir import native as jnative
+
+    rng = np.random.RandomState(h + w)
+    img = rng.rand(h, w, 3).astype(np.float32)
+    p, hs, ws = tiling.tile_indices(h, w, ps, ov)
+    ph, pw = min(p, h), min(p, w)
+    coords = [(hi, wi) for hi in hs for wi in ws]
+    got = native.extract_patches(img, coords, ph, pw)
+    want = jnative.extract_patches(img, coords, ph, pw)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    preds = rng.rand(len(coords), ph, pw, 3).astype(np.float32)
+    window = tiling.gaussian_window(p, p, 3)[:ph, :pw]
+    got = native.blend_stitch(preds, coords, window, h, w)
+    want = jnative.blend_stitch(preds, coords, window, h, w)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
+        "sys.modules['tpuir'] = None\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
-        "import tpuir_torch, tpuir_torch.zoo, tpuir_torch.core.engine\n"
-        "import tpuir_torch.models.restormer, tpuir_torch.ops.fused_block\n"
+        "import tpuir_torch, tpuir_torch.zoo, tpuir_torch.config\n"
+        "import tpuir_torch.core.engine, tpuir_torch.core.native\n"
         "import tpuir_torch.core.metrics, tpuir_torch.core.image_io\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax')) for m in sys.modules "
-        "if sys.modules[m] is not None)\n"
+        "import tpuir_torch.models.restormer, tpuir_torch.ops.fused_block\n"
+        "import tpuir_torch.models.mair, tpuir_torch.ops.nss_prologue\n"
+        "import tpuir_torch.ops.nss_stripe, tpuir_torch.ops.nss_epilogue\n"
+        "import tpuir_torch.ops.scan_ids, tpuir_torch.ops.selective_scan\n"
+        "import tpuir_torch.utils.misc, tpuir_torch.utils.profiling\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and "
+        "(m in ('tpuir', 'jax', 'flax') or m.startswith(('tpuir.', 'jax.', 'flax.')))]\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,

@@ -7,9 +7,10 @@ The behavioural contract is the JAX engine's:
   (optional postprocess) -> Gaussian-window weighted accumulate -> divide
   by the weight map -> restore the input dtype.
 
-Host steps are shared with ``tpuir``: the patch gather and blend-stitch are
-``tpuir.native`` (bit-exact float32), and the AWGN, window and dtype
-restore are this package's NumPy copies. Patches go to the device in
+Host steps are this package's copies of the JAX engine's: the patch
+gather and blend-stitch are ``core/native.py`` (the same C loops as
+``tpuir.native``, bit-exact float32), and the AWGN, window and dtype
+restore are NumPy copies. Patches go to the device in
 ``batch_size`` chunks; a ragged last chunk runs as it is, since eager
 PyTorch has no compile cache to bound.
 
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuir import native
+from . import native
 from .degrade import add_noise_batched
 from .image_io import normalize_image, restore_dtype
 from .tiling import gaussian_window, tile_indices

@@ -2,9 +2,11 @@
 
 One shared library with a plain C interface, compiled for Hopper
 (``sm_90a``) into ``build/tpuir_torch/`` at the repository root and keyed
-by a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. No PyTorch headers are compiled, which
-keeps a cold build to seconds.
+by a hash of the sources (``*.cu`` and the ``*.cuh`` they include) and
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is. Each ``.cu`` is compiled by its own nvcc process, all started together,
+and the objects are linked into the library. No PyTorch headers are
+compiled, which keeps a cold build to seconds.
 
 There is no fallback: a missing nvcc, a failed build or a failed load
 raises. Wrappers take their kernel's plain PyTorch version only for a
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Optional
@@ -31,10 +34,12 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "tpuir_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES: Dict[str, int] = {"fused_transformer_block": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_transformer_block": 0, "mixer_prologue": 0, "nss_scan": 0, "mixer_epilogue": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -69,7 +74,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpuir_kernels_{h.hexdigest()[:16]}.so"
@@ -82,14 +87,26 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(prefix=f"{so.stem}_", dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, p in zip(_sources(), procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = Path(tmpdir) / so.name
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+        os.replace(tmp, so)
     return so
 
 
@@ -105,6 +122,14 @@ def library() -> ctypes.CDLL:
         lib.tpuir_fused_block_f32.restype = ci
         lib.tpuir_fused_block_partials_numel.argtypes = [ci] * 5
         lib.tpuir_fused_block_partials_numel.restype = ctypes.c_longlong
+        lib.tpuir_mixer_prologue_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.tpuir_mixer_prologue_f32.restype = ci
+        lib.tpuir_nss_scan_scratch_numel.argtypes = [ci] * 5
+        lib.tpuir_nss_scan_scratch_numel.restype = ctypes.c_longlong
+        lib.tpuir_nss_scan_f32.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+        lib.tpuir_nss_scan_f32.restype = ci
+        lib.tpuir_mixer_epilogue_f32.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+        lib.tpuir_mixer_epilogue_f32.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,159 @@
+"""Tracing and profiling on the card: the counterpart of
+``tpuir/utils/profiling.py``, on ``torch.profiler``.
+
+``trace_fn`` profiles one callable; ``kernel_times`` and ``op_device_ms``
+read device time from its profile by kernel and by aten op.
+
+    python -m tpuir_torch.utils.profiling [--batches 1,2,3,4,8]
+
+profiles one forward of MaIR-CDN@128 at each batch size on the card: full
+released width and depth, weights drawn from a seed, every mixer through
+K6, K2 and K7 as the zoo builds it, TF32 off as in the engine. Per batch it
+prints the forward's milliseconds (CUDA events), its device time by stage,
+its ten longest kernels, and the time of one residual group's 3x3 conv
+(180 -> 180 channels, cuDNN) called once on the batch and once per image.
+The last line is the same as one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, Dict, Tuple
+
+import torch
+
+# Kernel-name fragments of the mixer kernels, by stage. The SIMT GEMM's
+# epilogue type tells K6's in_proj (SplitXZ) from the row-store GEMMs of K2's
+# x_proj and K7's out_proj (StoreRows).
+MIXER_STAGES = (
+    ("K6 in_proj GEMM", ("SplitXZ",)),
+    ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
+    ("K2 scan passes", ("scan_chunk_kernel", "chain_carries_kernel", "sum_partials_kernel")),
+    ("K2 x_proj + K7 out_proj GEMMs", ("StoreRows",)),
+    ("K7 combine + norm + gate", ("combine_norm_gate",)),
+)
+# Library ops by the aten op that launched them (their self device time).
+LIBRARY_STAGES = (
+    ("3x3 convs (cuDNN)", "aten::cudnn_convolution"),
+    ("Linear (MLP, cuBLAS)", "aten::addmm"),
+    ("LayerNorm", "aten::native_layer_norm"),
+)
+
+
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def trace_fn(fn: Callable, *args, **kw):
+    """Run fn twice (warm-up, then profiled); return (result, profile)."""
+    fn(*args, **kw)
+    with _profile() as prof:
+        out = fn(*args, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    return out, prof
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", None)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def kernel_times(prof) -> Dict[str, Tuple[float, int]]:
+    """{kernel name: (device ms in all, launches)} over a profile's kernels."""
+    out = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA") and _device_us(evt) > 0:
+            out[evt.key] = (_device_us(evt) / 1e3, evt.count)
+    return out
+
+
+def op_device_ms(prof, op: str) -> float:
+    """Device ms that the kernels launched by aten op ``op`` took."""
+    return sum(_device_us(e) for e in prof.key_averages() if e.key == op) / 1e3
+
+
+def cuda_ms(fn: Callable, iters: int = 3) -> float:
+    """Mean milliseconds of fn() on the card, from CUDA events, after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_mair(batches=(1, 2, 3, 4, 8), tile: int = 128, seed: int = 0) -> dict:
+    """The MaIR-CDN forward breakdown described in the module docstring."""
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.mair import MaIR, init_state_dict
+
+    dev = torch.device("cuda")
+    net = MaIR(**zoo.MAIR_CDN_CONFIG, fused=True)
+    net.load_state_dict(init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
+    net = net.to(dev).eval().requires_grad_(False)
+    conv = net.layers[0].conv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {"card": torch.cuda.get_device_name(0), "tile": tile, "batches": {}}
+    with torch.inference_mode(), true_float32():
+        for b in batches:
+            x = torch.rand(b, 3, tile, tile, device=dev, generator=gen)
+            fwd_ms = cuda_ms(lambda: net(x), iters=2)
+            _, prof = trace_fn(net, x)
+            kernels = kernel_times(prof)
+            stages = {}
+            for name, frags in MIXER_STAGES:
+                stages[name] = sum(ms for k, (ms, _) in kernels.items()
+                                   if any(f in k for f in frags))
+            for name, op in LIBRARY_STAGES:
+                stages[name] = op_device_ms(prof, op)
+            total = sum(ms for ms, _ in kernels.values())
+            stages["other"] = total - sum(stages.values())
+            # one residual group's conv on the (b, 180, H, W) channels_last
+            # activation the model hands it
+            h = torch.rand(b, tile, tile, conv.in_channels, device=dev,
+                           generator=gen).permute(0, 3, 1, 2)
+            conv_ms = cuda_ms(lambda: conv(h))
+            conv_split_ms = cuda_ms(lambda: [conv(h[i:i + 1]) for i in range(b)])
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+            res["batches"][b] = {
+                "forward_ms": fwd_ms, "device_ms": total, "stages_ms": stages,
+                "top_kernels": [[k[:100], ms, n] for k, (ms, n) in top],
+                "conv_ms": conv_ms, "conv_per_image_ms": conv_split_ms,
+            }
+            del x, h, prof
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batches", default="1,2,3,4,8")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profiling: no CUDA device")
+        return 1
+    res = profile_mair(tuple(int(b) for b in args.batches.split(",")))
+    print(res["card"])
+    for b, r in res["batches"].items():
+        print(f"batch {b}: forward {r['forward_ms']:.3f} ms (CUDA events), "
+              f"device {r['device_ms']:.3f} ms (profiler); 3x3 conv 180->180: "
+              f"{r['conv_ms']:.3f} ms on the batch, {r['conv_per_image_ms']:.3f} ms per image")
+        for name, ms in r["stages_ms"].items():
+            print(f"  {name:32s} {ms:9.3f} ms")
+        for name, ms, n in r["top_kernels"]:
+            print(f"    {ms:9.3f} ms {n:4d}x  {name}")
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

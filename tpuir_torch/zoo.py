@@ -1,11 +1,12 @@
 """Model zoo of the PyTorch port: (task, subtask, model, gray, sigma) -> InferenceModel.
 
-The counterpart of ``tpuir/zoo.py``. This slice of the port holds the
-Restormer family (all 12 released configs); the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
-Checkpoints are the released files, read with ``torch.load(...,
-weights_only=True)``; a missing file raises ``FileNotFoundError``, which the
-harness treats as "skip this cell".
+The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
+(all 12 released configs) and MaIR-CDN (Gaussian color denoising, sigma 15,
+25 and 50); the other families and MaIRUNet raise ``NotImplementedError``
+naming the ROADMAP item that ports them. Checkpoints are the released
+files, read with ``torch.load(..., weights_only=True)``; a missing file
+raises ``FileNotFoundError``, which the harness treats as "skip this cell".
+Models are built on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional, Union
 
 import torch
 
-from tpuir.config import ROOT_WEIGHTS_DIR, get_patch_config
+from tpuir_torch.config import ROOT_WEIGHTS_DIR, get_patch_config
 from tpuir_torch.core.engine import InferenceModel
 from tpuir_torch.utils.misc import param_count
 
@@ -59,7 +60,7 @@ RESTORMER_CONFIGS = {
 
 def build_restormer(weights_dir: str, task: str, subtask: str, gray: bool, sigma,
                     precision: str = "parity",
-                    device: Union[str, torch.device] = "cpu") -> InferenceModel:
+                    device: Union[str, torch.device] = "cuda") -> InferenceModel:
     """The released Restormer for this config, every block through K1."""
     from tpuir_torch.models import restormer as m
 
@@ -86,12 +87,52 @@ def build_restormer(weights_dir: str, task: str, subtask: str, gray: bool, sigma
     )
 
 
-# The ROADMAP Queue 1 item that ports each family not in this slice.
+# MaIR-CDN's released config (the JAX zoo's, from upstream's
+# test_MaIR_CDN_s{15,25,50}.yml).
+MAIR_CDN_CONFIG = dict(embed_dim=180, depths=(6,) * 6, d_state=16, ssm_ratio=1.3,
+                       mlp_ratio=2.0, scan_len=4)
+MAIR_CDN_SIGMAS = (15, 25, 50)
+
+
+def build_mair(weights_dir: str, task: str, subtask: str, sigma,
+               precision: str = "parity",
+               device: Union[str, torch.device] = "cuda") -> InferenceModel:
+    """The released MaIR-CDN for this sigma, every mixer through K6, K2 and K7."""
+    from tpuir_torch.models import mair as m
+
+    if (task, subtask) != ("denoising", "gaussian"):
+        raise NotImplementedError(
+            f"MaIR {task}/{subtask} is MaIRUNet, not ported yet: ROADMAP Queue 1 item 7, "
+            "'MaIRUNet'")
+    if sigma not in MAIR_CDN_SIGMAS:
+        raise ValueError(f"no MaIR-CDN config for sigma={sigma}")
+    if precision != "parity":
+        raise NotImplementedError(
+            "precision='serving' is not ported yet: ROADMAP Queue 1 item 5, "
+            "'Serving precision and K1's bf16 mode'"
+        )
+    sd = _load_sd(os.path.join(weights_dir, "MaIR", "denoising", f"MaIR_CDN_s{sigma}.pth"),
+                  key="params")
+    device = torch.device(device)
+    net = m.MaIR(**MAIR_CDN_CONFIG, fused=True)
+    # keys the model does not hold (if a checkpoint carries any) are ignored,
+    # as the JAX converter ignores them; a missing or misshapen one raises
+    keys = net.state_dict().keys()
+    net.load_state_dict({k: v for k, v in sd.items() if k in keys})
+    net = net.to(device).eval().requires_grad_(False)
+    pc = get_patch_config(task, subtask, "MaIR")
+    return InferenceModel(
+        name="MaIR", net=net, device=device,
+        patch_size=pc["patch_size"], patch_overlap=pc["patch_overlap"],
+        pad_factor=8, param_count=param_count(net),
+    )
+
+
+# The ROADMAP Queue 1 item that ports each family not held yet.
 _NOT_PORTED = {
     "REDNet": "Queue 1, 'Plain-conv families'",
     "DnCNN": "Queue 1, 'Plain-conv families'",
     "DeblurGANv2": "Queue 1, 'Plain-conv families'",
-    "MaIR": "Queue 1, 'MaIR-CDN' and 'MaIRUNet'",
 }
 
 
@@ -103,7 +144,7 @@ def get_model_instance(
     sigma=None,
     weights_dir: Optional[str] = None,
     precision: Optional[str] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> InferenceModel:
     """Route a harness configuration to a loaded model bundle on ``device``.
 
@@ -120,4 +161,9 @@ def get_model_instance(
         sub = "defocus-dual" if ("Dual-pixel" in model_name and subtask == "defocus") else subtask
         if (task, sub, gray, sigma) in RESTORMER_CONFIGS:
             return build_restormer(weights_dir, task, sub, gray, sigma, precision, device)
+    elif key == "MaIR":
+        if task == "denoising" and subtask == "gaussian" and not gray and sigma is not None:
+            return build_mair(weights_dir, task, subtask, sigma, precision, device)
+        if (task, subtask) in (("denoising", "real"), ("deblurring", "motion")):
+            return build_mair(weights_dir, task, subtask, None, precision, device)
     raise ValueError("No model instance found for current configuration.")
