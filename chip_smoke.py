@@ -35,13 +35,36 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    bit for bit; one round with plain mixers, and the 96x72 request on the
    CPU, must agree with it to 1 uint8 LSB.
 
+6. K6, K2 and K7 at the five level shapes of MaIRUNet's 384x384 tile at
+   batch 8 (d_state 4, 8, 8, 16 and 32), K2 at the rectangular 384x328
+   tile of a 481x321 request (batch 2), and K3
+   (``selective_scan_fused_proj``) at that request's two K3 levels, 96x82
+   and 48x41 (batch 2, d_state 16 and 32), against their plain versions on
+   seeded MaIRUNet weights; K2 and K3 must repeat bit for bit. Kernel times
+   from CUDA events, the plain version timed once a shape.
+7. The MaIRUNet path: seeded weights for the released real-denoising
+   MaIRUNet (full width and depth) are written as
+   ``MaIR/denoising/MaIR_RealDN.pth`` and loaded through the zoo; noisy
+   inputs made on the host from a seed are served as they are
+   (``need_degradation=False``): a 720x1280 frame (15 tiles, chunks 8+7,
+   every level on K2) on the kernel path only, and 256x256 (one tile),
+   481x321 (two 384x328 tiles, K3 at 96x82 and 48x41) and 120x90 (one tile
+   padded to 120x96, K3 at 30x24 and 15x12) on both paths, three kernel
+   rounds. Launches per chunk follow each level's route (44 each of K6, K2,
+   K7 where every level is on K2; 24 of those and 20 of K3 otherwise); the
+   kernel path must repeat bit for bit and agree with the plain path, and
+   with the CPU on 120x90, to 1 uint8 LSB.
+
 Each path's launch counts are set to 0 just before it is served and read
-just after. The second-to-last line is the kernels' JSON summary: per
-kernel its launches on its path, max|kernel - plain|, kernel and plain ms,
-the least time the card could take for the same work (``bound_ms``: the
-larger of its bytes over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, the H100 SXM's data-sheet rates, computed from this run's
-shapes) and which of the two bounds it. The last line is
+just after; a kernel's launches in the JSON line are the sum over the paths
+it runs on. The second-to-last line is the kernels' JSON summary: per
+kernel its launches, max|kernel - plain| over every check, kernel and plain
+ms (K1: per Restormer@256 forward; K6, K2, K7: per call at MaIR-CDN@128,
+batch 8; K3: per forward chunk of the 481x321 request, its 12 calls at
+96x82 and 8 at 48x41), the least time the card could take for the same work
+(``bound_ms``: the larger of its bytes over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, the H100 SXM's data-sheet rates, computed from
+this run's shapes) and which of the two bounds it. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, exits non-zero
 and prints no last line; so does a machine without a CUDA card.
 """
@@ -74,6 +97,25 @@ REQUESTS = [(512, 512), (481, 321), (200, 150)]  # H x W x 3 uint8
 MAIR_REQUESTS = [(256, 256), (200, 150), (96, 72)]
 MAIR_TILE = 128  # MaIR-CDN's patch: the kernels' shapes on its path
 MAIR_BLOCKS = 36
+# MaIRUNet@384 at batch 8: (label, tile side, the stage whose block 0 gives
+# the mixer's weights, that width's blocks a forward)
+UNET_LEVELS = [
+    ("encoder1", 384, "encoder_level1", 4),
+    ("decoder1+refinement", 384, "decoder_level1", 8),
+    ("level2", 192, "encoder_level2", 12),
+    ("level3", 96, "encoder_level3", 12),
+    ("latent", 48, "latent", 8),
+]
+# the 481x321 request's two 384x328 tiles: K2a's case, and K3's two levels
+UNET_RECT = (384, 328, "encoder_level1")
+UNET_K3_LEVELS = [("level3", 96, 82, "encoder_level3", 12), ("latent", 48, 41, "latent", 8)]
+UNET_KERNEL_ONLY = [(720, 1280)]  # a GoPro frame
+UNET_REQUESTS = [(256, 256), (481, 321), (120, 90)]
+UNET_NOISE = 15.0  # sigma of the host noise on the real-denoising inputs
+# the stages of MaIRUNet and their pyramid level
+UNET_STAGES = [("encoder_level1", 0), ("encoder_level2", 1), ("encoder_level3", 2),
+               ("latent", 3), ("decoder_level3", 2), ("decoder_level2", 1),
+               ("decoder_level1", 0), ("refinement", 0)]
 ROUNDS = 3
 SIGMA = 25
 CONFIG = dict(layer_norm_bias=False)  # the color-denoising Restormer (BiasFree)
@@ -85,6 +127,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "mixer_prologue": ("tpuir_torch/csrc/nss_prologue.cu", "tpuir/ops/nss_prologue.py:121"),
     "nss_scan": ("tpuir_torch/csrc/nss_scan.cu", "tpuir/ops/nss_stripe.py:484"),
     "mixer_epilogue": ("tpuir_torch/csrc/nss_epilogue.cu", "tpuir/ops/nss_epilogue.py:140"),
+    "selective_scan_fused_proj": ("tpuir_torch/csrc/scan_fused_proj.cu",
+                                  "tpuir/ops/scan_pallas.py:340"),
 }
 
 
@@ -151,6 +195,17 @@ def scan_work(px, di, n, r):
     return nbytes, flops
 
 
+def k3_work(seqs, L, di, n, r):
+    """K3: xs in, y out (seqs = B*4 sequences of L positions), weights; per
+    position the x_dbl and dt projections, softplus, per state update
+    exp(dt*A), dt*B*x, the FMA into h and C.h, then D*x."""
+    c = r + 2 * n
+    pos = seqs * L
+    nbytes = 4 * (2 * pos * di + 4 * (c * di + di * r + di * n + 2 * di))
+    flops = pos * (2 * c * di + 2 * r * di + 4 * di + 7 * di * n + 2 * di)
+    return nbytes, flops
+
+
 def epilogue_work(px, di, dm, images):
     """K7: four direction images, z, gates and weights in, out out; the gated
     sum, LayerNorm, SiLU gate, out_proj."""
@@ -169,15 +224,17 @@ def timed_pair(kern, plain, iters=ITERS, plain_iters=None):
     return t_kern, t_plain
 
 
+def as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
 def compare(got, want, atol, rtol):
     """(max |got - want|, whether every element of got is finite and within
     atol + rtol * |want|) over a tensor or a tuple of them."""
     import torch
 
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
     worst, ok = 0.0, True
-    for g, w in zip(got, want):
+    for g, w in zip(as_tuple(got), as_tuple(want)):
         err = (g - w).abs()
         worst = max(worst, err.max().item())
         ok &= bool((err <= atol + rtol * w.abs()).all().item()) and bool(
@@ -259,19 +316,28 @@ def synthetic_image(h, w, seed):
     return np.clip(np.round(img * 255), 0, 255).astype(np.uint8)
 
 
-def serve(model, images, sigma=SIGMA):
+def noisy_image(clean, seed, sigma=UNET_NOISE):
+    """A real-denoising input: clean plus seeded Gaussian noise, in uint8."""
+    noise = np.random.RandomState(seed).randn(*clean.shape) * sigma
+    return np.clip(np.round(clean + noise), 0, 255).astype(np.uint8)
+
+
+def serve(model, images, sigma=SIGMA, targets=None):
+    """Serve each image; with ``sigma`` the engine adds host AWGN, with
+    ``sigma=None`` the image is served as it is. Scored against ``targets``
+    (default: the images)."""
     from tpuir_torch.core.engine import run_model_inference
     from tpuir_torch.core.metrics import calculate_metrics
 
     outs = []
-    for img in images:
+    for img, ref in zip(images, targets or images):
         pred, t_ms = run_model_inference(
             model, img, patch_size=model.patch_size, patch_overlap=model.patch_overlap,
-            need_degradation=True, noise_level=sigma,
+            need_degradation=sigma is not None, noise_level=sigma,
         )
         if pred.shape != img.shape or pred.dtype != np.uint8:
             fail(f"output {pred.shape} {pred.dtype} for input {img.shape} {img.dtype}")
-        psnr, ssim = calculate_metrics(pred, img)
+        psnr, ssim = calculate_metrics(pred, ref)
         if not (np.isfinite(psnr) and np.isfinite(ssim)):
             fail(f"non-finite metrics {psnr} {ssim}")
         outs.append((pred, t_ms, psnr, ssim))
@@ -297,42 +363,62 @@ def plain_twin(model, net):
     )
 
 
-def serve_and_check(label, model, plain, cpu_model, requests, kernels, per_chunk, order):
+def serve_and_check(label, model, plain, cpu_model, requests, per_chunk, order,
+                    sigma=SIGMA, kernel_only=()):
     """Serve ``requests`` on the kernel and plain paths in the given order of
-    rounds, with the kernels' counts set to 0 just before and read just
-    after; check the counts, repeatability, kernel vs plain and card vs CPU
-    (on the last request). Returns ({kernel: launches}, {path: Mpix/s})."""
+    rounds (``kernel_only`` requests first, in the kernel rounds only), with
+    the kernels' counts set to 0 just before and read just after; check the
+    counts against ``per_chunk(h, w)`` ({kernel: launches a forward chunk}),
+    repeatability, kernel vs plain and card vs CPU (on the last request).
+    With ``sigma=None`` the inputs are noisy images served as they are.
+    Returns ({kernel: launches}, {path: Mpix/s over ``requests``})."""
     import torch
 
     from tpuir_torch.ops import _kernels
 
-    images = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
+    sizes = list(kernel_only) + list(requests)
+    clean = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(sizes)]
+    images = clean if sigma is not None else [
+        noisy_image(c, SEED + 100 + i) for i, c in enumerate(clean)]
+    shared = slice(len(kernel_only), None)
     mpix = sum(h * w for h, w in requests) / 1e6
-    serve(model, images[-1:])  # warm-up: cuDNN and allocator, not counted
-    serve(plain, images[-1:])
+    serve(model, images[-1:], sigma)  # warm-up: cuDNN and allocator, not counted
+    serve(plain, images[-1:], sigma)
     torch.cuda.synchronize()
-    paths = {"kernel": model, "plain": plain}
+    paths = {"kernel": (model, images, clean), "plain": (plain, images[shared], clean[shared])}
     served = {"kernel": [], "plain": []}
     _kernels.reset_launches()
     for name in order:
-        served[name].append(serve(paths[name], images))
-    launches = {k: _kernels.LAUNCHES[k] for k in kernels}
-    n_chunks = sum(chunks_for(model, h, w) for h, w in requests)
+        net, imgs, refs = paths[name]
+        served[name].append(serve(net, imgs, sigma, refs))
     rounds = order.count("kernel")
+    want = {}
+    for h, w in sizes:
+        for k, n in per_chunk(h, w).items():
+            want[k] = want.get(k, 0) + n * chunks_for(model, h, w) * rounds
+    launches = {k: _kernels.LAUNCHES[k] for k in want}
     for k, n in launches.items():
-        print(f"{label}: {k} launches {n} ({per_chunk} blocks x {n_chunks} chunks x "
-              f"{rounds} rounds = {per_chunk * n_chunks * rounds})", flush=True)
-        if n != per_chunk * n_chunks * rounds:
-            fail(f"{k} launched {n} times on the {label} path, expected "
-                 f"{per_chunk * n_chunks * rounds}")
+        print(f"{label}: {k} launches {n} (expected {want[k]} over {rounds} rounds of "
+              f"{', '.join(f'{h}x{w}' for h, w in sizes)})", flush=True)
+        if n != want[k]:
+            fail(f"{k} launched {n} times on the {label} path, expected {want[k]}")
 
-    total = {"kernel": 0.0, "plain": 0.0}
-    for i, (h, w) in enumerate(requests):
+    for i, (h, w) in enumerate(kernel_only):
         pred, _, psnr, ssim = served["kernel"][0][i]
-        ppred = served["plain"][0][i]
         if any(not np.array_equal(rnd[i][0], pred) for rnd in served["kernel"]):
             fail(f"the {label} kernel path is not repeatable on {h}x{w}")
-        ms = {k: float(np.median([rnd[i][1] for rnd in v])) for k, v in served.items()}
+        ms = float(np.median([rnd[i][1] for rnd in served["kernel"]]))
+        print(f"{label} request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f}  kernel path "
+              f"{ms:.1f} ms {h * w / 1e3 / ms:.3f} Mpix/s (kernel path only)", flush=True)
+    kernel_rounds = [rnd[shared] for rnd in served["kernel"]]
+    total = {"kernel": 0.0, "plain": 0.0}
+    for i, (h, w) in enumerate(requests):
+        pred, _, psnr, ssim = kernel_rounds[0][i]
+        ppred = served["plain"][0][i]
+        if any(not np.array_equal(rnd[i][0], pred) for rnd in kernel_rounds):
+            fail(f"the {label} kernel path is not repeatable on {h}x{w}")
+        ms = {"kernel": float(np.median([rnd[i][1] for rnd in kernel_rounds])),
+              "plain": float(np.median([rnd[i][1] for rnd in served["plain"]]))}
         lsb = int(np.abs(pred.astype(int) - ppred[0].astype(int)).max())
         for k in total:
             total[k] += ms[k]
@@ -344,7 +430,7 @@ def serve_and_check(label, model, plain, cpu_model, requests, kernels, per_chunk
             fail(f"{label}: kernel and plain paths differ by {lsb} uint8 LSB on {h}x{w}")
 
     # the last request once more, on the CPU: an independent float32 reference
-    (cpu_pred, _, _, _), = serve(cpu_model, images[-1:])
+    (cpu_pred, _, _, _), = serve(cpu_model, images[-1:], sigma, clean[-1:])
     lsb = int(np.abs(cpu_pred.astype(int) - served["kernel"][0][-1][0].astype(int)).max())
     print(f"{label} request {requests[-1][0]}x{requests[-1][1]}x3 card vs CPU: max {lsb} LSB",
           flush=True)
@@ -380,41 +466,67 @@ def phase_main_path(device, requests=REQUESTS):
     order = [n for r in range(ROUNDS) for n in (("kernel", "plain") if r % 2 == 0
                                                 else ("plain", "kernel"))]
     return serve_and_check("Restormer", model, plain, cpu_model, requests,
-                           ["fused_transformer_block"], 44, order)
+                           lambda h, w: {"fused_transformer_block": 44}, order)
+
+
+def mixer_weights(sd, prefix, device):
+    """A mixer's weights (its keys under ``prefix``) on ``device``, with its
+    widths: (weights, d_model, d_inner, d_state)."""
+    w = {k[len(prefix):]: v.to(device) for k, v in sd.items() if k.startswith(prefix)}
+    two_di, dm = w["in_proj.weight"].shape
+    return w, dm, two_di // 2, w["A_logs"].shape[1]
+
+
+def mixer_operands(w, batch, hw, seed):
+    """The operands of K6, K2 and K7 for mixer weights ``w`` on a unit-scale
+    input of (batch, H, W), made by the plain versions: (prologue args,
+    scan kwargs, epilogue kwargs, {kernel: its plain output}, {kernel: its
+    plain version's ms}, each call timed once from CUDA events)."""
+    import torch
+
+    from tpuir_torch.ops.nss_epilogue import mixer_epilogue_plain
+    from tpuir_torch.ops.nss_prologue import mixer_prologue_plain
+    from tpuir_torch.ops.nss_stripe import nss_scan_plain
+
+    want, plain_ms = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        out = []
+        plain_ms[name] = cuda_ms(lambda: out.append(fn(*args, **kw)), 1)
+        want[name] = out[0]
+        return out[0]
+
+    di, dm = w["in_proj.weight"].shape[0] // 2, w["in_proj.weight"].shape[1]
+    n = w["A_logs"].shape[1]
+    h_img, w_img = hw
+    device = w["in_proj.weight"].device
+    h = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        batch, h_img, w_img, dm).astype(np.float32)).to(device)
+    pro = (h, w["in_proj.weight"], w["conv2d.weight"], w["conv2d.bias"])
+    x, z = timed("mixer_prologue", mixer_prologue_plain, *pro)
+    scan = dict(x=x, x_proj_w=w["x_proj_weight"], dt_w=w["dt_projs_weight"],
+                A=-torch.exp(w["A_logs"]).reshape(4, di, n), D=w["Ds"].reshape(4, di),
+                delta_bias=w["dt_projs_bias"])
+    y, pooled = timed("nss_scan", nss_scan_plain, **scan)
+    gw = w["gating.gating.1.weight"].reshape(di, 4, 4)
+    gb = w["gating.gating.1.bias"].reshape(di, 4)
+    gates = torch.sigmoid(torch.einsum("bid,doi->bod", pooled / (h_img * w_img), gw)
+                          + gb.t()[None]).contiguous()
+    epi = dict(y=y, gates=gates, z=z, ln_w=w["out_norm.weight"], ln_b=w["out_norm.bias"],
+               w_out=w["out_proj.weight"])
+    timed("mixer_epilogue", mixer_epilogue_plain, **epi)
+    return pro, scan, epi, want, plain_ms
 
 
 def mixer_inputs(device, batch, hw, seed=SEED):
     """Seeded MaIR-CDN mixer weights (block 0 of the released layout) and the
     activations the plain mixer makes from a unit-scale input of (batch, H, W)."""
-    import torch
-
     from tpuir_torch import zoo
     from tpuir_torch.models.mair import init_state_dict
-    from tpuir_torch.ops.nss_prologue import mixer_prologue_plain
-    from tpuir_torch.ops.nss_stripe import nss_scan_plain
 
-    cfg = zoo.MAIR_CDN_CONFIG
-    prefix = "layers.0.residual_group.blocks.0.self_attention."
-    sd = {k[len(prefix):]: v.to(device) for k, v in init_state_dict(cfg, seed=seed).items()
-          if k.startswith(prefix)}
-    di = sd["conv2d.weight"].shape[0]
-    n = sd["A_logs"].shape[1]
-    h_img, w_img = hw
-    h = torch.from_numpy(np.random.RandomState(seed + 1).randn(
-        batch, h_img, w_img, cfg["embed_dim"]).astype(np.float32)).to(device)
-    pro = (h, sd["in_proj.weight"], sd["conv2d.weight"], sd["conv2d.bias"])
-    x, z = mixer_prologue_plain(*pro)
-    scan = dict(x=x, x_proj_w=sd["x_proj_weight"], dt_w=sd["dt_projs_weight"],
-                A=-torch.exp(sd["A_logs"]).reshape(4, di, n), D=sd["Ds"].reshape(4, di),
-                delta_bias=sd["dt_projs_bias"])
-    y, pooled = nss_scan_plain(**scan)
-    gw = sd["gating.gating.1.weight"].reshape(di, 4, 4)
-    gb = sd["gating.gating.1.bias"].reshape(di, 4)
-    gates = torch.sigmoid(torch.einsum("bid,doi->bod", pooled / (h_img * w_img), gw)
-                          + gb.t()[None]).contiguous()
-    epi = dict(y=y, gates=gates, z=z, ln_w=sd["out_norm.weight"], ln_b=sd["out_norm.bias"],
-               w_out=sd["out_proj.weight"])
-    return pro, scan, epi
+    w, _, _, _ = mixer_weights(init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed),
+                               "layers.0.residual_group.blocks.0.self_attention.", device)
+    return mixer_operands(w, batch, hw, seed)[:3]
 
 
 def phase_mair_kernels(device):
@@ -513,8 +625,174 @@ def phase_mair_path(device, requests=MAIR_REQUESTS):
     plain = plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False))
     # the plain scan is slow: one plain round between the kernel rounds
     order = ["kernel", "plain"] + ["kernel"] * (ROUNDS - 1)
-    return serve_and_check("MaIR", model, plain, cpu_model, requests,
-                           ["mixer_prologue", "nss_scan", "mixer_epilogue"], MAIR_BLOCKS, order)
+    per_chunk = dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue"), MAIR_BLOCKS)
+    return serve_and_check("MaIR", model, plain, cpu_model, requests, lambda h, w: per_chunk,
+                           order)
+
+
+def check_case(label, kern, want, check, iters, plain_ms, work, repeat=False):
+    """Run kern once against the plain result ``want`` (and, with
+    ``repeat``, once more for bit-for-bit repeatability), time it from CUDA
+    events, print one line and fail on a miss. Returns (max|d|, kernel ms,
+    plain ms, bound ms, bound by)."""
+    import torch
+
+    got = kern()
+    torch.cuda.synchronize()
+    max_err, ok = check(got, want)
+    if repeat and not all(map(torch.equal, as_tuple(got), as_tuple(kern()))):
+        fail(f"{label} does not repeat bit for bit")
+    del got
+    t_kern = cuda_ms(kern, iters)
+    b_ms, b_by = bound(*work)
+    print(f"{label:34s} max|d|={max_err:.3e} ({'ok' if ok else 'MISS'})  kernel {t_kern:.3f} ms  "
+          f"plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    return max_err, t_kern, plain_ms, b_ms, b_by
+
+
+def phase_unet_kernels(device):
+    """K6, K2 and K7 at MaIRUNet's five level shapes of a 384x384 tile at
+    batch 8, K2 at the 384x328 tile (batch 2), and K3 at the 481x321
+    request's two K3 levels (batch 2), each against its plain version (TF32
+    off), the plain version timed once a shape. Returns ({kernel: max|d|},
+    {row label: (max|d|, ms, plain ms, bound ms, bound by)}, K3's row per
+    forward chunk of the 481x321 request)."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.mair_unet import init_state_dict
+    from tpuir_torch.ops.nss_epilogue import mixer_epilogue
+    from tpuir_torch.ops.nss_prologue import mixer_prologue
+    from tpuir_torch.ops.nss_stripe import nss_scan
+    from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
+                                                 selective_scan_fused_proj_plain)
+    from tpuir_torch.ops.scan_ids import scan_index_tensors
+
+    sd = init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)
+    worst, rows = {}, {}
+    plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
+    scan_bound = lambda g, w: compare(g, w, SCAN_ATOL, SCAN_RTOL)  # noqa: E731
+
+    def keep(name, label, row):
+        worst[name] = max(worst.get(name, 0.0), row[0])
+        rows[label] = row
+
+    with torch.inference_mode(), true_float32():
+        cases = [(label, t, t, stage, BATCH) for label, t, stage, _ in UNET_LEVELS]
+        cases.append(("rect", UNET_RECT[0], UNET_RECT[1], UNET_RECT[2], 2))
+        for label, hh, ww, stage, batch in cases:
+            w, dm, di, n = mixer_weights(sd, f"{stage}.0.self_attention.", device)
+            r = w["dt_projs_weight"].shape[-1]
+            px = batch * hh * ww
+            pro, scan, epi, want, plain_ms = mixer_operands(w, batch, (hh, ww), SEED)
+            tag = f"B={batch} {hh}x{ww} Dm={dm} Di={di} N={n}"
+            kernels = [
+                ("mixer_prologue", "K6", lambda: mixer_prologue(*pro), plain_bound,
+                 prologue_work(px, dm, di)),
+                ("nss_scan", "K2", lambda: nss_scan(**scan), compare_scan,
+                 scan_work(px, di, n, r)),
+                ("mixer_epilogue", "K7", lambda: mixer_epilogue(**epi), plain_bound,
+                 epilogue_work(px, di, dm, batch)),
+            ]
+            for name, short, kern, check, work in kernels:
+                if label == "rect" and name != "nss_scan":
+                    continue  # the rectangular tile is K2a's case
+                keep(name, f"{short} {label}", check_case(
+                    f"{short} {tag}", kern, want[name], check, 3, plain_ms[name], work,
+                    repeat=name == "nss_scan"))
+            del pro, scan, epi, want, kernels
+            torch.cuda.empty_cache()
+        for short in ("K6", "K2", "K7"):
+            fwd = [(count, rows[f"{short} {label}"]) for label, _, _, count in UNET_LEVELS]
+            print(f"{short} per MaIRUNet@384 forward (batch {BATCH}, "
+                  f"{sum(c for c, _ in fwd)} calls): kernel {sum(c * r[1] for c, r in fwd):.3f} "
+                  f"ms, plain {sum(c * r[2] for c, r in fwd):.3f} ms, bound "
+                  f"{sum(c * r[3] for c, r in fwd):.3f} ms", flush=True)
+
+        k3_ms = k3_plain = k3_bytes = k3_flops = 0.0
+        for label, hh, ww, stage, count in UNET_K3_LEVELS:
+            w, dm, di, n = mixer_weights(sd, f"{stage}.0.self_attention.", device)
+            r = w["dt_projs_weight"].shape[-1]
+            _, scan, _, _, _ = mixer_operands(w, 2, (hh, ww), SEED)
+            ids, _ = scan_index_tensors(hh, ww, 4, 0, device)
+            L = hh * ww
+            xs = scan["x"].reshape(2, L, di)[:, ids]
+            args = (xs, scan["x_proj_w"], scan["dt_w"], scan["A"], scan["D"],
+                    scan["delta_bias"])
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(selective_scan_fused_proj_plain(*args)), 1)
+            work = k3_work(2 * 4, L, di, n, r)
+            row = check_case(f"K3 B=2 {hh}x{ww} Di={di} N={n}",
+                             lambda: selective_scan_fused_proj(*args), want[0], scan_bound, 10,
+                             plain_ms, work, repeat=True)
+            keep("selective_scan_fused_proj", f"K3 {label}", row)
+            k3_ms += count * row[1]
+            k3_plain += count * row[2]
+            k3_bytes += count * work[0]
+            k3_flops += count * work[1]
+            del scan, xs, args, want
+    k3_row = (worst["selective_scan_fused_proj"], k3_ms, k3_plain) + bound(k3_bytes, k3_flops)
+    print(f"K3 per forward chunk of the 481x321 request (12 calls at 96x82, 8 at 48x41, "
+          f"batch 2): kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_row[3]:.3f} ms "
+          f"({k3_row[4]})", flush=True)
+    return worst, rows, k3_row
+
+
+def unet_per_chunk(model):
+    """{kernel: launches a forward chunk} of MaIRUNet for an h x w request:
+    each stage's blocks on K6, K2 and K7 where its level's H and W are
+    multiples of scan_len 4 (so even), else on K3, as the JAX module routes
+    them (``tpuir/models/mair.py:202-213``)."""
+    from tpuir_torch.core.tiling import tile_indices
+
+    def per_chunk(h, w):
+        ps, _, _ = tile_indices(h, w, model.patch_size, model.patch_overlap)
+        ph, pw = (-(-min(ps, s) // model.pad_factor) * model.pad_factor for s in (h, w))
+        out = dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue",
+                             "selective_scan_fused_proj"), 0)
+        for stage, lvl in UNET_STAGES:
+            n = len(getattr(model.net, stage))
+            if (ph >> lvl) % 4 == 0 and (pw >> lvl) % 4 == 0:
+                for k in ("mixer_prologue", "nss_scan", "mixer_epilogue"):
+                    out[k] += n
+            else:
+                out["selective_scan_fused_proj"] += n
+        return out
+
+    return per_chunk
+
+
+def phase_unet_path(device):
+    """Serve MaIRUNet (real denoising) on the kernel and plain paths; returns
+    ({kernel: launches}, {path: Mpix/s})."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.models.mair_unet import MaIRUNet, init_state_dict
+
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        path = os.path.join(wdir, "MaIR", "denoising", "MaIR_RealDN.pth")
+        os.makedirs(os.path.dirname(path))
+        torch.save({"params": init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)}, path)
+        model = zoo.get_model_instance("denoising", "real", "MaIR", weights_dir=wdir,
+                                       device=device)
+        cpu_model = zoo.get_model_instance("denoising", "real", "MaIR", weights_dir=wdir,
+                                           device="cpu")
+    print(f"main path: MaIRUNet real denoising, {model.param_count:,} params, "
+          f"patch {model.patch_size} overlap {model.patch_overlap} batch {model.batch_size}",
+          flush=True)
+    per_chunk = unet_per_chunk(model)
+    for h, w in UNET_KERNEL_ONLY + UNET_REQUESTS:
+        print(f"MaIRUNet {h}x{w}: {chunks_for(model, h, w)} chunks, per chunk "
+              f"{per_chunk(h, w)}", flush=True)
+    plain = plain_twin(model, MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=False))
+    # the plain scan is slow: one plain round between the kernel rounds
+    order = ["kernel", "plain"] + ["kernel"] * (ROUNDS - 1)
+    return serve_and_check("MaIRUNet", model, plain, cpu_model, UNET_REQUESTS, per_chunk,
+                           order, sigma=None, kernel_only=UNET_KERNEL_ONLY)
 
 
 def main() -> int:
@@ -559,6 +837,17 @@ def main() -> int:
     mair_launches, _ = phase_mair_path(device)
     launches.update(mair_launches)
     print(f"[MaIR path {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    unet_worst, _, k3_row = phase_unet_kernels(device)
+    rows["selective_scan_fused_proj"] = k3_row
+    for name, err in unet_worst.items():
+        rows[name] = (max(rows[name][0], err),) + rows[name][1:]
+    print(f"[MaIRUNet kernels {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    unet_launches, _ = phase_unet_path(device)
+    for name, n in unet_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[MaIRUNet path {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

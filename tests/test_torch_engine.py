@@ -68,7 +68,7 @@ def test_zoo_missing_checkpoint_raises(tmp_path):
     "model_name,kw,err",
     [
         ("Restormer", dict(precision="serving"), NotImplementedError),
-        ("MaIR", dict(subtask="real", sigma=None), NotImplementedError),  # MaIRUNet
+        ("MaIR", dict(subtask="real", sigma=None, precision="serving"), NotImplementedError),
         ("DnCNN", {}, NotImplementedError),
         ("Restormer", dict(sigma=35), ValueError),
     ],

@@ -121,25 +121,29 @@ def test_gather_and_blend_equal(h, w, ps, ov):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, found by walking the package (so a module
+    added later is checked too), and chip_smoke import with tpuir, JAX and
+    Flax blocked."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['tpuir'] = None\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
-        "import tpuir_torch, tpuir_torch.zoo, tpuir_torch.config\n"
-        "import tpuir_torch.core.engine, tpuir_torch.core.native\n"
-        "import tpuir_torch.core.metrics, tpuir_torch.core.image_io\n"
-        "import tpuir_torch.models.restormer, tpuir_torch.ops.fused_block\n"
-        "import tpuir_torch.models.mair, tpuir_torch.ops.nss_prologue\n"
-        "import tpuir_torch.ops.nss_stripe, tpuir_torch.ops.nss_epilogue\n"
-        "import tpuir_torch.ops.scan_ids, tpuir_torch.ops.selective_scan\n"
-        "import tpuir_torch.utils.misc, tpuir_torch.utils.profiling\n"
+        "import tpuir_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpuir_torch.__path__, 'tpuir_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "need = {'tpuir_torch.zoo', 'tpuir_torch.models.mair_unet',\n"
+        "        'tpuir_torch.ops.scan_fused_proj', 'tpuir_torch.core.engine'}\n"
+        "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
         "(m in ('tpuir', 'jax', 'flax') or m.startswith(('tpuir.', 'jax.', 'flax.')))]\n"
         "assert not bad, bad\n"
+        "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 25  # every module of the port, not a few

@@ -81,6 +81,31 @@ def test_ssmixer_matches_flax(monkeypatch, route, shift):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("shift", [False, True])
+def test_ssmixer_sequence_route_matches_flax(monkeypatch, shift):
+    """A 10x14 level: W is not a multiple of scan_len, so both packages take
+    the sequence route (the port through K3's wrapper, never K2's)."""
+    from tpuir.models import mair as jm
+    from tpuir_torch.models import mair as pm
+
+    mixer = SSMixer(32, 4, 1.5, 4).eval()
+    sd = _seeded(mixer, seed=5)
+    params = {"params": jm.convert_ssmixer(_numpy_sd(sd, "x."), "x", mixer.d_inner)}
+    x = _nhwc_input((2, 10, 14, 32), seed=6)
+    ids = jm.scan_ids_for(10, 14, 4)[int(shift)]
+    want = np.asarray(jm.SSMixer(32, 4, 1.5, scan_chunk=16).apply(params, x, ids, shift=shift))
+    calls = []
+    for name in ("nss_scan", "selective_scan_fused_proj"):
+        fn = getattr(pm, name)
+        monkeypatch.setattr(pm, name,
+                            lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+    assert not mixer.stripe_route(10, 14) and mixer.stripe_route(12, 16)
+    with torch.inference_mode():
+        got = mixer(torch.from_numpy(x), shift).numpy()
+    assert calls == ["selective_scan_fused_proj"]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("route", ROUTES)
 def test_block_matches_flax(monkeypatch, route):
     from tpuir.models import mair as jm
@@ -201,12 +226,14 @@ def test_zoo_engine_matches_tpuir(monkeypatch, tmp_path):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("sub,sigma,err", [("real", None, NotImplementedError),
-                                           ("gaussian", 35, ValueError)])
-def test_zoo_refuses_unported_mair(tmp_path, sub, sigma, err):
+@pytest.mark.parametrize("sub,sigma,precision,err", [
+    ("gaussian", 25, "serving", NotImplementedError),
+    ("gaussian", 35, "parity", ValueError),
+])
+def test_zoo_refuses_unported_mair(tmp_path, sub, sigma, precision, err):
     with pytest.raises(err):
         zoo.get_model_instance("denoising", sub, "MaIR", sigma=sigma, weights_dir=str(tmp_path),
-                               device="cpu")
+                               precision=precision, device="cpu")
 
 
 @pytest.mark.cuda

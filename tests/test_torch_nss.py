@@ -174,6 +174,31 @@ def test_scan_plain_matches_jax_reference_and_kernel(shift, H, W):
                                    err_msg=f"direction {k}")
 
 
+@pytest.mark.parametrize("n", [4, 8, 32])
+def test_scan_plain_state_widths_match_jax(n):
+    """MaIRUNet's d_state per level (4, 8, 16, 32): the plain scan against
+    the JAX reference and the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from tpuir.ops import nss_stripe as js
+
+    B, H, W, d, r = 1, 8, 12, 10, 2
+    ops = _scan_operands(B, H, W, d, n, r, seed=n)
+    j = {k: jnp.asarray(v) for k, v in ops.items()}
+    y_ref, pool_ref = js._reference(j["x"], j["x_proj_w"], j["dt_w"], j["A"], j["D"],
+                                    j["delta_bias"], 4, False)
+    y, pooled = nss_scan(**_torch(ops), scan_len=4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=SCAN_ATOL, rtol=SCAN_RTOL)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(pool_ref), atol=SCAN_ATOL,
+                               rtol=SCAN_RTOL)
+    xp = jnp.pad(j["x"], ((0, 0), (0, 0), (0, 0), (0, (-d) % 128)))
+    out = js.nss_scan_stripe_pre(xp, jnp.transpose(xp, (0, 2, 1, 3)), j["x_proj_w"], j["dt_w"],
+                                 j["A"], j["D"], j["delta_bias"], scan_len=4, shift=False,
+                                 vert_p=4, interpret=True)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(out[4]), atol=SCAN_ATOL,
+                               rtol=SCAN_RTOL)
+
+
 def test_scan_plain_full_width_matches_jax_reference():
     """MaIR-CDN's widths (d_inner 234, d_state 16, dt rank 12) on a small tile."""
     import jax.numpy as jnp
@@ -241,7 +266,7 @@ def test_wrappers_reject(fault):
         scan["x"] = scan["x"][:, :, :6].contiguous()
         call, err = lambda: nss_scan(**scan), ValueError
     elif fault == "wide_state":
-        ops = _torch(_scan_operands(1, 8, 8, 6, 17, 2, seed=0))
+        ops = _torch(_scan_operands(1, 8, 8, 6, 33, 2, seed=0))
         call, err = lambda: nss_scan(**ops), ValueError
     else:
         ops = _torch(_epilogue_operands(1, 4, 4, 1025, 4, seed=0))
@@ -273,7 +298,9 @@ def test_prologue_kernel_matches_plain_on_card(cuda_device, B, H, W, dm, di):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [False, True])
 @pytest.mark.parametrize("B,H,W,d,n,r", [(2, 8, 8, 6, 3, 2), (2, 16, 24, 40, 16, 3),
-                                         (2, 32, 32, 234, 16, 12), (1, 96, 72, 234, 16, 12)])
+                                         (2, 32, 32, 234, 16, 12), (1, 96, 72, 234, 16, 12),
+                                         (2, 32, 24, 96, 4, 3), (2, 16, 16, 192, 8, 6),
+                                         (2, 24, 16, 768, 32, 24), (1, 8, 12, 40, 32, 64)])
 def test_scan_kernel_matches_plain_on_card(cuda_device, shift, B, H, W, d, n, r):
     ops = _torch(_scan_operands(B, H, W, d, n, r, seed=H + W), cuda_device)
     before = _kernels.LAUNCHES["nss_scan"]

@@ -1,6 +1,6 @@
 // A float32 SIMT GEMM for the MaIR mixer kernels (nss_prologue.cu,
-// nss_scan.cu, nss_epilogue.cu): out = A . Wt^T, written through an
-// epilogue functor.
+// nss_scan.cu, nss_epilogue.cu, scan_fused_proj.cu): out = A . Wt^T, written
+// through an epilogue functor; optionally a batch of such products.
 //
 // The tile is K1's (fused_block.cu): 64 x 64 outputs a block of 256 threads,
 // 4 x 4 a thread, K slices of 16, 128-bit shared-memory reads, the next K
@@ -21,13 +21,19 @@ constexpr int kGemmBM = 64, kGemmBN = 64, kGemmBK = 16;
 
 // A is (M, K) row-major with row stride lda; Wt is (N, K) row-major, a
 // torch Linear weight as it is. epi(m, n, v) stores output (m, n).
+// Batched (gridDim.z products): product z reads rows [z*M, (z+1)*M) of A,
+// the weight Wt + (z % w_groups) * N * K, and stores its output row m as
+// row z*M + m.
 template <class Epi>
 __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
     const float* __restrict__ A, int lda, const float* __restrict__ Wt, int M, int N, int K,
-    Epi epi) {
+    int w_groups, Epi epi) {
   __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + 4];
   __shared__ __align__(16) float Bs[2][kGemmBK][kGemmBN + 4];
 
+  const int z = blockIdx.z;
+  A += (long long)z * M * lda;
+  Wt += (long long)(z % w_groups) * N * K;
   const int m0 = blockIdx.x * kGemmBM;
   const int n0 = blockIdx.y * kGemmBN;
   const int tid = threadIdx.x;
@@ -88,7 +94,7 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) epi((long long)m, n, acc[i][j]);
+      if (n < N) epi((long long)z * M + m, n, acc[i][j]);
     }
   }
 }
@@ -104,9 +110,9 @@ struct StoreRows {
 
 template <class Epi>
 int launch_simt_gemm(const float* A, int lda, const float* Wt, int M, int N, int K, Epi epi,
-                     cudaStream_t st) {
-  const dim3 grid((M + kGemmBM - 1) / kGemmBM, (N + kGemmBN - 1) / kGemmBN);
-  simt_gemm_nt_kernel<Epi><<<grid, kGemmThreads, 0, st>>>(A, lda, Wt, M, N, K, epi);
+                     cudaStream_t st, int batch = 1, int w_groups = 1) {
+  const dim3 grid((M + kGemmBM - 1) / kGemmBM, (N + kGemmBN - 1) / kGemmBN, batch);
+  simt_gemm_nt_kernel<Epi><<<grid, kGemmThreads, 0, st>>>(A, lda, Wt, M, N, K, w_groups, epi);
   return (int)cudaGetLastError();
 }
 

@@ -9,23 +9,33 @@ tensors, and the 3x3 convs see them as channels_last views. Parameter
 names are the released checkpoints' (upstream MaIR), so
 ``load_state_dict`` reads a released ``.pth``'s ``params``.
 
-The mixer (``SSMixer``, upstream VMM) is the stripe route of the JAX
-package: K6 (``ops/nss_prologue``) -> K2 (``ops/nss_stripe``) -> the gates
--> K7 (``ops/nss_epilogue``). With ``fused=True`` (the zoo's choice) it
-calls the kernel wrappers, which launch the CUDA kernels on a CUDA tensor
-and take their plain versions on a CPU tensor; with ``fused=False`` it
-calls the plain versions on any device. The gates are a tiny einsum between
-K2 and K7, sigmoid(sum_i pooled[b,i,d] / L * gw[d,o,i] + gb[d,o]), with the
-ShuffleAttn conv's weight as gw (its channel shuffles collapse into the
-(d, o, i) indexing, as in the JAX module). The 3x3 convs outside the mixer,
-the blocks' LayerNorms and the MLP are plain PyTorch in both modes; the
-body's convs run one image at a time on the card (``_body_conv``).
+The mixer (``SSMixer``, upstream VMM / LoSh2D) takes the JAX package's two
+routes, chosen as ``tpuir/models/mair.py:202-213`` chooses them:
+
+* the stripe route, where H and W are even multiples of ``scan_len``: K6
+  (``ops/nss_prologue``) -> K2 (``ops/nss_stripe``) -> the gates -> K7
+  (``ops/nss_epilogue``);
+* the sequence route on any other level (MaIRUNet's odd pyramid levels):
+  plain in_proj, depthwise conv and SiLU, the gather along the four scan
+  paths, K3 (``ops/scan_fused_proj``), the gates, the inverse gather and
+  the sum over directions, out_norm, SiLU(z) and out_proj
+  (``tpuir/models/mair.py:342-396``).
+
+With ``fused=True`` (the zoo's choice) it calls the kernel wrappers, which
+launch the CUDA kernels on a CUDA tensor and take their plain versions on a
+CPU tensor; with ``fused=False`` it calls the plain versions on any device.
+The gates are a tiny einsum, sigmoid(sum_i mean_i[b,d] * gw[d,o,i] +
+gb[d,o]) over the directions' means of y, with the ShuffleAttn conv's
+weight as gw (its channel shuffles collapse into the (d, o, i) indexing, as
+in the JAX module). The 3x3 convs outside the mixer, the blocks' LayerNorms
+and the MLP are plain PyTorch in both modes; the body's convs run one image
+at a time on the card (``_body_conv``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +45,9 @@ from torch import nn
 from tpuir_torch.ops.nss_epilogue import mixer_epilogue, mixer_epilogue_plain
 from tpuir_torch.ops.nss_prologue import mixer_prologue, mixer_prologue_plain
 from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain
+from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
+                                             selective_scan_fused_proj_plain)
+from tpuir_torch.ops.scan_ids import scan_index_tensors
 
 K = 4  # scan directions
 
@@ -96,26 +109,55 @@ class SSMixer(nn.Module):
         self.out_norm = nn.LayerNorm(d_inner)
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
 
+    def stripe_route(self, H: int, W: int) -> bool:
+        """Whether an (H, W) level takes K6 -> K2 -> K7 (else K3), as the JAX
+        module decides (``tpuir/models/mair.py:202-213``)."""
+        sl = self.scan_len
+        return H % sl == 0 and W % sl == 0 and H % 2 == 0 and W % 2 == 0
+
+    def _gates(self, mean: torch.Tensor) -> torch.Tensor:
+        """(B, K, d_inner) gates from the directions' means of y (B, K, d_inner)."""
+        di = self.d_inner
+        conv = self.gating.gating[1]
+        gw = conv.weight.reshape(di, K, K)
+        gb = conv.bias.reshape(di, K)
+        return torch.sigmoid(torch.einsum("bid,doi->bod", mean, gw) + gb.t()[None]).contiguous()
+
     def forward(self, h: torch.Tensor, shift: bool = False) -> torch.Tensor:
         """h: (B, H, W, d_model) -> (B, H, W, d_model)."""
         B, H, W, _ = h.shape
         di, n = self.d_inner, self.d_state
+        A = -torch.exp(self.A_logs).reshape(K, di, n)
+        scan_w = (self.x_proj_weight, self.dt_projs_weight, A, self.Ds.reshape(K, di),
+                  self.dt_projs_bias)
+        if not self.stripe_route(H, W):
+            return self._sequence_route(h, shift, scan_w)
         prologue, scan, epilogue = (
             (mixer_prologue, nss_scan, mixer_epilogue) if self.fused
             else (mixer_prologue_plain, nss_scan_plain, mixer_epilogue_plain))
         x, z = prologue(h.contiguous(), self.in_proj.weight, self.conv2d.weight,
                         self.conv2d.bias)
-        A = -torch.exp(self.A_logs).reshape(K, di, n)
-        y, pooled = scan(x, self.x_proj_weight, self.dt_projs_weight, A,
-                         self.Ds.reshape(K, di), self.dt_projs_bias, self.scan_len, shift)
-        conv = self.gating.gating[1]
-        gw = conv.weight.reshape(di, K, K)
-        gb = conv.bias.reshape(di, K)
-        gates = torch.sigmoid(
-            torch.einsum("bid,doi->bod", pooled / (H * W), gw) + gb.t()[None]
-        ).contiguous()  # (B, K, d_inner)
+        y, pooled = scan(x, *scan_w, self.scan_len, shift)
+        gates = self._gates(pooled / (H * W))
         return epilogue(y, gates, z, self.out_norm.weight, self.out_norm.bias,
                         self.out_proj.weight)
+
+    def _sequence_route(self, h: torch.Tensor, shift: bool, scan_w) -> torch.Tensor:
+        """Plain layers around K3 on gathered sequences (``tpuir/models/mair.py:342-396``)."""
+        B, H, W, _ = h.shape
+        L, di = H * W, self.d_inner
+        x, z = self.in_proj(h).split(di, -1)
+        x = F.silu(self.conv2d(_nchw(x)))
+        ids, inv = scan_index_tensors(H, W, self.scan_len, self.scan_len // 2 if shift else 0,
+                                      h.device)
+        xs = _nhwc(x).reshape(B, L, di)[:, ids]  # (B, K, L, d_inner), sequence order
+        scan = selective_scan_fused_proj if self.fused else selective_scan_fused_proj_plain
+        y = scan(xs, *scan_w)
+        y = y * self._gates(y.mean(2))[:, :, None]
+        # back to pixel order per direction, then the sum over directions
+        y = torch.gather(y, 2, inv[None, :, :, None].expand(B, K, L, di)).sum(1)
+        y = self.out_norm(y) * F.silu(z.reshape(B, L, di))
+        return self.out_proj(y).reshape(B, H, W, -1)
 
 
 class Mlp(nn.Module):
@@ -129,22 +171,25 @@ class Mlp(nn.Module):
 
 
 class MaIRBlock(nn.Module):
-    """RMB: LN -> mixer with a learnable skip scale -> LN -> MLP with another."""
+    """RMB (MaIRUNet's VSSBlock): LN -> mixer with a learnable skip scale ->
+    LN -> MLP with another. The MLP is ``conv_blk`` in MaIR's checkpoints
+    and ``mlp`` in MaIRUNet's (``mlp_attr``)."""
 
     def __init__(self, dim: int, d_state: int, ssm_ratio: float, mlp_ratio: float,
-                 scan_len: int = 4, fused: bool = True):
+                 scan_len: int = 4, fused: bool = True, mlp_attr: str = "conv_blk"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim)
         self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused)
         self.skip_scale = nn.Parameter(torch.ones(dim))
         self.ln_2 = nn.LayerNorm(dim)
-        self.conv_blk = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp_attr = mlp_attr
+        self.add_module(mlp_attr, Mlp(dim, int(dim * mlp_ratio)))
         self.skip_scale2 = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor, shift: bool = False) -> torch.Tensor:
         """x: (B, H, W, dim) -> (B, H, W, dim)."""
         x = x * self.skip_scale + self.self_attention(self.ln_1(x), shift)
-        return x * self.skip_scale2 + self.conv_blk(self.ln_2(x))
+        return x * self.skip_scale2 + getattr(self, self.mlp_attr)(self.ln_2(x))
 
 
 class ResidualGroup(nn.Module):
@@ -226,9 +271,10 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(sd: Dict[str, torch.Tensor], prefix: str, node: Mapping[str, Any]) -> None:
-    """An HWIO kernel (+ bias) back to OIHW."""
+    """An HWIO kernel (+ bias, where there is one) back to OIHW."""
     sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
-    sd[f"{prefix}.bias"] = _t(node["bias"])
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = _t(node["bias"])
 
 
 def _dense(sd: Dict[str, torch.Tensor], prefix: str, node: Mapping[str, Any]) -> None:
@@ -256,6 +302,18 @@ def _mixer_from_jax(sd: Dict[str, torch.Tensor], t: str, p: Mapping[str, Any]) -
     _dense(sd, f"{t}.out_proj", p["out_proj"])
 
 
+def block_from_jax(sd: Dict[str, torch.Tensor], t: str, node: Mapping[str, Any],
+                   mlp_attr: str) -> None:
+    """One block's params (``tpuir.models.mair.convert_block``'s output) under prefix t."""
+    _ln(sd, f"{t}.ln_1", node["ln_1"])
+    _ln(sd, f"{t}.ln_2", node["ln_2"])
+    sd[f"{t}.skip_scale"] = _t(node["skip_scale"])
+    sd[f"{t}.skip_scale2"] = _t(node["skip_scale2"])
+    _mixer_from_jax(sd, f"{t}.self_attention", node["self_attention"])
+    _dense(sd, f"{t}.{mlp_attr}.fc1", node["mlp"]["fc1"])
+    _dense(sd, f"{t}.{mlp_attr}.fc2", node["mlp"]["fc2"])
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's MaIR params (numpy leaves) as a torch state dict.
 
@@ -275,14 +333,7 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             _conv(sd, f"layers.{name.split('_')[1]}.conv", node)
         else:  # layers_{i}_blocks_{j}
             _, i, _, j = name.split("_")
-            t = f"layers.{i}.residual_group.blocks.{j}"
-            _ln(sd, f"{t}.ln_1", node["ln_1"])
-            _ln(sd, f"{t}.ln_2", node["ln_2"])
-            sd[f"{t}.skip_scale"] = _t(node["skip_scale"])
-            sd[f"{t}.skip_scale2"] = _t(node["skip_scale2"])
-            _mixer_from_jax(sd, f"{t}.self_attention", node["self_attention"])
-            _dense(sd, f"{t}.conv_blk.fc1", node["mlp"]["fc1"])
-            _dense(sd, f"{t}.conv_blk.fc2", node["mlp"]["fc2"])
+            block_from_jax(sd, f"layers.{i}.residual_group.blocks.{j}", node, "conv_blk")
     return sd
 
 
@@ -305,7 +356,20 @@ def init_state_dict(config: Optional[Mapping[str, Any]] = None, seed: int = 0
     drawn log-uniformly from [1e-3, 1e-1].
     """
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in MaIR(**(config or {})).state_dict().items()}
+        net = MaIR(**(config or {}))
+    return seeded_state_dict(
+        net, seed, output="conv_last.weight",
+        branch=lambda name: name.startswith("layers.") and name.endswith(".conv.weight"))
+
+
+def seeded_state_dict(net: nn.Module, seed: int, output: str,
+                      branch: Callable[[str], bool] = lambda name: False
+                      ) -> Dict[str, torch.Tensor]:
+    """``init_state_dict``'s draws for every entry of ``net``'s state dict
+    (which may live on the meta device), in its order: ``output`` is the
+    network's last conv, ``branch`` picks weights scaled like out_proj and
+    fc2 beside those two."""
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     rng = np.random.RandomState(seed)
     sd: Dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
@@ -327,10 +391,9 @@ def init_state_dict(config: Optional[Mapping[str, Any]] = None, seed: int = 0
             if leaf == "dt_projs_weight":
                 fan_in = shape[-1]
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
-            if name.endswith(("out_proj.weight", "fc2.weight")) or (
-                    name.startswith("layers.") and name.endswith(".conv.weight")):
+            if name.endswith(("out_proj.weight", "fc2.weight")) or branch(name):
                 a *= _BRANCH_GAIN
-            elif name == "conv_last.weight":
+            elif name == output:
                 a *= _OUTPUT_GAIN
         sd[name] = torch.from_numpy(np.asarray(a, np.float32))
     return sd

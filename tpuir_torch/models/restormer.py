@@ -125,9 +125,9 @@ class TransformerBlock(nn.Module):
 
 
 class OverlapPatchEmbed(nn.Module):
-    def __init__(self, in_c: int, embed_dim: int):
+    def __init__(self, in_c: int, embed_dim: int, bias: bool = False):
         super().__init__()
-        self.proj = nn.Conv2d(in_c, embed_dim, 3, padding=1, bias=False)
+        self.proj = nn.Conv2d(in_c, embed_dim, 3, padding=1, bias=bias)
 
     def forward(self, x):
         return self.proj(x)

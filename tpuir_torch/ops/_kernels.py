@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "fused_transformer_block": 0, "mixer_prologue": 0, "nss_scan": 0, "mixer_epilogue": 0,
+    "selective_scan_fused_proj": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -130,6 +131,10 @@ def library() -> ctypes.CDLL:
         lib.tpuir_nss_scan_f32.restype = ci
         lib.tpuir_mixer_epilogue_f32.argtypes = [vp] * 8 + [ci] * 4 + [vp]
         lib.tpuir_mixer_epilogue_f32.restype = ci
+        lib.tpuir_scan_fused_proj_scratch_numel.argtypes = [ci] * 5
+        lib.tpuir_scan_fused_proj_scratch_numel.restype = ctypes.c_longlong
+        lib.tpuir_scan_fused_proj_f32.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+        lib.tpuir_scan_fused_proj_f32.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

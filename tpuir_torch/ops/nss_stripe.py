@@ -31,7 +31,7 @@ from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.scan_ids import mair_scan_ids, scan_ids_tensor
 from tpuir_torch.ops.selective_scan import selective_scan
 
-MAX_STATE = 16  # the kernel keeps a channel's states in registers
+MAX_STATE = 32  # the kernel keeps a channel's states in registers (8, 16 or 32 of them)
 MAX_RANK = 64   # dt rank R: W_dt is staged in shared memory
 
 
@@ -47,8 +47,8 @@ def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int) -> Tuple[int, int
     if scan_len < 4 or scan_len % 4 or H % scan_len or W % scan_len:
         raise ValueError(
             f"nss_scan: H and W must be multiples of scan_len (a multiple of 4); got "
-            f"{H}x{W}, scan_len {scan_len}. Other shapes are the K3 path (ROADMAP Queue 1 "
-            f"item 7, MaIRUNet)")
+            f"{H}x{W}, scan_len {scan_len}. Other shapes take K3 "
+            f"(ops/scan_fused_proj.py) on gathered sequences")
     N = A.shape[-1]
     R = x_proj_w.shape[1] - 2 * N
     if not (0 < N <= MAX_STATE and 0 < R <= MAX_RANK):

@@ -2,7 +2,9 @@
 
 The port's copy of ``tpuir/ops/scan_ids.py`` (pure NumPy), held equal to it
 by ``tests/test_torch_nss.py``, plus ``scan_ids_tensor``, which hands the
-table to a kernel as an int32 tensor on its device. Semantics:
+table to a kernel as an int32 tensor on its device, and
+``scan_index_tensors``, the table and its inverse as int64 index tensors
+for the gathers around K3. Semantics:
 
 * The image is cut into vertical stripes of width ``scan_len`` (optionally
   preceded by a narrow stripe of width ``shift_len``).
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import threading
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +83,7 @@ def mair_scan_ids(
     return ids.astype(np.int32), inverse.astype(np.int32)
 
 
-_DEVICE_IDS: Dict[tuple, torch.Tensor] = {}
+_DEVICE_IDS: Dict[tuple, Any] = {}
 _DEVICE_IDS_LOCK = threading.Lock()
 
 
@@ -99,3 +101,19 @@ def scan_ids_tensor(H: int, W: int, scan_len: int, shift_len: int,
             ids = torch.from_numpy(mair_scan_ids(H, W, scan_len, shift_len)[0]).to(device)
             _DEVICE_IDS[key] = ids
     return ids
+
+
+def scan_index_tensors(H: int, W: int, scan_len: int, shift_len: int,
+                       device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scan ids, inverse ids), each a (4, H*W) int64 tensor on ``device``,
+    for indexing: ``x[:, ids]`` gathers an image's pixels (B, H*W, d) into
+    the four paths' sequences and ``inverse`` puts them back. Cached like
+    ``scan_ids_tensor``; callers must not write to them."""
+    key = (H, W, scan_len, shift_len, str(torch.device(device)), "index")
+    with _DEVICE_IDS_LOCK:
+        pair = _DEVICE_IDS.get(key)
+        if pair is None:
+            pair = tuple(torch.from_numpy(a).long().to(device)
+                         for a in mair_scan_ids(H, W, scan_len, shift_len))
+            _DEVICE_IDS[key] = pair
+    return pair

@@ -4,15 +4,17 @@
 ``trace_fn`` profiles one callable; ``kernel_times`` and ``op_device_ms``
 read device time from its profile by kernel and by aten op.
 
-    python -m tpuir_torch.utils.profiling [--batches 1,2,3,4,8]
+    python -m tpuir_torch.utils.profiling [--model mair|mairunet] [--batches 1,2,3,4,8]
 
-profiles one forward of MaIR-CDN@128 at each batch size on the card: full
+profiles one forward of MaIR-CDN@128 (``--model mair``, the default) or
+MaIRUNet@384 (``--model mairunet``) at each batch size on the card: full
 released width and depth, weights drawn from a seed, every mixer through
-K6, K2 and K7 as the zoo builds it, TF32 off as in the engine. Per batch it
-prints the forward's milliseconds (CUDA events), its device time by stage,
-its ten longest kernels, and the time of one residual group's 3x3 conv
-(180 -> 180 channels, cuDNN) called once on the batch and once per image.
-The last line is the same as one JSON object.
+its kernels as the zoo builds it (K6, K2 and K7; K3 on levels the stripe
+kernel does not take), TF32 off as in the engine. Per batch it prints the
+forward's milliseconds (CUDA events), its device time by stage, its ten
+longest kernels, and the time of each full 3x3 or 1x1 conv of the model
+(cuDNN) at the shape the forward gives it, called once on the batch and
+once per image. The last line is the same as one JSON object.
 """
 
 from __future__ import annotations
@@ -25,20 +27,23 @@ import torch
 
 # Kernel-name fragments of the mixer kernels, by stage. The SIMT GEMM's
 # epilogue type tells K6's in_proj (SplitXZ) from the row-store GEMMs of K2's
-# x_proj and K7's out_proj (StoreRows).
+# and K3's x_proj and K7's out_proj (StoreRows); the scan passes' path type
+# tells K2's (ImageIdsPath) from K3's (SequencePath).
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
-    ("K2 scan passes", ("scan_chunk_kernel", "chain_carries_kernel", "sum_partials_kernel")),
-    ("K2 x_proj + K7 out_proj GEMMs", ("StoreRows",)),
+    ("K2 scan passes", ("ImageIdsPath", "sum_partials_kernel")),
+    ("K3 scan passes", ("SequencePath",)),
+    ("x_proj (K2, K3) + out_proj (K7) GEMMs", ("StoreRows",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
 )
 # Library ops by the aten op that launched them (their self device time).
 LIBRARY_STAGES = (
-    ("3x3 convs (cuDNN)", "aten::cudnn_convolution"),
+    ("convs (cuDNN)", "aten::cudnn_convolution"),
     ("Linear (MLP, cuBLAS)", "aten::addmm"),
     ("LayerNorm", "aten::native_layer_norm"),
 )
+TILES = {"mair": 128, "mairunet": 384}
 
 
 def _profile():
@@ -91,19 +96,53 @@ def cuda_ms(fn: Callable, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_mair(batches=(1, 2, 3, 4, 8), tile: int = 128, seed: int = 0) -> dict:
-    """The MaIR-CDN forward breakdown described in the module docstring."""
+def _seeded_net(model: str, seed: int, dev: torch.device) -> torch.nn.Module:
     from tpuir_torch import zoo
+    from tpuir_torch.models import mair, mair_unet
+
+    if model == "mair":
+        net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True)
+        net.load_state_dict(mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
+    else:
+        net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True)
+        net.load_state_dict(mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=seed))
+    return net.to(dev).eval().requires_grad_(False)
+
+
+def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator) -> dict:
+    """{conv name: (C, H, W, ms on the batch, ms once per image)} for each
+    full (not depthwise) conv of net, at the (C, H, W) that a forward of x
+    gives it, on random channels_last inputs of x's batch."""
+    shapes, hooks = {}, []
+
+    def record(name, mod, args):
+        shapes.setdefault(name, (mod, tuple(args[0].shape[1:])))  # returns None: args unchanged
+
+    for name, mod in net.named_modules():
+        if isinstance(mod, torch.nn.Conv2d) and mod.groups == 1:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a, _n=name: record(_n, m, a)))
+    net(x)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for name, (conv, (c, hh, ww)) in shapes.items():
+        inp = torch.rand(x.shape[0], hh, ww, c, device=x.device, generator=gen).permute(0, 3, 1, 2)
+        out[name] = (c, hh, ww, cuda_ms(lambda: conv(inp)),
+                     cuda_ms(lambda: [conv(inp[i:i + 1]) for i in range(inp.shape[0])]))
+        del inp
+    return out
+
+
+def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0) -> dict:
+    """The forward breakdown described in the module docstring."""
     from tpuir_torch.core.engine import true_float32
-    from tpuir_torch.models.mair import MaIR, init_state_dict
 
     dev = torch.device("cuda")
-    net = MaIR(**zoo.MAIR_CDN_CONFIG, fused=True)
-    net.load_state_dict(init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
-    net = net.to(dev).eval().requires_grad_(False)
-    conv = net.layers[0].conv
+    tile = TILES[model]
+    net = _seeded_net(model, seed, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    res = {"card": torch.cuda.get_device_name(0), "tile": tile, "batches": {}}
+    res = {"card": torch.cuda.get_device_name(0), "model": model, "tile": tile, "batches": {}}
     with torch.inference_mode(), true_float32():
         for b in batches:
             x = torch.rand(b, 3, tile, tile, device=dev, generator=gen)
@@ -118,39 +157,36 @@ def profile_mair(batches=(1, 2, 3, 4, 8), tile: int = 128, seed: int = 0) -> dic
                 stages[name] = op_device_ms(prof, op)
             total = sum(ms for ms, _ in kernels.values())
             stages["other"] = total - sum(stages.values())
-            # one residual group's conv on the (b, 180, H, W) channels_last
-            # activation the model hands it
-            h = torch.rand(b, tile, tile, conv.in_channels, device=dev,
-                           generator=gen).permute(0, 3, 1, 2)
-            conv_ms = cuda_ms(lambda: conv(h))
-            conv_split_ms = cuda_ms(lambda: [conv(h[i:i + 1]) for i in range(b)])
             top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
             res["batches"][b] = {
                 "forward_ms": fwd_ms, "device_ms": total, "stages_ms": stages,
                 "top_kernels": [[k[:100], ms, n] for k, (ms, n) in top],
-                "conv_ms": conv_ms, "conv_per_image_ms": conv_split_ms,
+                "convs": conv_times(net, x, gen),
             }
-            del x, h, prof
+            del x, prof
     return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(TILES), default="mair")
     ap.add_argument("--batches", default="1,2,3,4,8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device")
         return 1
-    res = profile_mair(tuple(int(b) for b in args.batches.split(",")))
+    res = profile_model(args.model, tuple(int(b) for b in args.batches.split(",")))
     print(res["card"])
     for b, r in res["batches"].items():
-        print(f"batch {b}: forward {r['forward_ms']:.3f} ms (CUDA events), "
-              f"device {r['device_ms']:.3f} ms (profiler); 3x3 conv 180->180: "
-              f"{r['conv_ms']:.3f} ms on the batch, {r['conv_per_image_ms']:.3f} ms per image")
+        print(f"{args.model}@{res['tile']} batch {b}: forward {r['forward_ms']:.3f} ms "
+              f"(CUDA events), device {r['device_ms']:.3f} ms (profiler)")
         for name, ms in r["stages_ms"].items():
-            print(f"  {name:32s} {ms:9.3f} ms")
+            print(f"  {name:40s} {ms:9.3f} ms")
         for name, ms, n in r["top_kernels"]:
             print(f"    {ms:9.3f} ms {n:4d}x  {name}")
+        for name, (c, h, w, ms, per_ms) in r["convs"].items():
+            print(f"  conv {name:34s} in {c:3d}x{h}x{w}: {ms:8.3f} ms on the batch, "
+                  f"{per_ms:8.3f} ms per image")
     print(json.dumps(res))
     return 0
 

@@ -1,9 +1,10 @@
 """Model zoo of the PyTorch port: (task, subtask, model, gray, sigma) -> InferenceModel.
 
 The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
-(all 12 released configs) and MaIR-CDN (Gaussian color denoising, sigma 15,
-25 and 50); the other families and MaIRUNet raise ``NotImplementedError``
-naming the ROADMAP item that ports them. Checkpoints are the released
+(all 12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15,
+25 and 50) and MaIRUNet (MaIR's real denoising and motion deblurring); the
+other families and serving precision raise ``NotImplementedError`` naming
+the ROADMAP item that ports them. Checkpoints are the released
 files, read with ``torch.load(..., weights_only=True)``; a missing file
 raises ``FileNotFoundError``, which the harness treats as "skip this cell".
 Models are built on the card unless the caller asks for another device.
@@ -92,29 +93,41 @@ def build_restormer(weights_dir: str, task: str, subtask: str, gray: bool, sigma
 MAIR_CDN_CONFIG = dict(embed_dim=180, depths=(6,) * 6, d_state=16, ssm_ratio=1.3,
                        mlp_ratio=2.0, scan_len=4)
 MAIR_CDN_SIGMAS = (15, 25, 50)
+# MaIRUNet's released config (the JAX zoo's, from upstream's
+# test_MaIR_RealDN.yml) and its checkpoints under MaIR/.
+MAIR_UNET_CONFIG = dict(dim=48, num_blocks=(4, 6, 6, 8), num_refinement_blocks=4,
+                        ssm_ratio=2.0, flp_ratio=4.0, mlp_ratio=1.5, scan_len=4)
+MAIR_UNET_WEIGHTS = {
+    ("denoising", "real"): os.path.join("denoising", "MaIR_RealDN.pth"),
+    ("deblurring", "motion"): os.path.join("deblurring", "MaIR_MotionDeblur.pth"),
+}
 
 
 def build_mair(weights_dir: str, task: str, subtask: str, sigma,
                precision: str = "parity",
                device: Union[str, torch.device] = "cuda") -> InferenceModel:
-    """The released MaIR-CDN for this sigma, every mixer through K6, K2 and K7."""
+    """The released MaIR-CDN for this sigma (Gaussian denoising) or MaIRUNet
+    (real denoising, motion deblurring); every mixer through K6, K2 and K7,
+    or K3 on levels the stripe kernel does not take."""
     from tpuir_torch.models import mair as m
+    from tpuir_torch.models import mair_unet as mu
 
-    if (task, subtask) != ("denoising", "gaussian"):
-        raise NotImplementedError(
-            f"MaIR {task}/{subtask} is MaIRUNet, not ported yet: ROADMAP Queue 1 item 7, "
-            "'MaIRUNet'")
-    if sigma not in MAIR_CDN_SIGMAS:
+    gaussian = (task, subtask) == ("denoising", "gaussian")
+    if gaussian and sigma not in MAIR_CDN_SIGMAS:
         raise ValueError(f"no MaIR-CDN config for sigma={sigma}")
+    if not gaussian and (task, subtask) not in MAIR_UNET_WEIGHTS:
+        raise ValueError(f"no MaIR config for {task}/{subtask}")
     if precision != "parity":
         raise NotImplementedError(
             "precision='serving' is not ported yet: ROADMAP Queue 1 item 5, "
             "'Serving precision and K1's bf16 mode'"
         )
-    sd = _load_sd(os.path.join(weights_dir, "MaIR", "denoising", f"MaIR_CDN_s{sigma}.pth"),
-                  key="params")
+    rel = (os.path.join("denoising", f"MaIR_CDN_s{sigma}.pth") if gaussian
+           else MAIR_UNET_WEIGHTS[(task, subtask)])
+    sd = _load_sd(os.path.join(weights_dir, "MaIR", rel), key="params")
     device = torch.device(device)
-    net = m.MaIR(**MAIR_CDN_CONFIG, fused=True)
+    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True) if gaussian
+           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True))
     # keys the model does not hold (if a checkpoint carries any) are ignored,
     # as the JAX converter ignores them; a missing or misshapen one raises
     keys = net.state_dict().keys()
