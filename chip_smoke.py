@@ -54,19 +54,45 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    K7 where every level is on K2; 24 of those and 20 of K3 otherwise); the
    kernel path must repeat bit for bit and agree with the plain path, and
    with the CPU on 120x90, to 1 uint8 LSB.
+8. K5 (``nss_scan_fused``) against its plain version (the id table against
+   the kernel's stripe arithmetic): MaIR-CDN@128 at batch 8 with the shift
+   off and on (timed plain, kernel, kernel, plain), the 96x72 tile at batch
+   1 (y23 72x96), MaIRUNet's five level shapes of a 384x384 tile at batch 8
+   and the 384x328 tile at batch 2; it must repeat bit for bit.
+9. The fused route: MaIR-CDN and MaIRUNet built through the zoo with
+   ``nss="fused"`` on the seeded weights of phases 5 and 7. MaIR-CDN serves
+   phase 5's three requests, three rounds: 36 K5 launches a chunk and none
+   of K6, K2 or K7, repeatable, within 1 uint8 LSB of phase 5's stripe-route
+   outputs, and on 96x72 of the fused route's plain path and of the CPU;
+   engine Mpix/s beside the stripe route's. MaIRUNet serves the 481x321
+   request, three rounds: 24 K5 and 20 K3 launches a chunk, within 1 LSB of
+   phase 7's output.
+10. K4 (``selective_scan_kernel``): its entry point at MaIR-CDN's shape
+    (B 8, K 4, L 16,384, D 234, N 16), at MaIRUNet's latent (B 8, K 4,
+    L 2,304, D 768, N 32) and at a ragged case with K 2 and no D or delta
+    bias, then each output against ``selective_scan``, repeated bit for bit.
+11. P1 (``utils/micro_rate.probe``) against ``probe_plain`` at the JAX
+    probe's shapes (x (8, 512, 128), 32 rounds) for mul, fma and exp2,
+    within rtol 1e-5 and bit for bit on repeat; then the rate entry point
+    (the three elementwise rates), the float32 and bf16 ``torch.matmul``
+    rates at 8192^3 and the scan floor at MaIR-CDN@128 from the measured
+    rates, beside K2's and K5's times of phases 4 and 8.
 
-Each path's launch counts are set to 0 just before it is served and read
-just after; a kernel's launches in the JSON line are the sum over the paths
-it runs on. The second-to-last line is the kernels' JSON summary: per
-kernel its launches, max|kernel - plain| over every check, kernel and plain
-ms (K1: per Restormer@256 forward; K6, K2, K7: per call at MaIR-CDN@128,
-batch 8; K3: per forward chunk of the 481x321 request, its 12 calls at
-96x82 and 8 at 48x41), the least time the card could take for the same work
-(``bound_ms``: the larger of its bytes over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, the H100 SXM's data-sheet rates, computed from
-this run's shapes) and which of the two bounds it. The last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises, exits non-zero
-and prints no last line; so does a machine without a CUDA card.
+Each path's launch counts are set to 0 just before it is served (K4's and
+P1's entry points: just before they are called) and read just after; a
+kernel's launches in the JSON line are the sum over the paths it runs on.
+The second-to-last line is the kernels' JSON summary: per kernel its
+launches, max|kernel - plain| over every check (P1: relative), kernel and
+plain ms (K1: per Restormer@256 forward; K6, K2, K7, K5: per call at
+MaIR-CDN@128, batch 8; K3: per forward chunk of the 481x321 request, its 12
+calls at 96x82 and 8 at 48x41; K4: per call at MaIR-CDN's shape; P1: per
+call at the JAX shapes, the mean over the three ops), the least time the
+card could take for the same work (``bound_ms``: the larger of its bytes
+over 3.35 TB/s and its float32 operations over 67 TFLOP/s, an exponential
+counted as one, the H100 SXM's data-sheet rates, computed from this run's
+shapes) and which of the two bounds it. The last line is ``{"ok": true,
+"device": {...}}``. Any failed phase raises, exits non-zero and prints no
+last line; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
@@ -112,6 +138,12 @@ UNET_K3_LEVELS = [("level3", 96, 82, "encoder_level3", 12), ("latent", 48, 41, "
 UNET_KERNEL_ONLY = [(720, 1280)]  # a GoPro frame
 UNET_REQUESTS = [(256, 256), (481, 321), (120, 90)]
 UNET_NOISE = 15.0  # sigma of the host noise on the real-denoising inputs
+UNET_FUSED_REQUEST = (481, 321)  # MaIRUNet on the fused route: K5 at 384x328, 192x164
+# K4 at (label, B, K, L, D, N, with D and delta_bias)
+K4_CASES = [("MaIR-CDN@128", 8, 4, 128 * 128, 234, 16, True),
+            ("MaIRUNet latent@384", 8, 4, 48 * 48, 768, 32, True),
+            ("ragged", 3, 2, 777, 100, 9, False)]
+PROBE_RTOL = 1e-5
 # the stages of MaIRUNet and their pyramid level
 UNET_STAGES = [("encoder_level1", 0), ("encoder_level2", 1), ("encoder_level3", 2),
                ("latent", 3), ("decoder_level3", 2), ("decoder_level2", 1),
@@ -129,6 +161,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "mixer_epilogue": ("tpuir_torch/csrc/nss_epilogue.cu", "tpuir/ops/nss_epilogue.py:140"),
     "selective_scan_fused_proj": ("tpuir_torch/csrc/scan_fused_proj.cu",
                                   "tpuir/ops/scan_pallas.py:340"),
+    "nss_scan_fused": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
+    "selective_scan": ("tpuir_torch/csrc/selective_scan.cu", "tpuir/ops/scan_pallas.py:117"),
+    "rate_probe": ("tpuir_torch/csrc/rate_probe.cu", "benchmarks/micro_vpu.py:60"),
 }
 
 
@@ -195,6 +230,23 @@ def scan_work(px, di, n, r):
     return nbytes, flops
 
 
+def k5_work(px, di, n, r):
+    """K5: scan_work less the id table, which K5 does not read."""
+    nbytes, flops = scan_work(px, di, n, r)
+    return nbytes - 4 * 4 * px, flops
+
+
+def k4_work(seqs, L, di, n):
+    """K4: u and delta in, B and C in, y out (seqs = B*K sequences of L
+    positions), A, D and the bias; per position and channel the bias add,
+    softplus, D*u, and per state update exp(dt*A), dt*B*u, the FMA into h
+    and C.h."""
+    pos = seqs * L
+    nbytes = 4 * (3 * pos * di + 2 * pos * n + seqs * (di * n + 2 * di))
+    flops = pos * (5 * di + 7 * di * n + 2 * di)
+    return nbytes, flops
+
+
 def k3_work(seqs, L, di, n, r):
     """K3: xs in, y out (seqs = B*4 sequences of L positions), weights; per
     position the x_dbl and dt projections, softplus, per state update
@@ -252,6 +304,19 @@ def compare_scan(got, want):
     worst, ok = compare(y, ry, SCAN_ATOL, SCAN_RTOL)
     err = (pooled - rpooled).abs()
     ok &= bool((err <= SCAN_ATOL + SCAN_RTOL * ry.abs().sum((2, 3))).all().item()) and bool(
+        torch.isfinite(pooled).all().item())
+    return max(worst, err.max().item()), ok
+
+
+def compare_fused(got, want):
+    """compare_scan() for K5's (y01, y23, pooled)."""
+    import torch
+
+    (y01, y23, pooled), (r01, r23, rpooled) = got, want
+    worst, ok = compare((y01, y23), (r01, r23), SCAN_ATOL, SCAN_RTOL)
+    err = (pooled - rpooled).abs()
+    sum_y = torch.cat([r01.abs().sum((2, 3)), r23.abs().sum((2, 3))], 1)
+    ok &= bool((err <= SCAN_ATOL + SCAN_RTOL * sum_y).all().item()) and bool(
         torch.isfinite(pooled).all().item())
     return max(worst, err.max().item()), ok
 
@@ -371,7 +436,8 @@ def serve_and_check(label, model, plain, cpu_model, requests, per_chunk, order,
     counts against ``per_chunk(h, w)`` ({kernel: launches a forward chunk}),
     repeatability, kernel vs plain and card vs CPU (on the last request).
     With ``sigma=None`` the inputs are noisy images served as they are.
-    Returns ({kernel: launches}, {path: Mpix/s over ``requests``})."""
+    Returns ({kernel: launches}, {path: Mpix/s over ``requests``},
+    {(h, w): (the kernel path's output, its median ms)} over every request)."""
     import torch
 
     from tpuir_torch.ops import _kernels
@@ -439,12 +505,15 @@ def serve_and_check(label, model, plain, cpu_model, requests, per_chunk, order,
     rate = {k: mpix / (v / 1e3) for k, v in total.items()}
     print(f"{label} engine over the {len(requests)} requests ({mpix:.4f} Mpix): kernel path "
           f"{rate['kernel']:.3f} Mpix/s, plain path {rate['plain']:.3f} Mpix/s", flush=True)
-    return launches, rate
+    outs = {hw: (served["kernel"][0][i][0],
+                 float(np.median([rnd[i][1] for rnd in served["kernel"]])))
+            for i, hw in enumerate(sizes)}
+    return launches, rate, outs
 
 
 def phase_main_path(device, requests=REQUESTS):
     """Serve Restormer on the kernel and plain paths; returns
-    ({"fused_transformer_block": launches}, {path: Mpix/s})."""
+    ({"fused_transformer_block": launches}, {path: Mpix/s}, outputs)."""
     import torch
 
     from tpuir_torch import zoo
@@ -605,7 +674,7 @@ def phase_mair_kernels(device):
 
 def phase_mair_path(device, requests=MAIR_REQUESTS):
     """Serve MaIR-CDN on the kernel and plain paths; returns
-    ({kernel: launches}, {path: Mpix/s})."""
+    ({kernel: launches}, {path: Mpix/s}, {(h, w): (kernel output, ms)})."""
     import torch
 
     from tpuir_torch import zoo
@@ -741,22 +810,23 @@ def phase_unet_kernels(device):
     return worst, rows, k3_row
 
 
-def unet_per_chunk(model):
+def unet_per_chunk(model, fused=False):
     """{kernel: launches a forward chunk} of MaIRUNet for an h x w request:
-    each stage's blocks on K6, K2 and K7 where its level's H and W are
-    multiples of scan_len 4 (so even), else on K3, as the JAX module routes
-    them (``tpuir/models/mair.py:202-213``)."""
+    each stage's blocks on K6, K2 and K7 (with ``fused``: on K5) where its
+    level's H and W are multiples of scan_len 4 (so even), else on K3, as
+    the JAX module routes them (``tpuir/models/mair.py:196-213``)."""
     from tpuir_torch.core.tiling import tile_indices
 
     def per_chunk(h, w):
         ps, _, _ = tile_indices(h, w, model.patch_size, model.patch_overlap)
         ph, pw = (-(-min(ps, s) // model.pad_factor) * model.pad_factor for s in (h, w))
-        out = dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue",
-                             "selective_scan_fused_proj"), 0)
+        on_level = ("nss_scan_fused",) if fused else ("mixer_prologue", "nss_scan",
+                                                      "mixer_epilogue")
+        out = dict.fromkeys(on_level + ("selective_scan_fused_proj",), 0)
         for stage, lvl in UNET_STAGES:
             n = len(getattr(model.net, stage))
             if (ph >> lvl) % 4 == 0 and (pw >> lvl) % 4 == 0:
-                for k in ("mixer_prologue", "nss_scan", "mixer_epilogue"):
+                for k in on_level:
                     out[k] += n
             else:
                 out["selective_scan_fused_proj"] += n
@@ -767,7 +837,7 @@ def unet_per_chunk(model):
 
 def phase_unet_path(device):
     """Serve MaIRUNet (real denoising) on the kernel and plain paths; returns
-    ({kernel: launches}, {path: Mpix/s})."""
+    ({kernel: launches}, {path: Mpix/s}, {(h, w): (kernel output, ms)})."""
     import torch
 
     from tpuir_torch import zoo
@@ -793,6 +863,320 @@ def phase_unet_path(device):
     order = ["kernel", "plain"] + ["kernel"] * (ROUNDS - 1)
     return serve_and_check("MaIRUNet", model, plain, cpu_model, UNET_REQUESTS, per_chunk,
                            order, sigma=None, kernel_only=UNET_KERNEL_ONLY)
+
+
+def scan_operands(w, batch, hw, seed):
+    """K2's and K5's operands for mixer weights ``w``: x from the plain
+    prologue on a unit-scale input of (batch, H, W), and the scan weights."""
+    import torch
+
+    from tpuir_torch.ops.nss_prologue import mixer_prologue_plain
+
+    di, dm = w["in_proj.weight"].shape[0] // 2, w["in_proj.weight"].shape[1]
+    n = w["A_logs"].shape[1]
+    h = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        batch, hw[0], hw[1], dm).astype(np.float32)).to(w["in_proj.weight"].device)
+    x, _ = mixer_prologue_plain(h, w["in_proj.weight"], w["conv2d.weight"], w["conv2d.bias"])
+    return dict(x=x, x_proj_w=w["x_proj_weight"], dt_w=w["dt_projs_weight"],
+                A=-torch.exp(w["A_logs"]).reshape(4, di, n), D=w["Ds"].reshape(4, di),
+                delta_bias=w["dt_projs_bias"])
+
+
+def phase_fused_kernels(device):
+    """K5 against its plain version (TF32 off): MaIR-CDN@128 at batch 8 with
+    the shift off and on (timed in turns, plain kernel kernel plain), the
+    96x72 tile at batch 1, MaIRUNet's five level shapes of a 384x384 tile
+    at batch 8 and the 384x328 tile at batch 2 (the plain version timed once
+    a shape); it must repeat bit for bit. Returns (max|d|, ms, plain ms,
+    bound ms, bound by), per call at MaIR-CDN@128, the mean over both
+    shifts."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.mair_unet import init_state_dict
+    from tpuir_torch.ops.nss_fused import nss_scan_fused, nss_scan_fused_plain
+
+    cfg = zoo.MAIR_CDN_CONFIG
+    dm = cfg["embed_dim"]
+    di, n, r = int(cfg["ssm_ratio"] * dm), cfg["d_state"], -(-dm // 16)
+    worst, cdn = 0.0, []
+    with torch.inference_mode(), true_float32():
+        t = MAIR_TILE
+        _, scan, _ = mixer_inputs(device, BATCH, (t, t))
+        for shift in (False, True):
+            kern = lambda shift=shift: nss_scan_fused(**scan, shift=shift)  # noqa: E731
+            plain = lambda shift=shift: nss_scan_fused_plain(**scan, shift=shift)  # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            max_err, ok = compare_fused(got, want)
+            if not all(map(torch.equal, got, kern())):
+                fail(f"K5 at {t}x{t} shift={shift} does not repeat bit for bit")
+            del got, want
+            t_kern, t_plain = timed_pair(kern, plain, 3, 1)
+            b_ms, b_by = bound(*k5_work(BATCH * t * t, di, n, r))
+            print(f"K5 B={BATCH} {t}x{t} shift={int(shift)}      max|d|={max_err:.3e} "
+                  f"({'ok' if ok else 'MISS'})  kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  "
+                  f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+            if not ok:
+                fail(f"K5 disagrees with its plain version at {t}x{t} shift={shift}")
+            worst = max(worst, max_err)
+            cdn.append((t_kern, t_plain, b_ms, b_by))
+        del scan
+        # the rectangular tile the 96x72 request gives: y23 is 72x96
+        _, scan, _ = mixer_inputs(device, 1, (96, 72))
+        for shift in (False, True):
+            got = nss_scan_fused(**scan, shift=shift)
+            max_err, ok = compare_fused(got, nss_scan_fused_plain(**scan, shift=shift))
+            print(f"K5 B=1 96x72 shift={int(shift)}      max|d|={max_err:.3e} "
+                  f"({'ok' if ok else 'MISS'})", flush=True)
+            if not ok:
+                fail(f"K5 disagrees with its plain version at 96x72 shift={shift}")
+            worst = max(worst, max_err)
+        del scan
+
+        sd = init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)
+        cases = [(label, tt, tt, stage, BATCH, count) for label, tt, stage, count in UNET_LEVELS]
+        cases.append(("rect", UNET_RECT[0], UNET_RECT[1], UNET_RECT[2], 2, 0))
+        fwd = [0.0, 0.0, 0.0]
+        for label, hh, ww, stage, batch, count in cases:
+            w, dm_, di_, n_ = mixer_weights(sd, f"{stage}.0.self_attention.", device)
+            scan = scan_operands(w, batch, (hh, ww), SEED)
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(nss_scan_fused_plain(**scan)), 1)
+            row = check_case(f"K5 B={batch} {hh}x{ww} Dm={dm_} Di={di_} N={n_}",
+                             lambda: nss_scan_fused(**scan), want[0], compare_fused, 3, plain_ms,
+                             k5_work(batch * hh * ww, di_, n_, w["dt_projs_weight"].shape[-1]),
+                             repeat=True)
+            worst = max(worst, row[0])
+            for i in range(3):
+                fwd[i] += count * row[1 + i]
+            del scan, want
+            torch.cuda.empty_cache()
+        print(f"K5 per MaIRUNet@384 forward on the fused route (batch {BATCH}, "
+              f"{sum(c for *_, c in cases)} calls): kernel {fwd[0]:.3f} ms, plain {fwd[1]:.3f} ms, "
+              f"bound {fwd[2]:.3f} ms", flush=True)
+    mean = lambda i: sum(c[i] for c in cdn) / len(cdn)  # noqa: E731
+    return worst, mean(0), mean(1), mean(2), cdn[0][3]
+
+
+def serve_kernel_rounds(label, model, images, sizes, per_chunk, sigma, refs=None):
+    """Serve ``images`` ROUNDS times on ``model`` with the kernels' counts
+    set to 0 just before and read just after; check the counts against
+    ``per_chunk(h, w)`` (kernels not named there must not launch) and
+    repeatability. Returns ({kernel: launches}, [(output, median ms)])."""
+    import torch
+
+    from tpuir_torch.ops import _kernels
+
+    serve(model, images[-1:], sigma, (refs or images)[-1:])  # warm-up, not counted
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    rounds = [serve(model, images, sigma, refs) for _ in range(ROUNDS)]
+    launches = dict(_kernels.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    for h, w in sizes:
+        for k, n in per_chunk(h, w).items():
+            want[k] += n * chunks_for(model, h, w) * ROUNDS
+    for k, n in launches.items():
+        if n or want[k]:
+            print(f"{label}: {k} launches {n} (expected {want[k]} over {ROUNDS} rounds of "
+                  f"{', '.join(f'{h}x{w}' for h, w in sizes)})", flush=True)
+        if n != want[k]:
+            fail(f"{k} launched {n} times on the {label} path, expected {want[k]}")
+    outs = []
+    for i, (h, w) in enumerate(sizes):
+        pred = rounds[0][i][0]
+        if any(not np.array_equal(rnd[i][0], pred) for rnd in rounds):
+            fail(f"the {label} kernel path is not repeatable on {h}x{w}")
+        outs.append((pred, float(np.median([rnd[i][1] for rnd in rounds]))))
+    return {k: n for k, n in launches.items() if n}, outs
+
+
+def lsb(a, b) -> int:
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def phase_fused_path(device, mair_stripe, unet_stripe):
+    """Serve MaIR-CDN and MaIRUNet built with ``nss="fused"``: MaIR-CDN's
+    three requests (36 K5 launches a chunk, no K6, K2 or K7) within 1 LSB of
+    the stripe route's kernel outputs ``mair_stripe`` ({(h, w): (output,
+    ms)}), of the fused route's plain path and of the CPU on 96x72; MaIRUNet's
+    481x321 request (24 K5 and 20 K3 launches a chunk) within 1 LSB of
+    ``unet_stripe``. Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.models.mair import MaIR
+    from tpuir_torch.models.mair import init_state_dict as mair_state_dict
+    from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
+
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        os.makedirs(os.path.join(wdir, "MaIR", "denoising"))
+        torch.save({"params": mair_state_dict(zoo.MAIR_CDN_CONFIG, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", f"MaIR_CDN_s{SIGMA}.pth"))
+        torch.save({"params": unet_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", "MaIR_RealDN.pth"))
+        model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
+                                       weights_dir=wdir, device=device, nss="fused")
+        cpu_model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
+                                           weights_dir=wdir, device="cpu", nss="fused")
+        unet = zoo.get_model_instance("denoising", "real", "MaIR", weights_dir=wdir,
+                                      device=device, nss="fused")
+    print(f"fused route: MaIR-CDN sigma={SIGMA} and MaIRUNet real denoising, nss=fused",
+          flush=True)
+    images = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(MAIR_REQUESTS)]
+    launches, outs = serve_kernel_rounds(
+        "MaIR-CDN fused", model, images, MAIR_REQUESTS,
+        lambda h, w: {"nss_scan_fused": MAIR_BLOCKS}, SIGMA)
+    for (h, w), (pred, ms) in zip(MAIR_REQUESTS, outs):
+        diff = lsb(pred, mair_stripe[(h, w)][0])
+        print(f"MaIR-CDN fused request {h}x{w}x3: kernel path {ms:.1f} ms "
+              f"{h * w / 1e3 / ms:.3f} Mpix/s (stripe route {mair_stripe[(h, w)][1]:.1f} ms)  "
+              f"max|fused-stripe| {diff} LSB", flush=True)
+        if diff > 1:
+            fail(f"the fused and stripe routes differ by {diff} uint8 LSB on {h}x{w}")
+    mpix = sum(h * w for h, w in MAIR_REQUESTS) / 1e6
+    rate = mpix / (sum(ms for _, ms in outs) / 1e3)
+    stripe_rate = mpix / (sum(mair_stripe[hw][1] for hw in MAIR_REQUESTS) / 1e3)
+    print(f"MaIR-CDN engine over the {len(MAIR_REQUESTS)} requests ({mpix:.4f} Mpix): fused "
+          f"route {rate:.3f} Mpix/s, stripe route {stripe_rate:.3f} Mpix/s", flush=True)
+    # the last request on the fused route's plain path and on the CPU
+    plain = plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, nss="fused"))
+    for name, net in (("plain path", plain), ("CPU", cpu_model)):
+        (pred, _, _, _), = serve(net, images[-1:], SIGMA)
+        diff = lsb(pred, outs[-1][0])
+        h, w = MAIR_REQUESTS[-1]
+        print(f"MaIR-CDN fused request {h}x{w}x3 kernel path vs {name}: max {diff} LSB",
+              flush=True)
+        if diff > 1:
+            fail(f"the fused route's kernel path and {name} differ by {diff} LSB on {h}x{w}")
+    del model, plain, cpu_model
+
+    h, w = UNET_FUSED_REQUEST
+    i = (UNET_KERNEL_ONLY + UNET_REQUESTS).index(UNET_FUSED_REQUEST)  # phase 7's image
+    clean = synthetic_image(h, w, SEED + i)
+    img = noisy_image(clean, SEED + 100 + i)
+    per_chunk = unet_per_chunk(unet, fused=True)
+    print(f"MaIRUNet fused {h}x{w}: {chunks_for(unet, h, w)} chunks, per chunk "
+          f"{per_chunk(h, w)}", flush=True)
+    unet_launches, ((pred, ms),) = serve_kernel_rounds(
+        "MaIRUNet fused", unet, [img], [UNET_FUSED_REQUEST], per_chunk, None, [clean])
+    diff = lsb(pred, unet_stripe[UNET_FUSED_REQUEST][0])
+    print(f"MaIRUNet fused request {h}x{w}x3: kernel path {ms:.1f} ms {h * w / 1e3 / ms:.3f} "
+          f"Mpix/s (stripe route {unet_stripe[UNET_FUSED_REQUEST][1]:.1f} ms, "
+          f"{h * w / 1e3 / unet_stripe[UNET_FUSED_REQUEST][1]:.3f} Mpix/s)  "
+          f"max|fused-stripe| {diff} LSB", flush=True)
+    if diff > 1:
+        fail(f"MaIRUNet's fused and stripe routes differ by {diff} uint8 LSB on {h}x{w}")
+    for k, n in unet_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def phase_selective_scan(device):
+    """K4: its entry point driven once on each of K4_CASES with the counts
+    set to 0 just before and read just after, then each output held against
+    ``selective_scan`` (TF32 off), repeated bit for bit and timed (CUDA
+    events; plain once). Returns (launches, (max|d|, ms, plain ms, bound ms,
+    bound by) at MaIR-CDN's shape)."""
+    import torch
+
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops import _kernels
+    from tpuir_torch.ops.selective_scan import selective_scan, selective_scan_kernel
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def operands(b, k, L, d, n, with_d):
+        f = lambda *s: torch.randn(*s, device=device, generator=gen)  # noqa: E731
+        return dict(u=f(b, k, L, d), delta=f(b, k, L, d) * 0.5,
+                    A=-torch.exp(f(k, d, n) * 0.5), Bmat=f(b, k, L, n), Cmat=f(b, k, L, n),
+                    D=f(k, d) if with_d else None, delta_bias=f(k, d) * 0.3 if with_d else None)
+
+    worst, first = 0.0, None
+    with torch.inference_mode(), true_float32():
+        cases = [(label, b, k, L, d, n, with_d, operands(b, k, L, d, n, with_d))
+                 for label, b, k, L, d, n, with_d in K4_CASES]
+        _kernels.reset_launches()
+        ys = [selective_scan_kernel(**case[-1]) for case in cases]
+        torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES["selective_scan"]
+        print(f"K4 entry point: {launches} launches over {len(cases)} calls", flush=True)
+        if launches != len(cases):
+            fail(f"K4's entry point launched {launches} times for {len(cases)} calls")
+        for (label, b, k, L, d, n, with_d, ops), y in zip(cases, ys):
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(selective_scan(**ops)), 1)
+            max_err, ok = compare(y, want[0], SCAN_ATOL, SCAN_RTOL)
+            if not torch.equal(y, selective_scan_kernel(**ops)):
+                fail(f"K4 {label} does not repeat bit for bit")
+            del want
+            t_kern = cuda_ms(lambda: selective_scan_kernel(**ops), ITERS)
+            b_ms, b_by = bound(*k4_work(b * k, L, d, n))
+            print(f"K4 {label:20s} B={b} K={k} L={L} D={d} N={n} D,bias={'yes' if with_d else 'no'}"
+                  f"  max|d|={max_err:.3e} ({'ok' if ok else 'MISS'})  kernel {t_kern:.3f} ms  "
+                  f"plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+            if not ok:
+                fail(f"K4 disagrees with its plain version at {label}")
+            worst = max(worst, max_err)
+            first = first or (t_kern, plain_ms, b_ms, b_by)
+        del cases, ys
+        torch.cuda.empty_cache()
+    return launches, (worst,) + first
+
+
+def phase_probe(device, scan_ms):
+    """P1 against ``probe_plain`` at the JAX probe's shapes (x (8, 512, 128),
+    rounds 32) for each op, within PROBE_RTOL and bit for bit on repeat;
+    then the rate entry point (counts set to 0 just before, read just after),
+    the GEMM rates and the scan floor beside ``scan_ms`` ({kernel: ms a
+    call at MaIR-CDN@128}). Returns (launches, (max rel|d|, mean ms, mean
+    plain ms, bound ms, bound by) over the three ops at rounds 32)."""
+    import torch
+
+    from tpuir_torch.ops import _kernels
+    from tpuir_torch.utils import micro_rate
+
+    x = torch.from_numpy(np.random.RandomState(SEED).rand(
+        micro_rate.STREAMS, *micro_rate.BLOCK).astype(np.float32)).to(device)
+    worst, rows = 0.0, []
+    for op in micro_rate.OPS:
+        got = micro_rate.probe(x, op)
+        want = micro_rate.probe_plain(x, op)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        ok = rel <= PROBE_RTOL and bool(torch.isfinite(got).all().item())
+        if not torch.equal(got, micro_rate.probe(x, op)):
+            fail(f"P1 {op} does not repeat bit for bit")
+        t_kern = cuda_ms(lambda: micro_rate.probe(x, op), ITERS)
+        t_plain = cuda_ms(lambda: micro_rate.probe_plain(x, op), 3)
+        elems = x.numel() * micro_rate.ROUNDS
+        b_ms, b_by = bound(4 * (x.numel() + x[0].numel()), elems)
+        print(f"P1 {op:4s} x (8, 512, 128) rounds {micro_rate.ROUNDS}  max rel|d|={rel:.3e} "
+              f"(rtol {PROBE_RTOL:g}: {'ok' if ok else 'MISS'})  kernel {t_kern:.4f} ms  "
+              f"plain {t_plain:.3f} ms  bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if not ok:
+            fail(f"P1 {op} disagrees with its plain version")
+        worst = max(worst, rel)
+        rows.append((t_kern, t_plain, b_ms, b_by))
+
+    _kernels.reset_launches()
+    rates = micro_rate.elementwise_rates(device)
+    launches = _kernels.LAUNCHES["rate_probe"]
+    if not launches:
+        fail("the rate entry point launched no probe")
+    for op, rate in rates.items():
+        print(f"P1 rate {op:4s} {rate:12.1f} Gelem/s (rounds {micro_rate.TIMED_ROUNDS})",
+              flush=True)
+    for name, tf in micro_rate.gemm_rates(device).items():
+        print(f"torch.matmul {name} 8192^3 {tf:9.1f} TFLOP/s", flush=True)
+    floor = micro_rate.scan_floor_ms(rates)
+    print(f"scan floor at MaIR-CDN@128, batch 8, d_inner 234 (3 mul + 3 fma + 1 exp a state "
+          f"update at the measured rates): {floor:.4f} ms; "
+          + ", ".join(f"{k} {ms:.3f} ms ({ms / floor:.2f}x)" for k, ms in scan_ms.items()),
+          flush=True)
+    mean = lambda i: sum(r[i] for r in rows) / len(rows)  # noqa: E731
+    return launches, (worst, mean(0), mean(1), mean(2), rows[0][3])
 
 
 def main() -> int:
@@ -827,14 +1211,14 @@ def main() -> int:
           f"plain {k1_plain_ms:.2f} ms, bound {k1_bound:.2f} ms ({k1_by}); "
           f"max|d| {k1_err:.3e}  [{time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    launches, _ = phase_main_path(device)
+    launches, _, _ = phase_main_path(device)
     print(f"[Restormer path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     rows = {"fused_transformer_block": (k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by)}
     rows.update(phase_mair_kernels(device))
     print(f"[MaIR kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    mair_launches, _ = phase_mair_path(device)
+    mair_launches, _, mair_outs = phase_mair_path(device)
     launches.update(mair_launches)
     print(f"[MaIR path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
@@ -844,10 +1228,24 @@ def main() -> int:
         rows[name] = (max(rows[name][0], err),) + rows[name][1:]
     print(f"[MaIRUNet kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    unet_launches, _ = phase_unet_path(device)
+    unet_launches, _, unet_outs = phase_unet_path(device)
     for name, n in unet_launches.items():
         launches[name] = launches.get(name, 0) + n
     print(f"[MaIRUNet path {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    rows["nss_scan_fused"] = phase_fused_kernels(device)
+    print(f"[K5 {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_fused_path(device, mair_outs, unet_outs).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[fused route {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    launches["selective_scan"], rows["selective_scan"] = phase_selective_scan(device)
+    print(f"[K4 {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    scan_ms = {"K2": rows["nss_scan"][1], "K5": rows["nss_scan_fused"][1]}
+    launches["rate_probe"], rows["rate_probe"] = phase_probe(device, scan_ms)
+    print(f"[P1 {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -135,7 +135,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "need = {'tpuir_torch.zoo', 'tpuir_torch.models.mair_unet',\n"
-        "        'tpuir_torch.ops.scan_fused_proj', 'tpuir_torch.core.engine'}\n"
+        "        'tpuir_torch.ops.scan_fused_proj', 'tpuir_torch.core.engine',\n"
+        "        'tpuir_torch.ops.nss_fused', 'tpuir_torch.utils.micro_rate'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
         "(m in ('tpuir', 'jax', 'flax') or m.startswith(('tpuir.', 'jax.', 'flax.')))]\n"

@@ -99,7 +99,7 @@ def test_ssmixer_sequence_route_matches_flax(monkeypatch, shift):
         fn = getattr(pm, name)
         monkeypatch.setattr(pm, name,
                             lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
-    assert not mixer.stripe_route(10, 14) and mixer.stripe_route(12, 16)
+    assert mixer.route(10, 14) == "sequence" and mixer.route(12, 16) == "stripe"
     with torch.inference_mode():
         got = mixer(torch.from_numpy(x), shift).numpy()
     assert calls == ["selective_scan_fused_proj"]

@@ -43,23 +43,6 @@
 #include "chunk_scan.cuh"
 #include "simt_gemm.cuh"
 
-namespace {
-
-// pooled[bk, d] = sum over chunks, in chunk order, of partial[bk, c, d].
-__global__ void __launch_bounds__(256) sum_partials_kernel(const float* __restrict__ partial,
-                                                           float* __restrict__ pooled,
-                                                           long long BK, int nchunk, int D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= BK * D) return;
-  const long long bk = i / D;
-  const int d = (int)(i - bk * D);
-  float s = 0.f;
-  for (int c = 0; c < nchunk; ++c) s += partial[(bk * nchunk + c) * D + d];
-  pooled[i] = s;
-}
-
-}  // namespace
-
 extern "C" {
 
 // Floats of scratch tpuir_nss_scan_f32 needs: x_dbl, the chunk states and
@@ -100,10 +83,7 @@ int tpuir_nss_scan_f32(const float* x, const int* ids, const float* x_proj_w, co
                         L, D, N, R, nchunk};
   if ((err = run_chunk_scan<ImageIdsPath>(a, BK, st))) return err;
   // 4. pooled sums in chunk order
-  const long long outs = BK * D;
-  sum_partials_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(partial, pooled, BK, nchunk,
-                                                                      D);
-  return (int)cudaGetLastError();
+  return launch_sum_partials<ImageIdsPath>(partial, pooled, BK, nchunk, D, st);
 }
 
 }  // extern "C"

@@ -9,17 +9,23 @@ tensors, and the 3x3 convs see them as channels_last views. Parameter
 names are the released checkpoints' (upstream MaIR), so
 ``load_state_dict`` reads a released ``.pth``'s ``params``.
 
-The mixer (``SSMixer``, upstream VMM / LoSh2D) takes the JAX package's two
-routes, chosen as ``tpuir/models/mair.py:202-213`` chooses them:
+The mixer (``SSMixer``, upstream VMM / LoSh2D) takes the JAX package's
+three routes, chosen per level as ``tpuir/models/mair.py:196-213`` chooses
+them under its ``TPUIR_NSS`` knob (the mixer's ``nss``: "stripe", the
+default, "fused" or "0"); ``SSMixer.route`` names a level's route:
 
-* the stripe route, where H and W are even multiples of ``scan_len``: K6
-  (``ops/nss_prologue``) -> K2 (``ops/nss_stripe``) -> the gates -> K7
-  (``ops/nss_epilogue``);
-* the sequence route on any other level (MaIRUNet's odd pyramid levels):
-  plain in_proj, depthwise conv and SiLU, the gather along the four scan
-  paths, K3 (``ops/scan_fused_proj``), the gates, the inverse gather and
-  the sum over directions, out_norm, SiLU(z) and out_proj
-  (``tpuir/models/mair.py:342-396``).
+* the stripe route ("stripe", where H and W are even multiples of
+  ``scan_len``): K6 (``ops/nss_prologue``) -> K2 (``ops/nss_stripe``) ->
+  the gates -> K7 (``ops/nss_epilogue``);
+* the fused route ("fused", where H and W are multiples of ``scan_len``):
+  plain in_proj, depthwise conv and SiLU, K5 (``ops/nss_fused``), the gates
+  from its pooled sums, the gated four-direction sum, out_norm, SiLU(z) and
+  out_proj (``tpuir/models/mair.py:304-341`` and ``:389-397``);
+* the sequence route on any other level (MaIRUNet's odd pyramid levels,
+  and every level under "0"): plain in_proj, depthwise conv and SiLU, the
+  gather along the four scan paths, K3 (``ops/scan_fused_proj``), the
+  gates, the inverse gather and the sum over directions, out_norm, SiLU(z)
+  and out_proj (``tpuir/models/mair.py:342-396``).
 
 With ``fused=True`` (the zoo's choice) it calls the kernel wrappers, which
 launch the CUDA kernels on a CUDA tensor and take their plain versions on a
@@ -43,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuir_torch.ops.nss_epilogue import mixer_epilogue, mixer_epilogue_plain
+from tpuir_torch.ops.nss_fused import nss_scan_fused, nss_scan_fused_plain
 from tpuir_torch.ops.nss_prologue import mixer_prologue, mixer_prologue_plain
 from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain
 from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
@@ -50,6 +57,7 @@ from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
 from tpuir_torch.ops.scan_ids import scan_index_tensors
 
 K = 4  # scan directions
+NSS_MODES = ("stripe", "fused", "0")  # the JAX module's TPUIR_NSS values
 
 
 def _nchw(h: torch.Tensor) -> torch.Tensor:
@@ -91,13 +99,16 @@ class SSMixer(nn.Module):
     """VMM: the 4-direction NSS selective-scan mixer with the shuffle gate."""
 
     def __init__(self, d_model: int, d_state: int = 16, expand: float = 2.0,
-                 scan_len: int = 4, fused: bool = True):
+                 scan_len: int = 4, fused: bool = True, nss: str = "stripe"):
         super().__init__()
+        if nss not in NSS_MODES:
+            raise ValueError(f"nss must be one of {NSS_MODES}, got {nss!r}")
         self.d_inner = d_inner = int(expand * d_model)
         self.dt_rank = math.ceil(d_model / 16)
         self.d_state = d_state
         self.scan_len = scan_len
         self.fused = fused
+        self.nss = nss
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
         self.conv2d = nn.Conv2d(d_inner, d_inner, 3, padding=1, groups=d_inner)
         self.x_proj_weight = nn.Parameter(torch.zeros(K, self.dt_rank + 2 * d_state, d_inner))
@@ -109,11 +120,16 @@ class SSMixer(nn.Module):
         self.out_norm = nn.LayerNorm(d_inner)
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
 
-    def stripe_route(self, H: int, W: int) -> bool:
-        """Whether an (H, W) level takes K6 -> K2 -> K7 (else K3), as the JAX
-        module decides (``tpuir/models/mair.py:202-213``)."""
+    def route(self, H: int, W: int) -> str:
+        """The route of an (H, W) level: "stripe" (K6 -> K2 -> K7), "fused"
+        (K5) or "sequence" (K3), as the JAX module picks it under
+        ``TPUIR_NSS=self.nss`` (``tpuir/models/mair.py:196-213``)."""
         sl = self.scan_len
-        return H % sl == 0 and W % sl == 0 and H % 2 == 0 and W % 2 == 0
+        if H % sl or W % sl:
+            return "sequence"
+        if self.nss == "stripe" and H % 2 == 0 and W % 2 == 0:
+            return "stripe"
+        return "sequence" if self.nss == "0" else "fused"
 
     def _gates(self, mean: torch.Tensor) -> torch.Tensor:
         """(B, K, d_inner) gates from the directions' means of y (B, K, d_inner)."""
@@ -130,8 +146,11 @@ class SSMixer(nn.Module):
         A = -torch.exp(self.A_logs).reshape(K, di, n)
         scan_w = (self.x_proj_weight, self.dt_projs_weight, A, self.Ds.reshape(K, di),
                   self.dt_projs_bias)
-        if not self.stripe_route(H, W):
+        route = self.route(H, W)
+        if route == "sequence":
             return self._sequence_route(h, shift, scan_w)
+        if route == "fused":
+            return self._fused_route(h, shift, scan_w)
         prologue, scan, epilogue = (
             (mixer_prologue, nss_scan, mixer_epilogue) if self.fused
             else (mixer_prologue_plain, nss_scan_plain, mixer_epilogue_plain))
@@ -141,6 +160,23 @@ class SSMixer(nn.Module):
         gates = self._gates(pooled / (H * W))
         return epilogue(y, gates, z, self.out_norm.weight, self.out_norm.bias,
                         self.out_proj.weight)
+
+    def _fused_route(self, h: torch.Tensor, shift: bool, scan_w) -> torch.Tensor:
+        """Plain layers around K5 (``tpuir/models/mair.py:304-341``, ``:389-397``)."""
+        B, H, W, _ = h.shape
+        L, di = H * W, self.d_inner
+        x, z = self.in_proj(h).split(di, -1)
+        # batched, unlike the body convs: cuDNN's float32 depthwise conv is
+        # faster on the batch than one image at a time at every level (PERF.md)
+        x = _nhwc(F.silu(self.conv2d(_nchw(x)))).contiguous()
+        scan = nss_scan_fused if self.fused else nss_scan_fused_plain
+        y01, y23, pooled = scan(x, *scan_w, self.scan_len, shift)
+        g = self._gates(pooled / L)[:, :, None, None]  # (B, K, 1, 1, d_inner)
+        # the four directions back in image layout, gated and summed
+        y = (y01[:, 0] * g[:, 0] + y01[:, 1] * g[:, 1]
+             + y23[:, 0].transpose(1, 2) * g[:, 2] + y23[:, 1].transpose(1, 2) * g[:, 3])
+        y = self.out_norm(y.reshape(B, L, di)) * F.silu(z.reshape(B, L, di))
+        return self.out_proj(y).reshape(B, H, W, -1)
 
     def _sequence_route(self, h: torch.Tensor, shift: bool, scan_w) -> torch.Tensor:
         """Plain layers around K3 on gathered sequences (``tpuir/models/mair.py:342-396``)."""
@@ -176,10 +212,11 @@ class MaIRBlock(nn.Module):
     and ``mlp`` in MaIRUNet's (``mlp_attr``)."""
 
     def __init__(self, dim: int, d_state: int, ssm_ratio: float, mlp_ratio: float,
-                 scan_len: int = 4, fused: bool = True, mlp_attr: str = "conv_blk"):
+                 scan_len: int = 4, fused: bool = True, mlp_attr: str = "conv_blk",
+                 nss: str = "stripe"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim)
-        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused)
+        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused, nss)
         self.skip_scale = nn.Parameter(torch.ones(dim))
         self.ln_2 = nn.LayerNorm(dim)
         self.mlp_attr = mlp_attr
@@ -204,10 +241,11 @@ class RMG(nn.Module):
     """A residual group: blocks (odd ones on the shifted scan), a 3x3 conv, a skip."""
 
     def __init__(self, dim: int, depth: int, d_state: int, ssm_ratio: float,
-                 mlp_ratio: float, scan_len: int, fused: bool):
+                 mlp_ratio: float, scan_len: int, fused: bool, nss: str = "stripe"):
         super().__init__()
         self.residual_group = ResidualGroup(
-            [MaIRBlock(dim, d_state, ssm_ratio, mlp_ratio, scan_len, fused) for _ in range(depth)])
+            [MaIRBlock(dim, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss=nss)
+             for _ in range(depth)])
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
@@ -231,7 +269,7 @@ class MaIR(nn.Module):
     def __init__(self, in_chans: int = 3, embed_dim: int = 180,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6), d_state: int = 16,
                  ssm_ratio: float = 1.3, mlp_ratio: float = 2.0, scan_len: int = 4,
-                 img_range: float = 1.0, fused: bool = True):
+                 img_range: float = 1.0, fused: bool = True, nss: str = "stripe"):
         super().__init__()
         self.img_range = img_range
         mean = [0.4488, 0.4371, 0.4040] if in_chans == 3 else [0.0] * in_chans
@@ -240,7 +278,7 @@ class MaIR(nn.Module):
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, padding=1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
-            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused)
+            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss)
             for depth in depths
         ])
         self.norm = nn.LayerNorm(embed_dim)

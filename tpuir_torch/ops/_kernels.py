@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "fused_transformer_block": 0, "mixer_prologue": 0, "nss_scan": 0, "mixer_epilogue": 0,
-    "selective_scan_fused_proj": 0,
+    "selective_scan_fused_proj": 0, "nss_scan_fused": 0, "selective_scan": 0, "rate_probe": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -135,6 +135,14 @@ def library() -> ctypes.CDLL:
         lib.tpuir_scan_fused_proj_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_scan_fused_proj_f32.argtypes = [vp] * 8 + [ci] * 5 + [vp]
         lib.tpuir_scan_fused_proj_f32.restype = ci
+        lib.tpuir_nss_scan_fused_f32.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+        lib.tpuir_nss_scan_fused_f32.restype = ci
+        lib.tpuir_selective_scan_scratch_numel.argtypes = [ci] * 5
+        lib.tpuir_selective_scan_scratch_numel.restype = ctypes.c_longlong
+        lib.tpuir_selective_scan_f32.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.tpuir_selective_scan_f32.restype = ci
+        lib.tpuir_rate_probe_f32.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
+        lib.tpuir_rate_probe_f32.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -35,12 +35,31 @@ MAX_STATE = 32  # the kernel keeps a channel's states in registers (8, 16 or 32 
 MAX_RANK = 64   # dt rank R: W_dt is staged in shared memory
 
 
+def check_scan_weights(fn: str, x, x_proj_w, dt_w, A, D, delta_bias) -> Tuple[int, int]:
+    """Validate x's device and dtype and the four directions' scan weights
+    against x's last (channel) dimension, for the wrapper named ``fn`` (K2,
+    K3, K5); return (N, R)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{fn}: float32 only, got {x.dtype}")
+    d = x.shape[-1]
+    N = A.shape[-1]
+    R = x_proj_w.shape[1] - 2 * N
+    if not (0 < N <= MAX_STATE and 0 < R <= MAX_RANK):
+        raise ValueError(f"{fn}: d_state {N} (max {MAX_STATE}), dt rank {R} (max {MAX_RANK})")
+    want = {"x_proj_w": (x_proj_w, (4, R + 2 * N, d)), "dt_w": (dt_w, (4, d, R)),
+            "A": (A, (4, d, N)), "D": (D, (4, d)), "delta_bias": (delta_bias, (4, d))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous float32 on {x.device}")
+    return N, R
+
+
 def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int) -> Tuple[int, int]:
     """Validate the inputs; return (N, R)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"nss_scan: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"nss_scan: float32 only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"nss_scan: x must be contiguous (B, H, W, d), got {tuple(x.shape)}")
     B, H, W, d = x.shape
@@ -49,18 +68,7 @@ def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int) -> Tuple[int, int
             f"nss_scan: H and W must be multiples of scan_len (a multiple of 4); got "
             f"{H}x{W}, scan_len {scan_len}. Other shapes take K3 "
             f"(ops/scan_fused_proj.py) on gathered sequences")
-    N = A.shape[-1]
-    R = x_proj_w.shape[1] - 2 * N
-    if not (0 < N <= MAX_STATE and 0 < R <= MAX_RANK):
-        raise ValueError(f"nss_scan: d_state {N} (max {MAX_STATE}), dt rank {R} (max {MAX_RANK})")
-    want = {"x_proj_w": (x_proj_w, (4, R + 2 * N, d)), "dt_w": (dt_w, (4, d, R)),
-            "A": (A, (4, d, N)), "D": (D, (4, d)), "delta_bias": (delta_bias, (4, d))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"nss_scan: {name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"nss_scan: {name} must be contiguous float32 on {x.device}")
-    return N, R
+    return check_scan_weights("nss_scan", x, x_proj_w, dt_w, A, D, delta_bias)
 
 
 def nss_scan_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,

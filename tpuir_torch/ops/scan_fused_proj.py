@@ -30,35 +30,16 @@ from typing import Tuple
 import torch
 
 from tpuir_torch.ops import _kernels
-from tpuir_torch.ops.nss_stripe import MAX_RANK, MAX_STATE
+from tpuir_torch.ops.nss_stripe import check_scan_weights
 from tpuir_torch.ops.selective_scan import selective_scan
 
 
 def _check(xs, x_proj_w, dt_w, A, D, delta_bias) -> Tuple[int, int]:
     """Validate the inputs; return (N, R)."""
-    if xs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"selective_scan_fused_proj: unsupported device {xs.device}")
-    if xs.dtype != torch.float32:
-        raise TypeError(f"selective_scan_fused_proj: float32 only, got {xs.dtype}")
     if xs.dim() != 4 or xs.shape[1] != 4 or not xs.is_contiguous():
         raise ValueError(
             f"selective_scan_fused_proj: xs must be contiguous (B, 4, L, d), got {tuple(xs.shape)}")
-    d = xs.shape[-1]
-    N = A.shape[-1]
-    R = x_proj_w.shape[1] - 2 * N
-    if not (0 < N <= MAX_STATE and 0 < R <= MAX_RANK):
-        raise ValueError(f"selective_scan_fused_proj: d_state {N} (max {MAX_STATE}), "
-                         f"dt rank {R} (max {MAX_RANK})")
-    want = {"x_proj_w": (x_proj_w, (4, R + 2 * N, d)), "dt_w": (dt_w, (4, d, R)),
-            "A": (A, (4, d, N)), "D": (D, (4, d)), "delta_bias": (delta_bias, (4, d))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(
-                f"selective_scan_fused_proj: {name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32 or t.device != xs.device or not t.is_contiguous():
-            raise ValueError(
-                f"selective_scan_fused_proj: {name} must be contiguous float32 on {xs.device}")
-    return N, R
+    return check_scan_weights("selective_scan_fused_proj", xs, x_proj_w, dt_w, A, D, delta_bias)
 
 
 def selective_scan_fused_proj_plain(xs: torch.Tensor, x_proj_w: torch.Tensor,

@@ -5,16 +5,19 @@
 read device time from its profile by kernel and by aten op.
 
     python -m tpuir_torch.utils.profiling [--model mair|mairunet] [--batches 1,2,3,4,8]
+                                          [--nss stripe|fused|0]
 
 profiles one forward of MaIR-CDN@128 (``--model mair``, the default) or
 MaIRUNet@384 (``--model mairunet``) at each batch size on the card: full
 released width and depth, weights drawn from a seed, every mixer through
-its kernels as the zoo builds it (K6, K2 and K7; K3 on levels the stripe
-kernel does not take), TF32 off as in the engine. Per batch it prints the
-forward's milliseconds (CUDA events), its device time by stage, its ten
-longest kernels, and the time of each full 3x3 or 1x1 conv of the model
-(cuDNN) at the shape the forward gives it, called once on the batch and
-once per image. The last line is the same as one JSON object.
+its kernels as the zoo builds it on the ``--nss`` route (``stripe``, the
+default: K6, K2 and K7; ``fused``: K5; ``0``: K3 everywhere; K3 on levels
+the others do not take), TF32 off as in the engine. Per batch it prints
+the forward's milliseconds (CUDA events), its device time by stage, its
+ten longest kernels, and the time of each full conv of the model and of
+each depthwise conv shape it runs (cuDNN; the mixers' dwconv off the
+stripe route) at the shape the forward gives it, called once on the batch
+and once per image. The last line is the same as one JSON object.
 """
 
 from __future__ import annotations
@@ -28,13 +31,14 @@ import torch
 # Kernel-name fragments of the mixer kernels, by stage. The SIMT GEMM's
 # epilogue type tells K6's in_proj (SplitXZ) from the row-store GEMMs of K2's
 # and K3's x_proj and K7's out_proj (StoreRows); the scan passes' path type
-# tells K2's (ImageIdsPath) from K3's (SequencePath).
+# tells K2's (ImageIdsPath) from K3's (SequencePath) and K5's (StripePath).
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
-    ("K2 scan passes", ("ImageIdsPath", "sum_partials_kernel")),
+    ("K2 scan passes", ("ImageIdsPath",)),
+    ("K5 scan passes", ("StripePath",)),
     ("K3 scan passes", ("SequencePath",)),
-    ("x_proj (K2, K3) + out_proj (K7) GEMMs", ("StoreRows",)),
+    ("x_proj (K2, K3, K5) + out_proj (K7) GEMMs", ("StoreRows",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
 )
 # Library ops by the aten op that launched them (their self device time).
@@ -96,30 +100,37 @@ def cuda_ms(fn: Callable, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _seeded_net(model: str, seed: int, dev: torch.device) -> torch.nn.Module:
+def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe"
+                ) -> torch.nn.Module:
     from tpuir_torch import zoo
     from tpuir_torch.models import mair, mair_unet
 
     if model == "mair":
-        net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True)
+        net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss)
         net.load_state_dict(mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
     else:
-        net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True)
+        net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, nss=nss)
         net.load_state_dict(mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=seed))
     return net.to(dev).eval().requires_grad_(False)
 
 
 def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator) -> dict:
     """{conv name: (C, H, W, ms on the batch, ms once per image)} for each
-    full (not depthwise) conv of net, at the (C, H, W) that a forward of x
-    gives it, on random channels_last inputs of x's batch."""
-    shapes, hooks = {}, []
+    full conv of net that a forward of x runs and for the first depthwise
+    conv of each (C, H, W) it runs, at that (C, H, W), on random
+    channels_last inputs of x's batch."""
+    shapes, hooks, depthwise = {}, [], set()
 
     def record(name, mod, args):
-        shapes.setdefault(name, (mod, tuple(args[0].shape[1:])))  # returns None: args unchanged
+        shape = tuple(args[0].shape[1:])
+        if mod.groups > 1:
+            if shape in depthwise:
+                return
+            depthwise.add(shape)
+        shapes.setdefault(name, (mod, shape))  # returns None: args unchanged
 
     for name, mod in net.named_modules():
-        if isinstance(mod, torch.nn.Conv2d) and mod.groups == 1:
+        if isinstance(mod, torch.nn.Conv2d):
             hooks.append(mod.register_forward_pre_hook(
                 lambda m, a, _n=name: record(_n, m, a)))
     net(x)
@@ -134,15 +145,17 @@ def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator) -> d
     return out
 
 
-def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0) -> dict:
+def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
+                  nss: str = "stripe") -> dict:
     """The forward breakdown described in the module docstring."""
     from tpuir_torch.core.engine import true_float32
 
     dev = torch.device("cuda")
     tile = TILES[model]
-    net = _seeded_net(model, seed, dev)
+    net = _seeded_net(model, seed, dev, nss)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    res = {"card": torch.cuda.get_device_name(0), "model": model, "tile": tile, "batches": {}}
+    res = {"card": torch.cuda.get_device_name(0), "model": model, "nss": nss, "tile": tile,
+           "batches": {}}
     with torch.inference_mode(), true_float32():
         for b in batches:
             x = torch.rand(b, 3, tile, tile, device=dev, generator=gen)
@@ -171,14 +184,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=sorted(TILES), default="mair")
     ap.add_argument("--batches", default="1,2,3,4,8")
+    ap.add_argument("--nss", choices=("stripe", "fused", "0"), default="stripe")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device")
         return 1
-    res = profile_model(args.model, tuple(int(b) for b in args.batches.split(",")))
+    res = profile_model(args.model, tuple(int(b) for b in args.batches.split(",")),
+                        nss=args.nss)
     print(res["card"])
     for b, r in res["batches"].items():
-        print(f"{args.model}@{res['tile']} batch {b}: forward {r['forward_ms']:.3f} ms "
+        print(f"{args.model}@{res['tile']} nss={args.nss} batch {b}: forward {r['forward_ms']:.3f} ms "
               f"(CUDA events), device {r['device_ms']:.3f} ms (profiler)")
         for name, ms in r["stages_ms"].items():
             print(f"  {name:40s} {ms:9.3f} ms")

@@ -31,6 +31,19 @@ def resolve_precision(precision: Optional[str] = None) -> str:
     return p
 
 
+def resolve_nss(nss: Optional[str] = None) -> str:
+    """MaIR's NSS route: 'stripe' (default: K6 -> K2 -> K7), 'fused' (K5)
+    or '0' (K3 on every level), as the JAX module's TPUIR_NSS knob
+    (``tpuir/models/mair.py:196-213``). Defaults to the TPUIR_NSS environment
+    variable; '1' is its legacy alias of 'fused'."""
+    n = nss or os.environ.get("TPUIR_NSS", "stripe")
+    if n == "1":
+        n = "fused"
+    if n not in ("stripe", "fused", "0"):
+        raise ValueError(f"unknown NSS route {n!r} (stripe|fused|0)")
+    return n
+
+
 def _load_sd(path: str, key: Optional[str] = None):
     if not os.path.exists(path):
         raise FileNotFoundError(path)
@@ -105,10 +118,12 @@ MAIR_UNET_WEIGHTS = {
 
 def build_mair(weights_dir: str, task: str, subtask: str, sigma,
                precision: str = "parity",
-               device: Union[str, torch.device] = "cuda") -> InferenceModel:
+               device: Union[str, torch.device] = "cuda",
+               nss: Optional[str] = None) -> InferenceModel:
     """The released MaIR-CDN for this sigma (Gaussian denoising) or MaIRUNet
-    (real denoising, motion deblurring); every mixer through K6, K2 and K7,
-    or K3 on levels the stripe kernel does not take."""
+    (real denoising, motion deblurring); every mixer through K6, K2 and K7
+    (``nss`` "stripe", the default) or K5 ("fused"), or K3 on levels those
+    do not take (every level under "0"); see ``resolve_nss``."""
     from tpuir_torch.models import mair as m
     from tpuir_torch.models import mair_unet as mu
 
@@ -126,8 +141,9 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
            else MAIR_UNET_WEIGHTS[(task, subtask)])
     sd = _load_sd(os.path.join(weights_dir, "MaIR", rel), key="params")
     device = torch.device(device)
-    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True) if gaussian
-           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True))
+    nss = resolve_nss(nss)
+    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss) if gaussian
+           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss))
     # keys the model does not hold (if a checkpoint carries any) are ignored,
     # as the JAX converter ignores them; a missing or misshapen one raises
     keys = net.state_dict().keys()
@@ -158,8 +174,10 @@ def get_model_instance(
     weights_dir: Optional[str] = None,
     precision: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
+    nss: Optional[str] = None,
 ) -> InferenceModel:
-    """Route a harness configuration to a loaded model bundle on ``device``.
+    """Route a harness configuration to a loaded model bundle on ``device``
+    (MaIR's mixers on the ``nss`` route, see ``resolve_nss``).
 
     Raises ValueError for unsupported combinations, NotImplementedError for
     families and modes not ported yet, and FileNotFoundError when the
@@ -176,7 +194,7 @@ def get_model_instance(
             return build_restormer(weights_dir, task, sub, gray, sigma, precision, device)
     elif key == "MaIR":
         if task == "denoising" and subtask == "gaussian" and not gray and sigma is not None:
-            return build_mair(weights_dir, task, subtask, sigma, precision, device)
+            return build_mair(weights_dir, task, subtask, sigma, precision, device, nss)
         if (task, subtask) in (("denoising", "real"), ("deblurring", "motion")):
-            return build_mair(weights_dir, task, subtask, None, precision, device)
+            return build_mair(weights_dir, task, subtask, None, precision, device, nss)
     raise ValueError("No model instance found for current configuration.")
