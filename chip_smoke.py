@@ -75,8 +75,9 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     probe's shapes (x (8, 512, 128), 32 rounds) for mul, fma and exp2,
     within rtol 1e-5 and bit for bit on repeat; then the rate entry point
     (the three elementwise rates), the float32 and bf16 ``torch.matmul``
-    rates at 8192^3 and the scan floor at MaIR-CDN@128 from the measured
-    rates, beside K2's and K5's times of phases 4 and 8.
+    rates at 8192^3, and the scan floor at MaIR-CDN@128 and the three-pass
+    MUFU floor (two exp2 a state update) from the measured rates, beside
+    K2's, K5's, K4's and K3's times of phases 4, 8, 10 and 6.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -727,7 +728,7 @@ def phase_unet_kernels(device):
     request's two K3 levels (batch 2), each against its plain version (TF32
     off), the plain version timed once a shape. Returns ({kernel: max|d|},
     {row label: (max|d|, ms, plain ms, bound ms, bound by)}, K3's row per
-    forward chunk of the 481x321 request)."""
+    forward chunk of the 481x321 request, K3's state updates a chunk)."""
     import torch
 
     from tpuir_torch import zoo
@@ -782,6 +783,7 @@ def phase_unet_kernels(device):
                   f"{sum(c * r[3] for c, r in fwd):.3f} ms", flush=True)
 
         k3_ms = k3_plain = k3_bytes = k3_flops = 0.0
+        k3_updates = 0
         for label, hh, ww, stage, count in UNET_K3_LEVELS:
             w, dm, di, n = mixer_weights(sd, f"{stage}.0.self_attention.", device)
             r = w["dt_projs_weight"].shape[-1]
@@ -802,12 +804,13 @@ def phase_unet_kernels(device):
             k3_plain += count * row[2]
             k3_bytes += count * work[0]
             k3_flops += count * work[1]
+            k3_updates += count * 2 * 4 * L * di * n
             del scan, xs, args, want
     k3_row = (worst["selective_scan_fused_proj"], k3_ms, k3_plain) + bound(k3_bytes, k3_flops)
     print(f"K3 per forward chunk of the 481x321 request (12 calls at 96x82, 8 at 48x41, "
           f"batch 2): kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_row[3]:.3f} ms "
           f"({k3_row[4]})", flush=True)
-    return worst, rows, k3_row
+    return worst, rows, k3_row, k3_updates
 
 
 def unet_per_chunk(model, fused=False):
@@ -1130,9 +1133,12 @@ def phase_probe(device, scan_ms):
     """P1 against ``probe_plain`` at the JAX probe's shapes (x (8, 512, 128),
     rounds 32) for each op, within PROBE_RTOL and bit for bit on repeat;
     then the rate entry point (counts set to 0 just before, read just after),
-    the GEMM rates and the scan floor beside ``scan_ms`` ({kernel: ms a
-    call at MaIR-CDN@128}). Returns (launches, (max rel|d|, mean ms, mean
-    plain ms, bound ms, bound by) over the three ops at rounds 32)."""
+    the GEMM rates and the two scan floors beside ``scan_ms`` ({kernel: (ms
+    a call, its state updates)}): 3 mul + 3 fma + 1 exp a state update, and
+    the three-pass MUFU floor (two exp2 a state update), each at the
+    measured rates and scaled to the kernel's updates. Returns (launches,
+    (max rel|d|, mean ms, mean plain ms, bound ms, bound by) over the three
+    ops at rounds 32)."""
     import torch
 
     from tpuir_torch.ops import _kernels
@@ -1170,10 +1176,13 @@ def phase_probe(device, scan_ms):
               flush=True)
     for name, tf in micro_rate.gemm_rates(device).items():
         print(f"torch.matmul {name} 8192^3 {tf:9.1f} TFLOP/s", flush=True)
-    floor = micro_rate.scan_floor_ms(rates)
+    floor, mufu = micro_rate.scan_floor_ms(rates), micro_rate.mufu_floor_ms(rates)
     print(f"scan floor at MaIR-CDN@128, batch 8, d_inner 234 (3 mul + 3 fma + 1 exp a state "
-          f"update at the measured rates): {floor:.4f} ms; "
-          + ", ".join(f"{k} {ms:.3f} ms ({ms / floor:.2f}x)" for k, ms in scan_ms.items()),
+          f"update at the measured rates): {floor:.4f} ms; three-pass MUFU floor (2 exp2 a "
+          f"state update at the measured exp2 rate): {mufu:.4f} ms; "
+          + ", ".join(f"{k} {ms:.3f} ms ({ms / micro_rate.scan_floor_ms(rates, n):.2f}x, "
+                      f"{ms / micro_rate.mufu_floor_ms(rates, n):.2f}x MUFU)"
+                      for k, (ms, n) in scan_ms.items()),
           flush=True)
     mean = lambda i: sum(r[i] for r in rows) / len(rows)  # noqa: E731
     return launches, (worst, mean(0), mean(1), mean(2), rows[0][3])
@@ -1222,7 +1231,7 @@ def main() -> int:
     launches.update(mair_launches)
     print(f"[MaIR path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    unet_worst, _, k3_row = phase_unet_kernels(device)
+    unet_worst, _, k3_row, k3_updates = phase_unet_kernels(device)
     rows["selective_scan_fused_proj"] = k3_row
     for name, err in unet_worst.items():
         rows[name] = (max(rows[name][0], err),) + rows[name][1:]
@@ -1243,7 +1252,12 @@ def main() -> int:
     launches["selective_scan"], rows["selective_scan"] = phase_selective_scan(device)
     print(f"[K4 {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    scan_ms = {"K2": rows["nss_scan"][1], "K5": rows["nss_scan_fused"][1]}
+    from tpuir_torch.utils.micro_rate import cdn_scan_updates
+
+    cdn = cdn_scan_updates()  # K4's first case has MaIR-CDN@128's shape
+    scan_ms = {"K2": (rows["nss_scan"][1], cdn), "K5": (rows["nss_scan_fused"][1], cdn),
+               "K4 at MaIR-CDN's shape": (rows["selective_scan"][1], cdn),
+               "K3 per 481x321 chunk": (rows["selective_scan_fused_proj"][1], k3_updates)}
     launches["rate_probe"], rows["rate_probe"] = phase_probe(device, scan_ms)
     print(f"[P1 {time.time() - t0:.0f} s]", flush=True)
 

@@ -111,6 +111,27 @@ def test_scan_floor_counts_cdn_updates():
     assert micro_rate.scan_floor_ms(rates) == pytest.approx(want, rel=1e-12)
 
 
+@pytest.mark.parametrize("updates", [0, 1_000_000])
+def test_mufu_floor_counts_two_exp2_a_update(updates):
+    """The three-pass scan's floor: passes 1 and 3 each take one exp2 a state
+    update (MaIR-CDN@128's updates by default), at the exp2 rate alone."""
+    rates = {"mul": 1000.0, "fma": 500.0, "exp2": 250.0}  # Gelem/s
+    n = updates or 8 * 4 * 128 * 128 * 16 * 234
+    assert micro_rate.cdn_scan_updates() == 8 * 4 * 128 * 128 * 16 * 234
+    assert micro_rate.mufu_floor_ms(rates, updates) == pytest.approx(2 * n / 250 / 1e6,
+                                                                     rel=1e-12)
+    assert micro_rate.scan_floor_ms(rates, updates) == pytest.approx(
+        n * (3 / 1000 + 3 / 500 + 1 / 250) / 1e6, rel=1e-12)
+
+
+def test_scan_bench_needs_a_card(monkeypatch, capsys):
+    from tpuir_torch.utils import scan_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert scan_bench.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["mul", "fma", "exp2"])
 @pytest.mark.parametrize("rounds", [0, 1, 32, 37])

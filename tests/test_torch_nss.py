@@ -300,7 +300,8 @@ def test_prologue_kernel_matches_plain_on_card(cuda_device, B, H, W, dm, di):
 @pytest.mark.parametrize("B,H,W,d,n,r", [(2, 8, 8, 6, 3, 2), (2, 16, 24, 40, 16, 3),
                                          (2, 32, 32, 234, 16, 12), (1, 96, 72, 234, 16, 12),
                                          (2, 32, 24, 96, 4, 3), (2, 16, 16, 192, 8, 6),
-                                         (2, 24, 16, 768, 32, 24), (1, 8, 12, 40, 32, 64)])
+                                         (2, 24, 16, 768, 32, 24), (1, 8, 12, 40, 32, 64),
+                                         (2, 16, 20, 100, 16, 7)])
 def test_scan_kernel_matches_plain_on_card(cuda_device, shift, B, H, W, d, n, r):
     ops = _torch(_scan_operands(B, H, W, d, n, r, seed=H + W), cuda_device)
     before = _kernels.LAUNCHES["nss_scan"]
@@ -311,6 +312,32 @@ def test_scan_kernel_matches_plain_on_card(cuda_device, shift, B, H, W, d, n, r)
         again = nss_scan(**ops, scan_len=4, shift=shift)
         ry, rpooled = nss_scan_plain(**ops, scan_len=4, shift=shift)
     assert torch.equal(y, again[0]) and torch.equal(pooled, again[1])  # no atomics
+    torch.testing.assert_close(y, ry, atol=SCAN_ATOL, rtol=SCAN_RTOL)
+    _assert_pooled_close(pooled, rpooled, ry)
+
+
+def _extreme_scan_operands(B, H, W, d, n, r, seed):
+    """_scan_operands with every other state's |A| near e^4.5 (so that
+    exp(dt * A) underflows for dt above about 1) and the softplus arguments
+    spread over -20..20 by the channels' bias."""
+    ops = _scan_operands(B, H, W, d, n, r, seed)
+    ops["A"] = (ops["A"] * np.exp(4.5 * (np.arange(n) % 2))).astype(np.float32)
+    ops["delta_bias"] = np.tile(np.linspace(-20, 20, d, dtype=np.float32), (4, 1))
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("B,H,W,d,n,r", [(2, 16, 24, 100, 16, 7), (1, 32, 32, 234, 16, 12)])
+def test_scan_kernel_extreme_arguments_on_card(cuda_device, shift, B, H, W, d, n, r):
+    """The kernel's MUFU exp2 and two-MUFU softplus where dt * A underflows
+    and the softplus arguments reach both of its tails."""
+    ops = _torch(_extreme_scan_operands(B, H, W, d, n, r, seed=d), cuda_device)
+    with torch.inference_mode(), true_float32():
+        y, pooled = nss_scan(**ops, scan_len=4, shift=shift)
+        again = nss_scan(**ops, scan_len=4, shift=shift)
+        ry, rpooled = nss_scan_plain(**ops, scan_len=4, shift=shift)
+    assert torch.equal(y, again[0]) and torch.equal(pooled, again[1])
     torch.testing.assert_close(y, ry, atol=SCAN_ATOL, rtol=SCAN_RTOL)
     _assert_pooled_close(pooled, rpooled, ry)
 

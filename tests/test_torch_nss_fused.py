@@ -252,6 +252,7 @@ def test_zoo_builds_mixers_on_the_route(monkeypatch, tmp_path, env, arg, want):
     (1, 6, 10, 8, 4, 2, 2),      # scan_len 2
     (2, 96, 72, 234, 16, 12, 4),  # MaIR-CDN's 96x72 tile: several chunks, two channel blocks
     (1, 48, 40, 300, 32, 64, 4),  # three channel blocks, over 48 KB of shared memory
+    (2, 16, 20, 100, 16, 7, 4),  # D not a multiple of 32: one block of 128 lanes
 ])
 def test_kernel_matches_plain_on_card(cuda_device, shift, B, H, W, d, n, r, scan_len):
     """The stripe arithmetic against the id table: a wrong map still passes
@@ -273,6 +274,31 @@ def test_kernel_matches_plain_on_card(cuda_device, shift, B, H, W, d, n, r, scan
     torch.testing.assert_close(got[1], want[1], atol=SCAN_ATOL, rtol=SCAN_RTOL)
     # pooled: a sum over the path of values the two round differently, so its
     # bound scales with the sum of |y| over the path
+    bound = SCAN_ATOL + SCAN_RTOL * torch.cat([want[0].abs().sum((2, 3)),
+                                               want[1].abs().sum((2, 3))], 1)
+    assert bool(((got[2] - want[2]).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [False, True])
+def test_kernel_extreme_arguments_on_card(cuda_device, shift):
+    """The kernel's MUFU exp2 and two-MUFU softplus where dt * A underflows
+    (every other state's |A| near e^4.5) and the softplus arguments reach
+    both of its tails (the channels' bias over -20..20)."""
+    B, H, W, d, n, r = 2, 16, 24, 100, 16, 7
+    x, wxp, wdt, A, D, _ = _operands(B, H, W, d, n, r, seed=d)
+    wxp, wdt = wxp / np.float32(0.3 * np.sqrt(d)), wdt / np.float32(0.3 * np.sqrt(r))
+    A = A * np.exp(4.5 * (np.arange(n) % 2)).astype(np.float32)
+    bias = np.tile(np.linspace(-20, 20, d, dtype=np.float32), (4, 1))
+    ops = _torch((x, wxp, wdt, A, D, bias), cuda_device)
+    with torch.inference_mode(), true_float32():
+        got = nss_scan_fused(*ops, shift=shift)
+        again = nss_scan_fused(*ops, shift=shift)
+        want = nss_scan_fused_plain(*ops, shift=shift)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    torch.testing.assert_close(got[0], want[0], atol=SCAN_ATOL, rtol=SCAN_RTOL)
+    torch.testing.assert_close(got[1], want[1], atol=SCAN_ATOL, rtol=SCAN_RTOL)
     bound = SCAN_ATOL + SCAN_RTOL * torch.cat([want[0].abs().sum((2, 3)),
                                                want[1].abs().sum((2, 3))], 1)
     assert bool(((got[2] - want[2]).abs() <= bound).all())

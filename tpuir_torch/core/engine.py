@@ -36,6 +36,7 @@ from . import native
 from .degrade import add_noise_batched
 from .image_io import normalize_image, restore_dtype
 from .tiling import gaussian_window, tile_indices
+from ..utils.profiling import maybe_trace
 
 
 def pad_to_multiple(x: torch.Tensor, factor: int, mode: str = "reflect") -> torch.Tensor:
@@ -162,7 +163,8 @@ def run_model_inference(
         # bit-exact float64 AWGN add (the original's arithmetic), once per batch
         patches = add_noise_batched(patches, noise_level)
 
-    preds = model.forward_patches(patches, progress_cb)
+    with maybe_trace(f"engine_{model.name.replace(' ', '_')}"):
+        preds = model.forward_patches(patches, progress_cb)
 
     window = gaussian_window(ps, ps, out_ch)[:ph, :pw]
     output_img = native.blend_stitch(preds[:, :, :, :out_ch], coords, window, h, w)

@@ -20,10 +20,11 @@
 // (123 MB) and write y (491 MB), 0.18 ms at 3.35 TB/s; it does 1.96 G state
 // updates, each an exponential and about six float32 operations, plus
 // 13.7 GFLOP of projections: about 25 GFLOP, 0.38 ms at the 67 TFLOP/s
-// float32 peak. Bound by operations, and by the chain of 16,384 dependent
-// steps of each of the B*K*D = 7,488 recurrences.
+// float32 peak. The three-pass chunked scan takes two exponentials a state
+// update on the MUFU pipe: its floor is 0.95 ms at the measured exp2 rate,
+// and the passes are bound by that pipe (chunk_scan.cuh).
 //
-// What the design does about it, kept simple for a first correct kernel:
+// What the design does about it:
 //   * x_dbl depends only on (pixel, k), not on the path, so it is one SIMT
 //     GEMM over all pixels first (x . W_xp^T, 4*(R+2N) columns), as in K2;
 //     the TPU kernel projects inside the scan's staging instead. dt is
@@ -32,8 +33,8 @@
 //     position visits is computed from t by the stripe arithmetic
 //     (nss_pixel: stripe, alternate vertical flip, boustrophedon, the
 //     shifted variant's narrow lead and tail stripes, rot180, transpose)
-//     instead of read from an id table; x and y are read and written at
-//     that pixel, 128 consecutive channels a step, so both coalesce.
+//     instead of read from an id table, once a chunk; x and y are read and
+//     written at that pixel, a block's channels a step, so both coalesce.
 //   * The pooled sums are the chunks' partial sums of y added in chunk
 //     order by a fourth launch: no float atomics, the output repeats bit
 //     for bit.

@@ -19,17 +19,23 @@
 // read x (123 MB) and write y (491 MB), 0.18 ms at 3.35 TB/s; it does
 // 1.96 G state updates, each an exponential and about six float32
 // operations, plus 13.7 GFLOP of projections: about 25 GFLOP, 0.38 ms at
-// the 67 TFLOP/s float32 peak. Bound by operations, and by the chain of
-// 16,384 dependent steps of each of the B*K*D = 7,488 recurrences.
+// the 67 TFLOP/s float32 peak. The three-pass chunked scan that spreads
+// the 16,384 dependent steps of each of the B*K*D = 7,488 recurrences over
+// the card takes two exponentials a state update, one a pass, on the MUFU
+// pipe (16 lanes an SM against 128 float32 lanes): its floor is 0.95 ms at
+// the measured exp2 rate, and the passes are bound by that pipe
+// (chunk_scan.cuh).
 //
-// What the design does about it, kept simple for a first correct kernel:
+// What the design does about it:
 //   * x_dbl depends only on (pixel, k), not on the path, so it is one SIMT
 //     GEMM over all pixels first (x . W_xp^T, 4*(R+2N) columns); dt is
 //     recomputed from it inside the scan (R FMAs a channel), never stored.
 //   * The scan is chunk_scan.cuh's three passes on ImageIdsPath: x and y are
-//     read and written through the id table, 128 consecutive channels of
-//     one pixel a step, so the gather and the scatter coalesce. A fourth
-//     launch here sums the chunks' partial sums of y in chunk order.
+//     read and written through the id table, a block's channels of one
+//     pixel a step, so the gather and the scatter coalesce; one MUFU.EX2 a
+//     state update a pass, x_dbl rows staged ahead by cp.async and x loaded
+//     ahead. A fourth launch here sums the chunks' partial sums of y in
+//     chunk order.
 //   * The TPU kernel's stripe block maps, half-block L/R buffers, serpentine
 //     static slices, x^T frames, lane padding and VMEM segments exist to
 //     avoid gathers on the TPU and have no counterpart here.

@@ -19,11 +19,12 @@
 // request (two 48x41 tiles, D = 768, N = 32, R = 24; B*4*L = 15,744
 // sequence positions): the function must read xs and write y, 97 MB,
 // 0.03 ms at 3.35 TB/s; the projections and the 387 M state updates are
-// about 5.5 GFLOP, 0.08 ms at the 67 TFLOP/s float32 peak.
-// Bound by operations, and by the 1,968 dependent steps of each of the
-// B*4*D = 6,144 recurrences.
+// about 5.5 GFLOP, 0.08 ms at the 67 TFLOP/s float32 peak. The passes
+// take two exponentials a state update on the MUFU pipe (chunk_scan.cuh),
+// 0.19 ms at the measured exp2 rate; the 1,968 dependent steps of each of
+// the B*4*D = 6,144 recurrences leave the card a few chunks of work each.
 //
-// What the design does about it, kept simple for a first correct kernel:
+// What the design does about it:
 //   * x_dbl is one batched SIMT GEMM (simt_gemm.cuh), B*4 products of
 //     (L, D) . (C, D)^T, each direction with its own weight (grid.z).
 //   * The scan is chunk_scan.cuh's three passes on SequencePath, the same

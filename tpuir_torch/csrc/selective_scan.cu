@@ -15,20 +15,22 @@
 // D 234, N 16): it must read u, delta, B and C and write y, 1.54 GB, 0.46 ms
 // at 3.35 TB/s; its 1.96 G state updates of about seven float32 operations
 // (an exponential counted as one) are 14.4 GFLOP, 0.21 ms at 67 TFLOP/s.
-// Bound by bytes, and by the chain of L dependent steps of each of the
-// B*K*D recurrences.
+// Bound by bytes on the data sheet; the three-pass chunked scan that
+// spreads the L dependent steps of each of the B*K*D recurrences over the
+// card takes two exponentials a state update on the MUFU pipe, 0.95 ms at
+// the measured exp2 rate, so its passes are bound by that pipe.
 //
-// What the design does about it, kept simple for a first correct kernel:
+// What the design does about it:
 //   * chunk_scan.cuh's passes on DeltaPath, the code of K2, K3 and K5:
 //     256-position chunks from a zero state, the carries chained in chunk
 //     order, the chunks rescanned from their true states, no float atomics
 //     (the output repeats bit for bit). u, delta and y are read and written
-//     128 consecutive channels a step, coalesced; B and C of 32 positions
-//     are staged in shared memory where the others stage the x_dbl row.
+//     a block's channels a step, coalesced; u, delta and B and C of 16
+//     positions are staged ahead by cp.async where the others stage the
+//     x_dbl row.
 //   * Pass 1 reads u, delta, B and C, and pass 3 reads them again and
 //     writes y: about 2.6 GB of traffic for the 1.54 GB the function must
-//     move. The passes are bound by the serial chain of each chunk (an
-//     expf a state update, 256 dependent steps), not by those bytes.
+//     move, 0.78 ms at 3.35 TB/s, under the MUFU floor.
 //   * The TPU kernel's padding of D to its lane tile and of L to the chunk,
 //     its radix-4 Blelloch scan within a chunk and its (K, N, D) transposed
 //     A are TPU layouts with no counterpart here.

@@ -19,9 +19,11 @@ rate, each thread holding its 8 chains in registers for ``TIMED_ROUNDS``
 rounds, 4 blocks of 128 threads an SM); the float32 (TF32 off) and bf16
 ``torch.matmul`` rates at 8192^3; and the scan floor at MaIR-CDN@128,
 batch 8 (d_inner 234 unpadded): per state update 3 mul, 3 fma and 1 exp at
-the measured rates, as ``benchmarks/micro_vpu.py`` counts it, beside the
-measured times of K2 (``nss_scan``) and K5 (``nss_scan_fused``) at that
-shape. Its last line is the same as one JSON object. It writes no file.
+the measured rates, as ``benchmarks/micro_vpu.py`` counts it, and the
+three-pass MUFU floor (two exp2 a state update at the measured exp2 rate),
+beside the measured times of K2 (``nss_scan``) and K5 (``nss_scan_fused``)
+at that shape. Its last line is the same as one JSON object. It writes no
+file.
 """
 
 from __future__ import annotations
@@ -124,13 +126,27 @@ def cdn_scan_shape():
     return CDN_BATCH, CDN_TILE, CDN_TILE, di, CDN_STATE, math.ceil(CDN_DIM / 16)
 
 
-def scan_floor_ms(rates: Dict[str, float]) -> float:
-    """The scan's arithmetic floor at MaIR-CDN@128, batch 8, from measured
-    rates: per state update 3 mul + 3 fma + 1 exp (benchmarks/micro_vpu.py's
-    count), over B * 4 * L * N * d_inner updates, d_inner unpadded."""
+def cdn_scan_updates() -> int:
+    """State updates of one scan at MaIR-CDN@128, batch 8: B * 4 * L * N *
+    d_inner, d_inner unpadded."""
     B, H, W, di, n, _ = cdn_scan_shape()
-    updates = B * 4 * H * W * n * di
+    return B * 4 * H * W * n * di
+
+
+def scan_floor_ms(rates: Dict[str, float], updates: int = 0) -> float:
+    """The scan's arithmetic floor from measured rates: per state update
+    3 mul + 3 fma + 1 exp (benchmarks/micro_vpu.py's count), over
+    ``updates`` (by default MaIR-CDN@128's, batch 8)."""
+    updates = updates or cdn_scan_updates()
     return updates * (3 / rates["mul"] + 3 / rates["fma"] + 1 / rates["exp2"]) / 1e6
+
+
+def mufu_floor_ms(rates: Dict[str, float], updates: int = 0) -> float:
+    """The floor of the three-pass chunked scan (``csrc/chunk_scan.cuh``):
+    passes 1 and 3 each take one exp2 on the MUFU pipe a state update, so
+    2 * ``updates`` at the measured exp2 rate."""
+    updates = updates or cdn_scan_updates()
+    return 2 * updates / rates["exp2"] / 1e6
 
 
 def scan_times(device, iters: int = 3) -> Dict[str, float]:
@@ -164,13 +180,14 @@ def main() -> int:
     gemm = gemm_rates(dev)
     for name, tf in gemm.items():
         print(f"{name + ' matmul 8192^3':24s} {tf:9.1f} TFLOP/s")
-    floor = scan_floor_ms(rates)
+    floor, mufu = scan_floor_ms(rates), mufu_floor_ms(rates)
     times = scan_times(dev)
-    print(f"scan floor at MaIR-CDN@128, batch 8, d_inner 234: {floor:.4f} ms; measured K2 "
-          f"{times['nss_scan']:.3f} ms ({times['nss_scan'] / floor:.2f}x), K5 "
-          f"{times['nss_scan_fused']:.3f} ms ({times['nss_scan_fused'] / floor:.2f}x)")
+    print(f"scan floor at MaIR-CDN@128, batch 8, d_inner 234: {floor:.4f} ms; three-pass MUFU "
+          f"floor {mufu:.4f} ms; measured "
+          + ", ".join(f"{k} {ms:.3f} ms ({ms / floor:.2f}x, {ms / mufu:.2f}x MUFU)"
+                      for k, ms in times.items()))
     print(json.dumps({"card": card, "gelem_s": rates, "matmul_tflop_s": gemm,
-                      "scan_floor_ms": floor, "scan_ms": times}))
+                      "scan_floor_ms": floor, "mufu_floor_ms": mufu, "scan_ms": times}))
     return 0
 
 

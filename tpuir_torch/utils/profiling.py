@@ -1,6 +1,8 @@
 """Tracing and profiling on the card: the counterpart of
 ``tpuir/utils/profiling.py``, on ``torch.profiler``.
 
+Set ``TPUIR_TRACE_DIR`` to write a trace of any ``with maybe_trace("name"):``
+region (the engine wraps its device pipeline) under ``<dir>/<name>``;
 ``trace_fn`` profiles one callable; ``kernel_times`` and ``op_device_ms``
 read device time from its profile by kernel and by aten op.
 
@@ -23,8 +25,10 @@ and once per image. The last line is the same as one JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-from typing import Callable, Dict, Tuple
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -50,13 +54,28 @@ LIBRARY_STAGES = (
 TILES = {"mair": 128, "mairunet": 384}
 
 
-def _profile():
+def _profile(on_trace_ready=None):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    return profile(activities=acts, on_trace_ready=on_trace_ready)
+
+
+@contextlib.contextmanager
+def maybe_trace(name: str, trace_dir: Optional[str] = None):
+    """Profile the region into a TensorBoard trace under ``<trace_dir>/<name>``
+    (``trace_dir`` defaults to ``$TPUIR_TRACE_DIR``); do nothing when neither
+    is set."""
+    trace_dir = trace_dir or os.environ.get("TPUIR_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import tensorboard_trace_handler
+
+    with _profile(tensorboard_trace_handler(os.path.join(trace_dir, name))):
+        yield
 
 
 def trace_fn(fn: Callable, *args, **kw):
