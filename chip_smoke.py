@@ -11,7 +11,12 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    source, all at once), timed.
 2. K1 (``fused_transformer_block``) against its plain PyTorch version (TF32
    off) at the five block shapes of Restormer@256, batch 8, in both
-   LayerNorm variants, with kernel and plain times from CUDA events.
+   LayerNorm variants, with kernel and plain times from CUDA events; then,
+   at each shape, the tensor-core GEMM core that K1's four 1x1 products run
+   on (``ops/tc_gemm.gemm_f32x3``, 3xTF32) alone at each product's shape:
+   its max error against float64 and its TFLOP/s beside ``torch.matmul``
+   in float32 (TF32 off) on the same operands, a yardstick of the GEMM
+   step only (the port never calls ``torch.matmul`` for them).
 3. The Restormer path: seeded weights for the released color-denoising
    sigma=25 Restormer (full width) are written as a released ``.pth``,
    loaded through ``tpuir_torch.zoo.get_model_instance``, and three
@@ -25,7 +30,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    batch 8 and the 96x72 tile at batch 1) and K7 (``mixer_epilogue``)
    against their plain versions at MaIR-CDN@128, batch 8, full width, on
    seeded weights and the activations the plain mixer makes, with times
-   from CUDA events (plain, kernel, kernel, plain).
+   from CUDA events (plain, kernel, kernel, plain); and the GEMM core at
+   K6's in_proj shape beside ``torch.matmul``, as in phase 2.
 5. The MaIR path: seeded weights for the released sigma=25 MaIR-CDN (full
    width and depth) are written as ``MaIR/denoising/MaIR_CDN_s25.pth`` and
    loaded through the zoo; a 256x256 request (9 tiles, chunks 8+1), a
@@ -41,7 +47,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    (``selective_scan_fused_proj``) at that request's two K3 levels, 96x82
    and 48x41 (batch 2, d_state 16 and 32), against their plain versions on
    seeded MaIRUNet weights; K2 and K3 must repeat bit for bit. Kernel times
-   from CUDA events, the plain version timed once a shape.
+   from CUDA events, the plain version timed once a shape; the GEMM core at
+   K6's in_proj shape of each level beside ``torch.matmul``, as in phase 2.
 7. The MaIRUNet path: seeded weights for the released real-denoising
    MaIRUNet (full width and depth) are written as
    ``MaIR/denoising/MaIR_RealDN.pth`` and loaded through the zoo; noisy
@@ -74,10 +81,11 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
 11. P1 (``utils/micro_rate.probe``) against ``probe_plain`` at the JAX
     probe's shapes (x (8, 512, 128), 32 rounds) for mul, fma and exp2,
     within rtol 1e-5 and bit for bit on repeat; then the rate entry point
-    (the three elementwise rates), the float32 and bf16 ``torch.matmul``
-    rates at 8192^3, and the scan floor at MaIR-CDN@128 and the three-pass
-    MUFU floor (two exp2 a state update) from the measured rates, beside
-    K2's, K5's, K4's and K3's times of phases 4, 8, 10 and 6.
+    (the three elementwise rates), the float32 (TF32 off), TF32 and bf16
+    ``torch.matmul`` rates at 8192^3, and the scan floor at MaIR-CDN@128
+    and the three-pass MUFU floor (two exp2 a state update) from the
+    measured rates, beside K2's, K5's, K4's and K3's times of phases 4, 8,
+    10 and 6.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -91,7 +99,11 @@ call at the JAX shapes, the mean over the three ops), the least time the
 card could take for the same work (``bound_ms``: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, an exponential
 counted as one, the H100 SXM's data-sheet rates, computed from this run's
-shapes) and which of the two bounds it. The last line is ``{"ok": true,
+shapes) and which of the two bounds it. K1 and K6, whose products run on
+the tensor cores in 3xTF32, also carry ``bound_tc_ms``: their 1x1 products'
+operations at the TF32 rate over 3 (494.7 / 3 TFLOP/s) plus the rest at 67
+TFLOP/s, or the bytes over 3.35 TB/s where that is larger. The last line
+is ``{"ok": true,
 "device": {...}}``. Any failed phase raises, exits non-zero and prints no
 last line; so does a machine without a CUDA card.
 """
@@ -155,6 +167,7 @@ CONFIG = dict(layer_norm_bias=False)  # the color-denoising Restormer (BiasFree)
 ITERS = 10  # launches a CUDA-event timing averages over
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
+F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fused_transformer_block": ("tpuir_torch/csrc/fused_block.cu", "tpuir/ops/fused_block.py:338"),
     "mixer_prologue": ("tpuir_torch/csrc/nss_prologue.cu", "tpuir/ops/nss_prologue.py:121"),
@@ -199,6 +212,22 @@ def bound(nbytes: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_tc(nbytes: float, gemm_flops: float, flops: float) -> float:
+    """Least ms on the card for work whose ``gemm_flops`` of ``flops`` run on
+    the tensor cores in 3xTF32 and the rest at the float32 rate."""
+    t_ops = gemm_flops / F32X3_FLOP_PER_S + (flops - gemm_flops) / FP32_FLOP_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, t_ops)
+
+
+def k1_products(batch, hw, C):
+    """K1's four 1x1 products as (label, images, M, N, K, one weight an
+    image): qkv, the folded projection (one C x C weight an image),
+    project_in, project_out."""
+    h, px = int(C * 2.66), batch * hw * hw
+    return [("qkv", 1, px, 3 * C, C, False), ("proj", batch, hw * hw, C, C, True),
+            ("ffn_in", 1, px, 2 * h, C, False), ("ffn_out", 1, px, C, h, False)]
+
+
 def k1_work(batch, hw, C, heads, ln_bias=False):
     """(bytes, float32 operations) of one TransformerBlock: x in, out out,
     weights once; the 1x1 products, the depthwise convs, the Gram and the
@@ -212,6 +241,45 @@ def k1_work(batch, hw, C, heads, ln_bias=False):
     flops = px * (2 * C * 3 * C + 18 * 3 * C + 4 * C * hc + 2 * C * C
                   + 2 * C * 2 * h + 18 * 2 * h + 8 * h + 2 * h * C)
     return nbytes, flops
+
+
+def gemm_yardstick(label, images, M, N, K, per_image, device, seed):
+    """The GEMM core alone (``ops/tc_gemm.gemm_f32x3``, 3xTF32) at one product
+    shape, against float64 and beside ``torch.matmul`` in float32 (TF32 off)
+    on the same seeded operands (unit-scale A, fan-in-scaled W): prints max
+    |error|, its share of atol + rtol * |ref| and TFLOP/s of each; fails if
+    the core misses the tolerance."""
+    import torch
+
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops.tc_gemm import gemm_f32x3
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(images, M, K, device=device, generator=gen)
+    w = torch.randn(*((images,) if per_image else ()), N, K, device=device,
+                    generator=gen) * K ** -0.5
+    with torch.inference_mode(), true_float32():
+        mm = lambda: torch.matmul(a, w.transpose(-1, -2))  # noqa: E731
+        core = lambda: gemm_f32x3(a, w)  # noqa: E731
+        ref = torch.matmul(a.double(), w.double().transpose(-1, -2))
+        stats = []
+        for fn in (core, mm):
+            err = (fn() - ref).abs()
+            stats.append((err.max().item(), (err / (ATOL + RTOL * ref.abs())).max().item()))
+            del err
+        del ref
+        core(), mm()
+        t_mm = cuda_ms(mm, ITERS)
+        t_core = (cuda_ms(core, ITERS) + cuda_ms(core, ITERS)) / 2
+        t_mm = (t_mm + cuda_ms(mm, ITERS)) / 2
+    tflop = 2 * images * M * N * K / 1e12
+    print(f"  GEMM core {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
+          f"{tflop / t_core * 1e3:6.1f} TFLOP/s max|err| {stats[0][0]:.2e} "
+          f"({stats[0][1]:.3f} of tol)  torch.matmul f32 {t_mm:.3f} ms "
+          f"{tflop / t_mm * 1e3:6.1f} TFLOP/s max|err| {stats[1][0]:.2e} ({stats[1][1]:.3f})",
+          flush=True)
+    if not stats[0][1] <= 1.0:
+        fail(f"the GEMM core misses atol {ATOL:g} + rtol {RTOL:g} against float64 at {label}")
 
 
 def prologue_work(px, dm, di):
@@ -325,9 +393,11 @@ def compare_fused(got, want):
 def phase_kernel_vs_plain(device, batch=BATCH, shapes=BLOCK_SHAPES):
     """K1 against its plain version at each block shape, both LN variants.
 
-    Returns (max |delta|, per-forward kernel ms, per-forward plain ms,
-    per-forward bound ms, what bounds it), the per-forward figures summing
-    each BiasFree shape's over its blocks.
+    Before each shape, the GEMM core alone at K1's four product shapes
+    (``gemm_yardstick``). Returns (max |delta|, per-forward kernel ms,
+    per-forward plain ms, per-forward bound ms, what bounds it, per-forward
+    3xTF32 bound ms), the per-forward figures summing each BiasFree shape's
+    over its blocks.
     """
     import torch
 
@@ -336,9 +406,14 @@ def phase_kernel_vs_plain(device, batch=BATCH, shapes=BLOCK_SHAPES):
     from tpuir_torch.ops.fused_block import fused_transformer_block, fused_transformer_block_plain
 
     worst = 0.0
-    fwd_ms = fwd_plain_ms = fwd_bytes = fwd_flops = 0.0
+    fwd_ms = fwd_plain_ms = fwd_bytes = fwd_flops = fwd_gemm = 0.0
     with torch.inference_mode(), true_float32():
         for name, hw, C, heads, count in shapes:
+            gemm = 0  # the four products' operations
+            for label, images, M, N, K, per_image in k1_products(batch, hw, C):
+                gemm_yardstick(f"K1 {name} {label}", images, M, N, K, per_image, device,
+                               SEED + K)
+                gemm += 2 * images * M * N * K
             for ln_bias in (False, True):
                 p = {k: v.to(device) for k, v in
                      init_block_params(C, heads, ln_bias, SEED + C).items()}
@@ -354,11 +429,12 @@ def phase_kernel_vs_plain(device, batch=BATCH, shapes=BLOCK_SHAPES):
                 t_kern, t_plain = timed_pair(kern, plain)
                 nbytes, flops = k1_work(batch, hw, C, heads, ln_bias)
                 b_ms, _ = bound(nbytes, flops)
+                tc_ms = bound_tc(nbytes, gemm, flops)
                 print(f"K1 {name:20s} B={batch} {hw}x{hw} C={C:3d} heads={heads} "
                       f"h={int(C * 2.66):4d} ln_bias={int(ln_bias)}  max|d|={max_err:.3e} "
                       f"(atol {ATOL:g} + rtol {RTOL:g}*|plain|: {'ok' if bound_ok else 'MISS'})  "
-                      f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms",
-                      flush=True)
+                      f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms "
+                      f"(3xTF32: {tc_ms:.3f} ms)", flush=True)
                 if not bound_ok:
                     fail(f"K1 disagrees with its plain version at {name} ln_bias={ln_bias}")
                 worst = max(worst, max_err)
@@ -367,8 +443,10 @@ def phase_kernel_vs_plain(device, batch=BATCH, shapes=BLOCK_SHAPES):
                     fwd_plain_ms += count * t_plain
                     fwd_bytes += count * nbytes
                     fwd_flops += count * flops
+                    fwd_gemm += count * gemm
                 del x, p
-    return (worst, fwd_ms, fwd_plain_ms) + bound(fwd_bytes, fwd_flops)
+    return (worst, fwd_ms, fwd_plain_ms) + bound(fwd_bytes, fwd_flops) + (
+        bound_tc(fwd_bytes, fwd_gemm, fwd_flops),)
 
 
 def synthetic_image(h, w, seed):
@@ -601,9 +679,10 @@ def mixer_inputs(device, batch, hw, seed=SEED):
 
 def phase_mair_kernels(device):
     """K6, K2 and K7 against their plain versions at MaIR-CDN@128, batch 8
-    (K2 also at the 96x72 tile, batch 1). Returns {kernel: (max|d|, ms,
-    plain ms, bound ms, bound by)}, each per call at batch 8, 128x128 (K2:
-    the mean over both shifts)."""
+    (K2 also at the 96x72 tile, batch 1), after the GEMM core alone at K6's
+    in_proj shape (``gemm_yardstick``). Returns {kernel: (max|d|, ms, plain
+    ms, bound ms, bound by)}, each per call at batch 8, 128x128 (K2: the
+    mean over both shifts)."""
     import torch
 
     from tpuir_torch import zoo
@@ -621,6 +700,7 @@ def phase_mair_kernels(device):
         t = MAIR_TILE
         pro, scan, epi = mixer_inputs(device, BATCH, (t, t))
         px = BATCH * t * t
+        gemm_yardstick(f"K6 MaIR-CDN@{t} in_proj", 1, px, 2 * di, dm, False, device, SEED)
         plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
         cases = [
             ("mixer_prologue", f"K6 B={BATCH} {t}x{t}", lambda: mixer_prologue(*pro),
@@ -728,7 +808,9 @@ def phase_unet_kernels(device):
     request's two K3 levels (batch 2), each against its plain version (TF32
     off), the plain version timed once a shape. Returns ({kernel: max|d|},
     {row label: (max|d|, ms, plain ms, bound ms, bound by)}, K3's row per
-    forward chunk of the 481x321 request, K3's state updates a chunk)."""
+    forward chunk of the 481x321 request, K3's state updates a chunk). The
+    GEMM core alone runs at each level's in_proj shape first
+    (``gemm_yardstick``)."""
     import torch
 
     from tpuir_torch import zoo
@@ -743,6 +825,7 @@ def phase_unet_kernels(device):
 
     sd = init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)
     worst, rows = {}, {}
+    tc_fwd = 0.0  # K6's 3xTF32 bound per forward
     plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
     scan_bound = lambda g, w: compare(g, w, SCAN_ATOL, SCAN_RTOL)  # noqa: E731
 
@@ -759,6 +842,12 @@ def phase_unet_kernels(device):
             px = batch * hh * ww
             pro, scan, epi, want, plain_ms = mixer_operands(w, batch, (hh, ww), SEED)
             tag = f"B={batch} {hh}x{ww} Dm={dm} Di={di} N={n}"
+            if label != "rect":
+                gemm_yardstick(f"K6 MaIRUNet {label} in_proj", 1, px, 2 * di, dm, False, device,
+                               SEED)
+                nbytes, flops = prologue_work(px, dm, di)
+                tc_fwd += dict((lb, c) for lb, _, _, c in UNET_LEVELS)[label] * bound_tc(
+                    nbytes, px * 2 * dm * 2 * di, flops)
             kernels = [
                 ("mixer_prologue", "K6", lambda: mixer_prologue(*pro), plain_bound,
                  prologue_work(px, dm, di)),
@@ -780,7 +869,8 @@ def phase_unet_kernels(device):
             print(f"{short} per MaIRUNet@384 forward (batch {BATCH}, "
                   f"{sum(c for c, _ in fwd)} calls): kernel {sum(c * r[1] for c, r in fwd):.3f} "
                   f"ms, plain {sum(c * r[2] for c, r in fwd):.3f} ms, bound "
-                  f"{sum(c * r[3] for c, r in fwd):.3f} ms", flush=True)
+                  f"{sum(c * r[3] for c, r in fwd):.3f} ms"
+                  + (f" (3xTF32: {tc_fwd:.3f} ms)" if short == "K6" else ""), flush=True)
 
         k3_ms = k3_plain = k3_bytes = k3_flops = 0.0
         k3_updates = 0
@@ -1199,6 +1289,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (tpuir_torch/ missing)",
               file=sys.stderr)
         return 1
+    from tpuir_torch import zoo
     from tpuir_torch.ops import _kernels
 
     card = card_line()
@@ -1215,16 +1306,21 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t0 = time.time()
-    k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by = phase_kernel_vs_plain(device)
+    k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_tc = phase_kernel_vs_plain(device)
     print(f"K1 per forward (44 BiasFree blocks, batch {BATCH}): kernel {k1_ms:.2f} ms, "
-          f"plain {k1_plain_ms:.2f} ms, bound {k1_bound:.2f} ms ({k1_by}); "
-          f"max|d| {k1_err:.3e}  [{time.time() - t0:.0f} s]", flush=True)
+          f"plain {k1_plain_ms:.2f} ms, bound {k1_bound:.2f} ms ({k1_by}), 3xTF32 bound "
+          f"{k1_tc:.2f} ms; max|d| {k1_err:.3e}  [{time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     launches, _, _ = phase_main_path(device)
     print(f"[Restormer path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     rows = {"fused_transformer_block": (k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by)}
     rows.update(phase_mair_kernels(device))
+    cfg = zoo.MAIR_CDN_CONFIG
+    px, dm, di = BATCH * MAIR_TILE ** 2, cfg["embed_dim"], int(cfg["ssm_ratio"] * cfg["embed_dim"])
+    nbytes, flops = prologue_work(px, dm, di)
+    bounds_tc = {"fused_transformer_block": k1_tc,  # per forward, and K6 per call at CDN@128
+                 "mixer_prologue": bound_tc(nbytes, px * 4 * dm * di, flops)}
     print(f"[MaIR kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     mair_launches, _, mair_outs = phase_mair_path(device)
@@ -1266,6 +1362,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches[name], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **({"bound_tc_ms": bounds_tc[name]} if name in bounds_tc else {}),
     } for name, (err, ms, plain_ms, b_ms, b_by) in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

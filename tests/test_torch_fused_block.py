@@ -126,3 +126,17 @@ def test_kernel_matches_plain_on_card(cuda_device, B, C, heads, H, W, ln_bias):
             want = fused_transformer_block_plain(x, p, heads, ln_bias)
     # float32 sums in another order than cuBLAS/cuDNN: unit-scale inputs
     torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,heads,H,W,ln_bias", [(2, 48, 1, 33, 17, False),
+                                                   (1, 384, 8, 8, 12, True)])
+def test_kernel_repeats_bit_for_bit_on_card(cuda_device, B, C, heads, H, W, ln_bias):
+    """The products (3xTF32 on the tensor cores), the Gram partials and
+    their chunk-order sum take one order every run."""
+    p = {k: v.to(cuda_device) for k, v in init_block_params(C, heads, ln_bias, seed=C).items()}
+    x = _nchw(np.random.RandomState(C).rand(B, H, W, C).astype(np.float32)).to(cuda_device)
+    with torch.inference_mode():
+        first = fused_transformer_block(x, p, heads, ln_bias)
+        again = fused_transformer_block(x, p, heads, ln_bias)
+    assert torch.equal(first, again)

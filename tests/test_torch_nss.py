@@ -296,6 +296,21 @@ def test_prologue_kernel_matches_plain_on_card(cuda_device, B, H, W, dm, di):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,dm,di", [(2, 32, 24, 180, 234), (1, 9, 13, 33, 65),
+                                         (2, 16, 16, 96, 192)])
+def test_prologue_kernel_repeats_bit_for_bit_on_card(cuda_device, B, H, W, dm, di):
+    """in_proj on the tensor cores (3xTF32, one sum order) and the conv
+    repeat bit for bit; dm 33 takes the core's 4-byte copies, di 65 its
+    one-float split store."""
+    ops = [torch.from_numpy(a).to(cuda_device)
+           for a in _prologue_operands(B, H, W, dm, di, seed=dm)]
+    with torch.inference_mode():
+        x, z = mixer_prologue(*ops)
+        x2, z2 = mixer_prologue(*ops)
+    assert torch.equal(x, x2) and torch.equal(z, z2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shift", [False, True])
 @pytest.mark.parametrize("B,H,W,d,n,r", [(2, 8, 8, 6, 3, 2), (2, 16, 24, 40, 16, 3),
                                          (2, 32, 32, 234, 16, 12), (1, 96, 72, 234, 16, 12),

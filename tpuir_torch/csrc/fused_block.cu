@@ -15,22 +15,26 @@
 //   h1 = dw3x3(LN2(x2) . Win^T)          1x1 C->2h, depthwise 3x3
 //   out = x2 + (gelu(h1[:h]) * h1[h:]) . Wout^T
 //
-// What bounds it on this card. Parity mode is true float32, so neither TF32
-// nor bf16 tensor cores may be used: the line that matters is the float32
-// FMA rate over HBM bandwidth, about 67 TFLOP/s / 3.35 TB/s = 20 flop/byte.
-// A 1x1 product reads C and writes N floats a pixel for 2*C*N flops, which is
-// about 0.4*C flop/byte here: at the line for C=48, above it for C>=96. So the
-// 1x1 products are FMA-bound from level 2 on, and the depthwise convs, the
-// LayerNorm statistics and the Gram pass are bytes-bound everywhere. Against
-// the tensor-core lines of a later bf16 serving mode, all of it is bytes-bound.
+// What bounds it on this card. Parity mode is float32 parity. The 1x1
+// products take 24 C^2 of the block's flops a pixel (2 TFLOP a batch-8
+// Restormer@256 forward); they run on the tensor cores in 3xTF32 (three TF32
+// products a float32 product, tc_gemm.cuh), whose line is 494.7 / 3 TFLOP/s
+// over 3.35 TB/s, about 49 flop/byte. A 1x1 product reads C and writes N
+// floats a pixel for 2*C*N flops, about 0.4*C flop/byte here: under that
+// line at C = 48 and 96, above it at C = 192 and 384. The depthwise convs,
+// the LayerNorm statistics and the Gram pass are bytes-bound everywhere.
 //
-// What the design does about it, kept simple for a first correct kernel:
-//   * 1x1 products are one register-tiled SIMT GEMM (64x64 tile, 4x4 outputs
-//     a thread, 128-bit shared-memory reads, the next K slice fetched while
-//     the current one is multiplied). LayerNorm is fused into its A-tile
-//     load, with each row's statistics computed once by a small launch
-//     before it, and the residual add into its epilogue, so neither LN output
-//     nor the projection output makes a separate trip to HBM.
+// What the design does about it, kept simple:
+//   * The four 1x1 products (qkv, the folded projection, project_in,
+//     project_out) run on the tensor-core GEMM core of tc_gemm.cuh (3xTF32
+//     mma.sync, a cp.async ring). LayerNorm is applied to A on its way from
+//     shared memory to the fragments, with each row's statistics computed
+//     once by a small launch before it, and the residual add is in the
+//     epilogue, so neither LN output nor the projection output makes a
+//     separate trip to HBM. The gate's rows (h = 127 ... 1021 floats) are
+//     stored padded to a multiple of 4 floats with zeros, and project_out's
+//     weight is copied so padded, so that the core copies its operands 16
+//     bytes at a time.
 //   * The depthwise convs slide a 3x3 window along x (3 loads an output per
 //     input channel), and the GELU gate is fused into the second one (2h in,
 //     h out).
@@ -53,37 +57,32 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tc_gemm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
-// GEMM: out[b, m, n] = resid[b, m, n] + sum_k A'[b, m, k] * Wt[b, n, k]
-// A' is A, or LayerNorm over the K axis of A when ln_w is set, with each
-// row's (mean, rstd) read from ln_stats (ln_stats_kernel). Wt is (N, K)
-// row-major (a PyTorch 1x1 conv weight as it is), one per image when
-// w_batch != 0. The grid's z axis is the image, so per-image weights never
-// straddle a tile.
+// The four 1x1 products run on tc_gemm.cuh. BlockOut<G> is product G's store
+// (1 qkv, 2 projection, 3 project_in, 4 project_out), a type of its own so
+// that a profile tells the products apart by kernel name:
+// out[row * ldo + n] = v (+ resid[row * ldo + n]).
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
+template <int G>
+struct BlockOut : tc::StoreOut {};
 
-struct GemmArgs {
-  const float* a;
-  long long a_batch;
-  int lda;
-  const float* w;
-  long long w_batch;
-  const float* resid;  // same layout as out; may be null
-  float* out;
-  long long o_batch;
-  int ldo;
-  int M, N, K;
-  const float2* ln_stats;  // (B*M) rows of (mean, rstd); used when ln_w is set
-  const float* ln_w;       // null: no LayerNorm
-  const float* ln_b;       // null: no LayerNorm bias
-  int ln_sub_mean;         // 1: WithBias (x - mu), 0: BiasFree (x)
-};
+template <int G, class Pro>
+int launch_product(const tc::Args& p, int batch, const Pro& pro, float* out, const float* resid,
+                   int ldo, cudaStream_t st) {
+  BlockOut<G> epi;
+  epi.out = out;
+  epi.resid = resid;
+  epi.ldo = ldo;
+  epi.vec2 = tc::pairs_aligned(out, resid, ldo);
+  return tc::launch_tc_gemm(p, batch, pro, epi, st);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -97,10 +96,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 256 threads, each 4 rows x 4 columns of the 64 x 64 tile (a larger tile
-// measured slower: more registers, fewer resident blocks, and K is as short
-// as 48). The next K slice is fetched into registers while the current one
-// is multiplied, and stored into the other half of a double-buffered tile.
 // Per-row LayerNorm statistics over C channels, one warp a row: the mean,
 // then 1/sqrt(biased variance + 1e-5) by a second pass, as the reference.
 // Written once here instead of by every GEMM tile that reads the row.
@@ -122,110 +117,10 @@ __global__ void __launch_bounds__(kThreads) ln_stats_kernel(
   if (lane == 0) stats[row] = make_float2(mu, rs);
 }
 
-__global__ void __launch_bounds__(kThreads) gemm_nt_kernel(GemmArgs p) {
-  __shared__ __align__(16) float As[2][kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + 4];
-  __shared__ float mu_s[kBM];
-  __shared__ float rs_s[kBM];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const float* A = p.a + b * p.a_batch;
-  const float* Wt = p.w + b * p.w_batch;
-  const int tid = threadIdx.x;
-  const bool ln = p.ln_w != nullptr;
-
-  if (ln) {
-    const float2* st = p.ln_stats + (long long)b * p.M;
-    for (int r = tid; r < kBM; r += kThreads) {
-      const int m = m0 + r;
-      const float2 v = m < p.M ? st[m] : make_float2(0.f, 0.f);
-      mu_s[r] = v.x;
-      rs_s[r] = v.y;
-    }
-    __syncthreads();
-  }
-
-  const int tx = tid & 15;  // output columns n0 + 4*tx .. +3
-  const int ty = tid >> 4;  // output rows    m0 + 4*ty .. +3
-  // loads: 16 consecutive threads read 16 consecutive k of one row (64
-  // bytes); this thread's rows are lr, lr + 16, lr + 32, lr + 48
-  const int lk = tid & (kBK - 1), lr = tid / kBK;
-  float ra[4], rb[4];
-  float acc[4][4] = {};
-
-  auto fetch = [&](int k0) {
-    const int k = k0 + lk;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = lr + 16 * i, m = m0 + r;
-      float v = 0.f;
-      if (m < p.M && k < p.K) {
-        v = A[(long long)m * p.lda + k];
-        if (ln) {
-          v = (p.ln_sub_mean ? v - mu_s[r] : v) * rs_s[r] * p.ln_w[k];
-          if (p.ln_b) v += p.ln_b[k];
-        }
-      }
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = n0 + lr + 16 * i;
-      rb[i] = (n < p.N && k < p.K) ? Wt[(long long)n * p.K + k] : 0.f;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][lk][lr + 16 * i] = ra[i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[buf][lk][lr + 16 * i] = rb[i];
-  };
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    const bool more = k0 + kBK < p.K;
-    if (more) fetch(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* O = p.out + b * p.o_batch;
-  const float* R = p.resid ? p.resid + b * p.o_batch : nullptr;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= p.N) continue;
-      const long long off = (long long)m * p.ldo + n;
-      O[off] = R ? R[off] + acc[i][j] : acc[i][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Depthwise 3x3, zero padding, channels-last. w is (Cin, 1, 3, 3) as PyTorch
 // keeps it. GATE: Cin = 2*Cout and out = gelu_exact(dw[c]) * dw[Cout + c].
+// Output rows are ldo >= Cout floats; columns [Cout, ldo) are written as 0.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float gelu_exact(float v) {
@@ -241,13 +136,18 @@ constexpr int kDwRun = 8;
 template <bool GATE>
 __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
     const float* __restrict__ in, const float* __restrict__ w, float* __restrict__ out,
-    int H, int W, int Cin, int Cout) {
+    int H, int W, int Cin, int Cout, int ldo) {
   const int c = blockIdx.z * 32 + threadIdx.x;
   const int x0 = (blockIdx.y * blockDim.y + threadIdx.y) * kDwRun;
   const int row = blockIdx.x;  // b*H + y
   const int y = row % H;
-  if (c >= Cout || x0 >= W) return;
+  if (c >= ldo || x0 >= W) return;
   const long long img = (long long)(row - y) * W;  // first pixel of image b
+  const int x_end = min(W, x0 + kDwRun);
+  if (c >= Cout) {  // a pad column
+    for (int x = x0; x < x_end; ++x) out[(img + (long long)y * W + x) * ldo + c] = 0.f;
+    return;
+  }
 
   float w0[9], w1[9];
 #pragma unroll
@@ -269,7 +169,6 @@ __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
   };
   column(x0 - 1, l0, l1);
   column(x0, m0, m1);
-  const int x_end = min(W, x0 + kDwRun);
   for (int x = x0; x < x_end; ++x) {
     column(x + 1, r0, r1);
     float s0 = 0.f, s1 = 0.f;
@@ -284,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
         s1 = fmaf(r1[d], w1[d * 3 + 2], s1);
       }
     }
-    out[(img + (long long)y * W + x) * Cout + c] = GATE ? gelu_exact(s0) * s1 : s0;
+    out[(img + (long long)y * W + x) * ldo + c] = GATE ? gelu_exact(s0) * s1 : s0;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       l0[d] = m0[d];
@@ -451,20 +350,24 @@ int launch_ln_stats(const float* x, float2* stats, long long rows, int C, cudaSt
   return (int)cudaGetLastError();
 }
 
-int launch_gemm(const GemmArgs& p, int B, cudaStream_t st) {
-  dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN, B);
-  gemm_nt_kernel<<<grid, kThreads, 0, st>>>(p);
-  return (int)cudaGetLastError();
+// dst (rows, ldd) = src (rows, cols) with columns [cols, ldd) set to 0
+__global__ void __launch_bounds__(kThreads) pad_rows_kernel(const float* __restrict__ src,
+                                                            float* __restrict__ dst, int rows,
+                                                            int cols, int ldd) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)rows * ldd) return;
+  const int r = (int)(i / ldd), c = (int)(i - (long long)r * ldd);
+  dst[i] = c < cols ? src[(long long)r * cols + c] : 0.f;
 }
 
 int launch_dwconv(const float* in, const float* w, float* out, int B, int H, int W, int Cin,
-                  int Cout, bool gate, cudaStream_t st) {
+                  int Cout, int ldo, bool gate, cudaStream_t st) {
   const dim3 block(32, kThreads / 32);
-  const dim3 grid(B * H, (W + block.y * kDwRun - 1) / (block.y * kDwRun), (Cout + 31) / 32);
+  const dim3 grid(B * H, (W + block.y * kDwRun - 1) / (block.y * kDwRun), (ldo + 31) / 32);
   if (gate)
-    dwconv3x3_kernel<true><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout);
+    dwconv3x3_kernel<true><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
   else
-    dwconv3x3_kernel<false><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout);
+    dwconv3x3_kernel<false><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
   return (int)cudaGetLastError();
 }
 
@@ -510,21 +413,24 @@ const char* tpuir_cuda_error_string(int err) { return cudaGetErrorString((cudaEr
 // x, out: (B, H, W, C) channels-last float32. Weights as PyTorch keeps them:
 // w_qkv (3C, C), dw_qkv (3C, 9), temperature (heads), w_proj (C, C),
 // w_in (2h, C), dw_in (2h, 9), w_out (C, h); ln*_b may be null (BiasFree).
-// Scratch: buf1 >= B*H*W*max(3C, 2h), buf2 >= B*H*W*max(3C, h), x2 >= B*H*W*C,
+// Scratch: buf1 >= B*H*W*max(3C, 2h), buf2 >= B*H*W*max(3C, hp), x2 >= B*H*W*C,
+// w_out_p >= C*hp, hp = h rounded up to a multiple of 4,
 // partials >= tpuir_fused_block_partials_numel, attn >= B*C*C/heads, mt >= B*C*C,
 // stats >= 2*B*H*W (16-byte aligned).
 int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const float* ln1_b,
                           const float* ln2_w, const float* ln2_b, const float* w_qkv,
                           const float* dw_qkv, const float* temperature, const float* w_proj,
                           const float* w_in, const float* dw_in, const float* w_out,
-                          float* buf1, float* buf2, float* x2, float* partials, float* attn,
+                          float* buf1, float* buf2, float* x2, float* w_out_p,
+                          float* partials, float* attn,
                           float* mt, float* stats, int B, int H, int W, int C, int heads,
                           int hidden,
                           int ln_bias, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int HW = H * W;
   const int hc = C / heads;
-  if (B <= 0 || HW <= 0 || heads <= 0 || C % heads != 0 || hc > 128 || hidden <= 0)
+  if (B <= 0 || HW <= 0 || heads <= 0 || C % heads != 0 || hc > 128 || hidden <= 0 ||
+      (long long)B * HW > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int nchunk = (HW + kGramChunk - 1) / kGramChunk;
   const long long hwl = HW;
@@ -534,10 +440,13 @@ int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const 
 
   // 1-3. qkv = dw3x3(LN1(x) . Wqkv^T) -> buf2
   if ((err = launch_ln_stats(x, st2, B * hwl, C, st))) return err;
-  GemmArgs g1{x, hwl * C, C, w_qkv, 0, nullptr, buf1, hwl * 3 * C, 3 * C,
-              HW, 3 * C, C, st2, ln1_w, ln_bias ? ln1_b : nullptr, ln_bias};
-  if ((err = launch_gemm(g1, B, st))) return err;
-  if ((err = launch_dwconv(buf1, dw_qkv, buf2, B, H, W, 3 * C, 3 * C, false, st))) return err;
+  const int rows = B * HW;  // the products without per-image weights take the batch as rows
+  const tc::LnPrologue ln1{st2, ln1_w, ln_bias ? ln1_b : nullptr, ln_bias};
+  if ((err = launch_product<1>(tc::Args{x, 0, C, w_qkv, 0, rows, 3 * C, C}, 1, ln1, buf1,
+                               nullptr, 3 * C, st)))
+    return err;
+  if ((err = launch_dwconv(buf1, dw_qkv, buf2, B, H, W, 3 * C, 3 * C, 3 * C, false, st)))
+    return err;
 
   // 4-5. per-head Gram -> softmax -> A; fold A into the projection -> mt
   if ((err = launch_gram(buf2, partials, B, HW, C, heads, nchunk, st))) return err;
@@ -553,21 +462,28 @@ int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const 
   if ((err = (int)cudaGetLastError())) return err;
 
   // 6-7. x2 = x + v . mt_b^T
-  GemmArgs g2{buf2 + 2 * C, hwl * 3 * C, 3 * C, mt, (long long)C * C, x, x2, hwl * C, C,
-              HW, C, C, nullptr, nullptr, nullptr, 0};
-  if ((err = launch_gemm(g2, B, st))) return err;
+  if ((err = launch_product<2>(
+           tc::Args{buf2 + 2 * C, hwl * 3 * C, 3 * C, mt, (long long)C * C, HW, C, C}, B,
+           tc::NoPrologue{}, x2, x, C, st)))
+    return err;
 
-  // 8-11. gate = gelu(dw(h1)[:h]) * dw(h1)[h:], h1 = LN2(x2) . Win^T -> buf2
+  // 8-11. gate = gelu(dw(h1)[:h]) * dw(h1)[h:], h1 = LN2(x2) . Win^T -> buf2, in rows of
+  // hp floats with zeros past h, so that project_out's operands are 16-byte aligned
   if ((err = launch_ln_stats(x2, st2, B * hwl, C, st))) return err;
-  GemmArgs g3{x2, hwl * C, C, w_in, 0, nullptr, buf1, hwl * 2 * hidden, 2 * hidden,
-              HW, 2 * hidden, C, st2, ln2_w, ln_bias ? ln2_b : nullptr, ln_bias};
-  if ((err = launch_gemm(g3, B, st))) return err;
-  if ((err = launch_dwconv(buf1, dw_in, buf2, B, H, W, 2 * hidden, hidden, true, st))) return err;
+  const tc::LnPrologue ln2{st2, ln2_w, ln_bias ? ln2_b : nullptr, ln_bias};
+  if ((err = launch_product<3>(tc::Args{x2, 0, C, w_in, 0, rows, 2 * hidden, C}, 1, ln2, buf1,
+                               nullptr, 2 * hidden, st)))
+    return err;
+  const int hp = (hidden + 3) / 4 * 4;
+  if ((err = launch_dwconv(buf1, dw_in, buf2, B, H, W, 2 * hidden, hidden, hp, true, st)))
+    return err;
 
-  // 12. out = x2 + gate . Wout^T
-  GemmArgs g4{buf2, hwl * hidden, hidden, w_out, 0, x2, out, hwl * C, C,
-              HW, C, hidden, nullptr, nullptr, nullptr, 0};
-  return launch_gemm(g4, B, st);
+  // 12. out = x2 + gate . Wout^T, over hp columns (w_out padded with zeros alike)
+  pad_rows_kernel<<<(unsigned)(((long long)C * hp + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      w_out, w_out_p, C, hidden, hp);
+  if ((err = (int)cudaGetLastError())) return err;
+  return launch_product<4>(tc::Args{buf2, 0, hp, w_out_p, 0, rows, C, hp}, 1, tc::NoPrologue{},
+                           out, x2, C, st);
 }
 
 }  // extern "C"

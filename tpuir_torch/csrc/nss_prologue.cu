@@ -13,19 +13,23 @@
 //
 // What bounds it on this card. At MaIR-CDN@128, batch 8 (M = 131,072
 // pixels, Dm = 180, Di = 234) in_proj is 22.1 GFLOP and the whole function
-// must move 340 MB (h in; x, z out): about 0.33 ms at the float32 FMA peak
-// (67 TFLOP/s, no TF32 in parity mode) against 0.10 ms at 3.35 TB/s. So it
-// is bound by operations; the depthwise conv (0.5 GFLOP) is bound by bytes.
+// must move 340 MB (h in; x, z out). On the tensor cores in 3xTF32 (three
+// TF32 products a float32 product, 494.7 / 3 TFLOP/s) in_proj needs 0.13 ms
+// and the bytes 0.10 ms, so the function sits near both lines; on the
+// float32 FMA line (67 TFLOP/s) it would need 0.33 ms. The depthwise conv
+// (0.5 GFLOP) is bound by bytes.
 //
-// What the design does about it, kept simple for a first correct kernel:
-//   * in_proj is the SIMT GEMM of simt_gemm.cuh (K1's 64x64 tile), whose
-//     epilogue writes the x half to a scratch image and the z half to its
-//     own output, so no split copy follows.
+// What the design does about it:
+//   * in_proj runs on the tensor-core GEMM core of tc_gemm.cuh (3xTF32
+//     mma.sync, cp.async ring), whose epilogue writes the x half to a
+//     scratch image and the z half to its own output as float2 pairs, so no
+//     split copy follows.
 //   * The depthwise conv slides a 3x3 window along x (3 loads an output, a
 //     warp's loads are 32 consecutive channels of one pixel), with the bias
-//     and SiLU in its store.
-// The x half still makes one round trip through device memory between the
-// two launches; fusing the conv into the GEMM's epilogue would remove it.
+//     and SiLU in its store; it reads the x half right behind the GEMM,
+//     mostly from L2.
+// The x half still makes one round trip between the two launches; fusing the
+// conv into the GEMM's epilogue would need a halo of rows a tile.
 //
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
@@ -34,22 +38,36 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "simt_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-// Columns [0, di) of the in_proj output to x, [di, 2*di) to z.
+// Columns [0, di) of the in_proj output to x, [di, 2*di) to z; a pair
+// (n, n + 1), n even, as one float2 when di is even (the pair then lies in
+// one half, 8-byte aligned).
 struct SplitXZ {
   float* x;
   float* z;
   int di;
-  __device__ __forceinline__ void operator()(long long m, int n, float v) const {
+  __device__ __forceinline__ void one(long long m, int n, float v) const {
     if (n < di)
       x[m * di + n] = v;
     else
       z[m * di + (n - di)] = v;
   }
+  __device__ __forceinline__ void operator()(long long m, int n, float v0, float v1,
+                                             bool two) const {
+    if (two && (di & 1) == 0) {
+      float* dst = n < di ? x + m * di + n : z + m * di + (n - di);
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+    } else {
+      one(m, n, v0);
+      if (two) one(m, n + 1, v1);
+    }
+  }
 };
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 constexpr int kDwThreads = 256;
 constexpr int kDwRun = 8;  // outputs a thread slides its window over
@@ -115,7 +133,8 @@ int tpuir_mixer_prologue_f32(const float* h, const float* w_in, const float* con
   if (B <= 0 || H <= 0 || W <= 0 || Dm <= 0 || Di <= 0) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * H * W;
   if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int err = launch_simt_gemm(h, Dm, w_in, (int)M, 2 * Di, Dm, SplitXZ{xpre, z, Di}, st);
+  const tc::Args p{h, 0, Dm, w_in, 0, (int)M, 2 * Di, Dm};
+  int err = tc::launch_tc_gemm(p, 1, tc::NoPrologue{}, SplitXZ{xpre, z, Di}, st);
   if (err) return err;
   const dim3 block(32, kDwThreads / 32);
   const dim3 grid(B * H, (W + block.y * kDwRun - 1) / (block.y * kDwRun), (Di + 31) / 32);

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "fused_transformer_block": 0, "mixer_prologue": 0, "nss_scan": 0, "mixer_epilogue": 0,
     "selective_scan_fused_proj": 0, "nss_scan_fused": 0, "selective_scan": 0, "rate_probe": 0,
+    "tc_gemm": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -119,7 +120,7 @@ def library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tpuir_fused_block_f32.argtypes = [vp] * 20 + [ci] * 7 + [vp]
+        lib.tpuir_fused_block_f32.argtypes = [vp] * 21 + [ci] * 7 + [vp]
         lib.tpuir_fused_block_f32.restype = ci
         lib.tpuir_fused_block_partials_numel.argtypes = [ci] * 5
         lib.tpuir_fused_block_partials_numel.restype = ctypes.c_longlong
@@ -143,6 +144,10 @@ def library() -> ctypes.CDLL:
         lib.tpuir_selective_scan_f32.restype = ci
         lib.tpuir_rate_probe_f32.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
         lib.tpuir_rate_probe_f32.restype = ci
+        ll = ctypes.c_longlong
+        lib.tpuir_tc_gemm_f32.argtypes = ([vp, ll, ci, vp, ll, vp, vp, ci, vp, vp, vp]
+                                          + [ci] * 5 + [vp])
+        lib.tpuir_tc_gemm_f32.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

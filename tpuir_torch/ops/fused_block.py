@@ -145,8 +145,10 @@ def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     with torch.cuda.device(x.device):
         empty = lambda numel: torch.empty(numel, device=x.device, dtype=torch.float32)  # noqa: E731
         buf1 = empty(n * max(3 * C, 2 * hidden))
-        buf2 = empty(n * max(3 * C, hidden))
+        hp = -(-hidden // 4) * 4  # the gate's row stride (csrc/fused_block.cu)
+        buf2 = empty(n * max(3 * C, hp))
         x2 = empty(n * C)
+        w_out_p = empty(C * hp)
         partials = empty(lib.tpuir_fused_block_partials_numel(B, H, W, C, heads))
         attn = empty(B * C * (C // heads))
         mt = empty(B * C * C)
@@ -162,7 +164,8 @@ def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
             p["attn.temperature"].data_ptr(), p["attn.project_out.weight"].data_ptr(),
             p["ffn.project_in.weight"].data_ptr(), p["ffn.dwconv.weight"].data_ptr(),
             p["ffn.project_out.weight"].data_ptr(),
-            buf1.data_ptr(), buf2.data_ptr(), x2.data_ptr(), partials.data_ptr(),
+            buf1.data_ptr(), buf2.data_ptr(), x2.data_ptr(), w_out_p.data_ptr(),
+            partials.data_ptr(),
             attn.data_ptr(), mt.data_ptr(), stats.data_ptr(),
             B, H, W, C, heads, hidden, int(ln_bias),
             torch.cuda.current_stream(x.device).cuda_stream,

@@ -16,8 +16,8 @@ With ``rounds = 32`` and x (8, 512, 128) it computes what the JAX
 
 prints, on the card: the three elementwise rates in Gelem/s (one launch a
 rate, each thread holding its 8 chains in registers for ``TIMED_ROUNDS``
-rounds, 4 blocks of 128 threads an SM); the float32 (TF32 off) and bf16
-``torch.matmul`` rates at 8192^3; and the scan floor at MaIR-CDN@128,
+rounds, 4 blocks of 128 threads an SM); the float32 (TF32 off), TF32 and
+bf16 ``torch.matmul`` rates at 8192^3; and the scan floor at MaIR-CDN@128,
 batch 8 (d_inner 234 unpadded): per state update 3 mul, 3 fma and 1 exp at
 the measured rates, as ``benchmarks/micro_vpu.py`` counts it, and the
 three-pass MUFU floor (two exp2 a state update at the measured exp2 rate),
@@ -105,15 +105,18 @@ def elementwise_rates(device, rounds: int = TIMED_ROUNDS, iters: int = 5) -> Dic
 
 
 def gemm_rates(device, n: int = 8192, iters: int = 5) -> Dict[str, float]:
-    """{dtype: TFLOP/s} of torch.matmul at n^3: float32 with TF32 off, bf16."""
+    """{dtype: TFLOP/s} of torch.matmul at n^3: float32 with TF32 off,
+    float32 with TF32 on (inside this probe only), bf16."""
     from tpuir_torch.core.engine import true_float32
 
     gen = torch.Generator(device=device).manual_seed(0)
     out = {}
-    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for name, dtype, tf32 in (("float32", torch.float32, False), ("tf32", torch.float32, True),
+                              ("bfloat16", torch.bfloat16, False)):
         a = torch.rand(n, n, device=device, generator=gen).to(dtype)
         b = torch.rand(n, n, device=device, generator=gen).to(dtype)
-        with true_float32():
+        with true_float32():  # restores the caller's TF32 settings on exit
+            torch.backends.cuda.matmul.allow_tf32 = tf32
             ms = cuda_ms(lambda: torch.matmul(a, b), iters)
         out[name] = 2 * n ** 3 / (ms * 1e-3) / 1e12
         del a, b

@@ -6,20 +6,25 @@ region (the engine wraps its device pipeline) under ``<dir>/<name>``;
 ``trace_fn`` profiles one callable; ``kernel_times`` and ``op_device_ms``
 read device time from its profile by kernel and by aten op.
 
-    python -m tpuir_torch.utils.profiling [--model mair|mairunet] [--batches 1,2,3,4,8]
-                                          [--nss stripe|fused|0]
+    python -m tpuir_torch.utils.profiling [--model mair|mairunet|restormer]
+                                          [--batches 1,2,3,4,8] [--nss stripe|fused|0]
 
-profiles one forward of MaIR-CDN@128 (``--model mair``, the default) or
-MaIRUNet@384 (``--model mairunet``) at each batch size on the card: full
-released width and depth, weights drawn from a seed, every mixer through
-its kernels as the zoo builds it on the ``--nss`` route (``stripe``, the
-default: K6, K2 and K7; ``fused``: K5; ``0``: K3 everywhere; K3 on levels
-the others do not take), TF32 off as in the engine. Per batch it prints
-the forward's milliseconds (CUDA events), its device time by stage, its
-ten longest kernels, and the time of each full conv of the model and of
-each depthwise conv shape it runs (cuDNN; the mixers' dwconv off the
-stripe route) at the shape the forward gives it, called once on the batch
-and once per image. The last line is the same as one JSON object.
+profiles one forward of MaIR-CDN@128 (``--model mair``, the default),
+MaIRUNet@384 (``--model mairunet``) or Restormer@256 (``--model
+restormer``, the released color-denoising network, BiasFree) at each
+batch size on the card: full released width and depth, weights drawn from
+a seed, every mixer through its kernels as the zoo builds it on the
+``--nss`` route (``stripe``, the default: K6, K2 and K7; ``fused``: K5;
+``0``: K3 everywhere; K3 on levels the others do not take), every
+Restormer block through K1, TF32 off as in the engine. Per batch it prints
+the forward's milliseconds (CUDA events), its device time by stage (for
+Restormer, K1's launches by kernel: the LayerNorm statistics, its four 1x1
+products on the GEMM core, the two depthwise convs, the Gram pass, its
+sum, the softmax and the fold), its ten longest kernels, and the time of
+each full conv of the model and of each depthwise conv shape it runs
+(cuDNN; the mixers' dwconv off the stripe route) at the shape the forward
+gives it, called once on the batch and once per image. The last line is
+the same as one JSON object.
 """
 
 from __future__ import annotations
@@ -45,13 +50,29 @@ MIXER_STAGES = (
     ("x_proj (K2, K3, K5) + out_proj (K7) GEMMs", ("StoreRows",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
 )
+# K1's launches (csrc/fused_block.cu), by kernel-name fragment: the four 1x1
+# products on the GEMM core are told apart by their store type BlockOut<G>.
+BLOCK_STAGES = (
+    ("K1 LayerNorm statistics", ("ln_stats_kernel",)),
+    ("K1 qkv product (LN1 prologue)", ("BlockOut<1>",)),
+    ("K1 projection product (+ residual)", ("BlockOut<2>",)),
+    ("K1 project_in product (LN2 prologue)", ("BlockOut<3>",)),
+    ("K1 project_out product (+ residual)", ("BlockOut<4>",)),
+    ("K1 qkv depthwise conv", ("dwconv3x3_kernel<false>",)),
+    ("K1 gated depthwise conv", ("dwconv3x3_kernel<true>",)),
+    ("K1 Gram partials", ("gram_partial_kernel",)),
+    ("K1 Gram sum", ("gram_reduce_kernel",)),
+    ("K1 softmax", ("attn_softmax_kernel",)),
+    ("K1 fold into the projection", ("fold_proj_kernel",)),
+)
 # Library ops by the aten op that launched them (their self device time).
 LIBRARY_STAGES = (
     ("convs (cuDNN)", "aten::cudnn_convolution"),
     ("Linear (MLP, cuBLAS)", "aten::addmm"),
     ("LayerNorm", "aten::native_layer_norm"),
 )
-TILES = {"mair": 128, "mairunet": 384}
+TILES = {"mair": 128, "mairunet": 384, "restormer": 256}
+RESTORMER_CONFIG = dict(layer_norm_bias=False)  # released color denoising (BiasFree)
 
 
 def _profile(on_trace_ready=None):
@@ -122,9 +143,12 @@ def cuda_ms(fn: Callable, iters: int = 3) -> float:
 def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe"
                 ) -> torch.nn.Module:
     from tpuir_torch import zoo
-    from tpuir_torch.models import mair, mair_unet
+    from tpuir_torch.models import mair, mair_unet, restormer
 
-    if model == "mair":
+    if model == "restormer":
+        net = restormer.Restormer(**RESTORMER_CONFIG, fused=True)
+        net.load_state_dict(restormer.init_state_dict(RESTORMER_CONFIG, seed=seed))
+    elif model == "mair":
         net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss)
         net.load_state_dict(mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
     else:
@@ -182,7 +206,7 @@ def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
             _, prof = trace_fn(net, x)
             kernels = kernel_times(prof)
             stages = {}
-            for name, frags in MIXER_STAGES:
+            for name, frags in (BLOCK_STAGES if model == "restormer" else MIXER_STAGES):
                 stages[name] = sum(ms for k, (ms, _) in kernels.items()
                                    if any(f in k for f in frags))
             for name, op in LIBRARY_STAGES:
