@@ -31,7 +31,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    against their plain versions at MaIR-CDN@128, batch 8, full width, on
    seeded weights and the activations the plain mixer makes, with times
    from CUDA events (plain, kernel, kernel, plain); and the GEMM core at
-   K6's in_proj shape beside ``torch.matmul``, as in phase 2.
+   K6's in_proj and K7's out_proj shapes beside ``torch.matmul``, as in
+   phase 2.
 5. The MaIR path: seeded weights for the released sigma=25 MaIR-CDN (full
    width and depth) are written as ``MaIR/denoising/MaIR_CDN_s25.pth`` and
    loaded through the zoo; a 256x256 request (9 tiles, chunks 8+1), a
@@ -48,7 +49,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    and 48x41 (batch 2, d_state 16 and 32), against their plain versions on
    seeded MaIRUNet weights; K2 and K3 must repeat bit for bit. Kernel times
    from CUDA events, the plain version timed once a shape; the GEMM core at
-   K6's in_proj shape of each level beside ``torch.matmul``, as in phase 2.
+   K6's in_proj and K7's out_proj shapes of each level beside
+   ``torch.matmul``, as in phase 2.
 7. The MaIRUNet path: seeded weights for the released real-denoising
    MaIRUNet (full width and depth) are written as
    ``MaIR/denoising/MaIR_RealDN.pth`` and loaded through the zoo; noisy
@@ -99,12 +101,13 @@ call at the JAX shapes, the mean over the three ops), the least time the
 card could take for the same work (``bound_ms``: the larger of its bytes
 over 3.35 TB/s and its float32 operations over 67 TFLOP/s, an exponential
 counted as one, the H100 SXM's data-sheet rates, computed from this run's
-shapes) and which of the two bounds it. K1 and K6, whose products run on
-the tensor cores in 3xTF32, also carry ``bound_tc_ms``: their 1x1 products'
-operations at the TF32 rate over 3 (494.7 / 3 TFLOP/s) plus the rest at 67
-TFLOP/s, or the bytes over 3.35 TB/s where that is larger. The last line
-is ``{"ok": true,
-"device": {...}}``. Any failed phase raises, exits non-zero and prints no
+shapes; P1, a rate probe: its mul and fma at the float32 lanes' 33.5 T
+instructions/s, its exp2 at the special-function lanes' eighth of that)
+and which of the two bounds it. K1, K6 and K7, whose products run on
+the tensor cores in 3xTF32, also carry ``bound_tc_ms``: their 1x1
+products' operations at the TF32 rate over 3 (494.7 / 3 TFLOP/s) plus the
+rest at 67 TFLOP/s, or the bytes over 3.35 TB/s where that is larger. The
+last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, exits non-zero and prints no
 last line; so does a machine without a CUDA card.
 """
 
@@ -168,6 +171,11 @@ ITERS = 10  # launches a CUDA-event timing averages over
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
+# P1's ops a second: a float32 mul or FMA is one instruction of the 128
+# float32 lanes an SM (67 TFLOP/s counts an FMA as two flops), an exp2 one
+# of the 16 special-function lanes (the Hopper architecture white paper)
+P1_OP_PER_S = {"mul": FP32_FLOP_PER_S / 2, "fma": FP32_FLOP_PER_S / 2,
+               "exp2": FP32_FLOP_PER_S / 2 / 8}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fused_transformer_block": ("tpuir_torch/csrc/fused_block.cu", "tpuir/ops/fused_block.py:338"),
     "mixer_prologue": ("tpuir_torch/csrc/nss_prologue.cu", "tpuir/ops/nss_prologue.py:121"),
@@ -701,6 +709,7 @@ def phase_mair_kernels(device):
         pro, scan, epi = mixer_inputs(device, BATCH, (t, t))
         px = BATCH * t * t
         gemm_yardstick(f"K6 MaIR-CDN@{t} in_proj", 1, px, 2 * di, dm, False, device, SEED)
+        gemm_yardstick(f"K7 MaIR-CDN@{t} out_proj", 1, px, dm, di, False, device, SEED)
         plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
         cases = [
             ("mixer_prologue", f"K6 B={BATCH} {t}x{t}", lambda: mixer_prologue(*pro),
@@ -825,7 +834,7 @@ def phase_unet_kernels(device):
 
     sd = init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)
     worst, rows = {}, {}
-    tc_fwd = 0.0  # K6's 3xTF32 bound per forward
+    tc_fwd = {"K6": 0.0, "K7": 0.0}  # the 3xTF32 bounds per forward
     plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
     scan_bound = lambda g, w: compare(g, w, SCAN_ATOL, SCAN_RTOL)  # noqa: E731
 
@@ -845,9 +854,13 @@ def phase_unet_kernels(device):
             if label != "rect":
                 gemm_yardstick(f"K6 MaIRUNet {label} in_proj", 1, px, 2 * di, dm, False, device,
                                SEED)
-                nbytes, flops = prologue_work(px, dm, di)
-                tc_fwd += dict((lb, c) for lb, _, _, c in UNET_LEVELS)[label] * bound_tc(
-                    nbytes, px * 2 * dm * 2 * di, flops)
+                gemm_yardstick(f"K7 MaIRUNet {label} out_proj", 1, px, dm, di, False, device,
+                               SEED)
+                calls = dict((lb, c) for lb, _, _, c in UNET_LEVELS)[label]
+                for short, (nbytes, flops), gemm in (
+                        ("K6", prologue_work(px, dm, di), px * 4 * dm * di),
+                        ("K7", epilogue_work(px, di, dm, batch), px * 2 * di * dm)):
+                    tc_fwd[short] += calls * bound_tc(nbytes, gemm, flops)
             kernels = [
                 ("mixer_prologue", "K6", lambda: mixer_prologue(*pro), plain_bound,
                  prologue_work(px, dm, di)),
@@ -870,7 +883,7 @@ def phase_unet_kernels(device):
                   f"{sum(c for c, _ in fwd)} calls): kernel {sum(c * r[1] for c, r in fwd):.3f} "
                   f"ms, plain {sum(c * r[2] for c, r in fwd):.3f} ms, bound "
                   f"{sum(c * r[3] for c, r in fwd):.3f} ms"
-                  + (f" (3xTF32: {tc_fwd:.3f} ms)" if short == "K6" else ""), flush=True)
+                  + (f" (3xTF32: {tc_fwd[short]:.3f} ms)" if short in tc_fwd else ""), flush=True)
 
         k3_ms = k3_plain = k3_bytes = k3_flops = 0.0
         k3_updates = 0
@@ -1228,7 +1241,8 @@ def phase_probe(device, scan_ms):
     the three-pass MUFU floor (two exp2 a state update), each at the
     measured rates and scaled to the kernel's updates. Returns (launches,
     (max rel|d|, mean ms, mean plain ms, bound ms, bound by) over the three
-    ops at rounds 32)."""
+    ops at rounds 32); the bound is the larger of the bytes over 3.35 TB/s
+    and the mean over the ops of their operations at ``P1_OP_PER_S``."""
     import torch
 
     from tpuir_torch.ops import _kernels
@@ -1246,15 +1260,16 @@ def phase_probe(device, scan_ms):
             fail(f"P1 {op} does not repeat bit for bit")
         t_kern = cuda_ms(lambda: micro_rate.probe(x, op), ITERS)
         t_plain = cuda_ms(lambda: micro_rate.probe_plain(x, op), 3)
-        elems = x.numel() * micro_rate.ROUNDS
-        b_ms, b_by = bound(4 * (x.numel() + x[0].numel()), elems)
+        t_bytes = 1e3 * 4 * (x.numel() + x[0].numel()) / HBM_BYTES_PER_S
+        t_ops = 1e3 * x.numel() * micro_rate.ROUNDS / P1_OP_PER_S[op]
+        b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
         print(f"P1 {op:4s} x (8, 512, 128) rounds {micro_rate.ROUNDS}  max rel|d|={rel:.3e} "
               f"(rtol {PROBE_RTOL:g}: {'ok' if ok else 'MISS'})  kernel {t_kern:.4f} ms  "
               f"plain {t_plain:.3f} ms  bound {b_ms:.5f} ms ({b_by})", flush=True)
         if not ok:
             fail(f"P1 {op} disagrees with its plain version")
         worst = max(worst, rel)
-        rows.append((t_kern, t_plain, b_ms, b_by))
+        rows.append((t_kern, t_plain, t_bytes, t_ops))
 
     _kernels.reset_launches()
     rates = micro_rate.elementwise_rates(device)
@@ -1275,7 +1290,8 @@ def phase_probe(device, scan_ms):
                       for k, (ms, n) in scan_ms.items()),
           flush=True)
     mean = lambda i: sum(r[i] for r in rows) / len(rows)  # noqa: E731
-    return launches, (worst, mean(0), mean(1), mean(2), rows[0][3])
+    return launches, (worst, mean(0), mean(1), max(mean(2), mean(3)),
+                      "bytes" if mean(2) >= mean(3) else "operations")
 
 
 def main() -> int:
@@ -1319,8 +1335,10 @@ def main() -> int:
     cfg = zoo.MAIR_CDN_CONFIG
     px, dm, di = BATCH * MAIR_TILE ** 2, cfg["embed_dim"], int(cfg["ssm_ratio"] * cfg["embed_dim"])
     nbytes, flops = prologue_work(px, dm, di)
-    bounds_tc = {"fused_transformer_block": k1_tc,  # per forward, and K6 per call at CDN@128
-                 "mixer_prologue": bound_tc(nbytes, px * 4 * dm * di, flops)}
+    ebytes, eflops = epilogue_work(px, di, dm, BATCH)
+    bounds_tc = {"fused_transformer_block": k1_tc,  # per forward, K6 and K7 per call at CDN@128
+                 "mixer_prologue": bound_tc(nbytes, px * 4 * dm * di, flops),
+                 "mixer_epilogue": bound_tc(ebytes, px * 2 * di * dm, eflops)}
     print(f"[MaIR kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     mair_launches, _, mair_outs = phase_mair_path(device)

@@ -8,11 +8,11 @@ float32. ``rna_tf32`` emulates ``cvt.rna.tf32.f32`` (10 mantissa bits kept,
 round to nearest with ties away from zero), checked bit for bit on ties,
 denormals and the infinities; for every input but NaN it is also what the
 kernel's two integer ops for hi give (add 0x1000, clear the 13 low bits).
-The split product is then held, at the K of K1's and K6's products, to the
-card tests' tolerance against float64: summed exactly, and accumulated in
-float32 in the core's order (eight k a step, the two small products before
-the large one) with each step rounded to nearest or, as tensor cores are
-reported to do, toward zero.
+The split product is then held, at the K of K1's, K6's and K7's products,
+to the card tests' tolerance against float64: summed exactly, and
+accumulated in float32 in the core's order (eight k a step, the two small
+products before the large one) with each step rounded to nearest or, as
+tensor cores are reported to do, toward zero.
 """
 
 import numpy as np
@@ -132,7 +132,9 @@ ACCUMULATE = {"exact": None, "float32 to nearest": lambda v: v.astype(np.float32
 
 
 @pytest.mark.parametrize("accumulate", list(ACCUMULATE))
-@pytest.mark.parametrize("K", [48, 96, 127, 180, 384, 1021])  # K1's and K6's product depths
+# K1's and K6's product depths, then K7's out_proj depths (MaIRUNet's 192 and
+# 768, MaIR-CDN's 234)
+@pytest.mark.parametrize("K", [48, 96, 127, 180, 384, 1021, 192, 234, 768])
 def test_split_product_within_card_tolerance(K, accumulate):
     """Unit-scale A, fan-in-scaled W (the card tests' operands): the 3xTF32
     product stays well inside atol 5e-5 + rtol 1e-4 of float64."""

@@ -15,7 +15,7 @@ import torch
 
 from tpuir_torch.core.engine import true_float32
 from tpuir_torch.ops import _kernels
-from tpuir_torch.ops.nss_epilogue import mixer_epilogue, mixer_epilogue_plain
+from tpuir_torch.ops.nss_epilogue import mixer_epilogue, mixer_epilogue_plain, padded_inner
 from tpuir_torch.ops.nss_prologue import mixer_prologue, mixer_prologue_plain
 from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain
 from tpuir_torch.ops.scan_ids import mair_scan_ids
@@ -245,6 +245,16 @@ def test_epilogue_plain_matches_jax_kernel(shift, B, H, W, di, dm):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("di,dp", [(1, 4), (12, 12), (33, 36), (96, 96), (192, 192),
+                                   (234, 236), (300, 300), (383, 384), (768, 768), (1021, 1024)])
+def test_epilogue_padded_inner(di, dp):
+    """K7's gated rows and its padded out_proj weight are d_inner floats
+    rounded up to a multiple of 4, so that the GEMM core copies them 16
+    bytes at a time; MaIRUNet's widths (96 to 768) need no padding,
+    MaIR-CDN's 234 two floats."""
+    assert padded_inner(di) == dp
+
+
 # --- the wrappers' checks --------------------------------------------------
 
 
@@ -357,9 +367,16 @@ def test_scan_kernel_extreme_arguments_on_card(cuda_device, shift, B, H, W, d, n
     _assert_pooled_close(pooled, rpooled, ry)
 
 
+# K7's real widths (MaIR-CDN: Di 234, Dm 180, a row that is not a multiple
+# of 4 floats; MaIRUNet's levels: Di 96-768), each at a pixel count that is
+# not a multiple of any row tile and, at B 2, with images that share a tile
+K7_WIDTHS = [(1, 5, 13, 96, 48), (2, 7, 9, 192, 96), (1, 11, 13, 234, 180),
+             (2, 5, 7, 384, 192), (1, 9, 7, 768, 384)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,di,dm", [(2, 8, 8, 12, 10), (2, 16, 24, 234, 180),
-                                         (1, 5, 7, 300, 33), (1, 4, 4, 1024, 64)])
+                                         (1, 5, 7, 300, 33), (1, 4, 4, 1024, 64)] + K7_WIDTHS)
 def test_epilogue_kernel_matches_plain_on_card(cuda_device, B, H, W, di, dm):
     ops = _torch(_epilogue_operands(B, H, W, di, dm, seed=di), cuda_device)
     before = _kernels.LAUNCHES["mixer_epilogue"]
@@ -369,3 +386,45 @@ def test_epilogue_kernel_matches_plain_on_card(cuda_device, B, H, W, di, dm):
         assert _kernels.LAUNCHES["mixer_epilogue"] == before + 1
         want = mixer_epilogue_plain(**ops)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,di,dm", K7_WIDTHS)
+def test_epilogue_kernel_within_float64_on_card(cuda_device, B, H, W, di, dm):
+    """out_proj in 3xTF32 keeps float32 parity: held to the plain version
+    in float64, not only to the float32 one."""
+    ops = _torch(_epilogue_operands(B, H, W, di, dm, seed=dm), cuda_device)
+    with torch.inference_mode():
+        got = mixer_epilogue(**ops).double()
+        want = mixer_epilogue_plain(**{k: v.double() for k, v in ops.items()})
+    assert bool(((got - want).abs() <= 5e-5 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,di,dm", K7_WIDTHS)
+def test_epilogue_kernel_repeats_bit_for_bit_on_card(cuda_device, B, H, W, di, dm):
+    ops = _torch(_epilogue_operands(B, H, W, di, dm, seed=di + 1), cuda_device)
+    with torch.inference_mode():
+        first = mixer_epilogue(**ops)
+        again = mixer_epilogue(**ops)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,di,dm", [(2, 7, 9, 192, 96), (1, 11, 13, 234, 180)])
+def test_epilogue_kernel_nan_spoils_its_row_only_on_card(cuda_device, B, H, W, di, dm):
+    """A NaN in one direction of one pixel's y row makes that pixel's output
+    row NaN (its LayerNorm statistics are NaN) and leaves every other row as
+    the plain version gives it: the rows that share its tile stay clean."""
+    ops = _epilogue_operands(B, H, W, di, dm, seed=3)
+    b, h, w = B - 1, H // 2, W // 2
+    ops["y"][b, 2, h, w, di // 3] = np.nan
+    ops = _torch(ops, cuda_device)
+    with torch.inference_mode(), true_float32():
+        got = mixer_epilogue(**ops)
+        want = mixer_epilogue_plain(**ops)
+    assert bool(torch.isnan(got[b, h, w]).all())
+    keep = torch.ones(B, H, W, dtype=torch.bool, device=cuda_device)
+    keep[b, h, w] = False
+    assert bool(torch.isfinite(got[keep]).all())
+    torch.testing.assert_close(got[keep], want[keep], atol=2e-5, rtol=1e-4)

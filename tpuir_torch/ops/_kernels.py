@@ -130,7 +130,7 @@ def library() -> ctypes.CDLL:
         lib.tpuir_nss_scan_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_nss_scan_f32.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         lib.tpuir_nss_scan_f32.restype = ci
-        lib.tpuir_mixer_epilogue_f32.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+        lib.tpuir_mixer_epilogue_f32.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         lib.tpuir_mixer_epilogue_f32.restype = ci
         lib.tpuir_scan_fused_proj_scratch_numel.argtypes = [ci] * 5
         lib.tpuir_scan_fused_proj_scratch_numel.restype = ctypes.c_longlong

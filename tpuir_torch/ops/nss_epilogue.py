@@ -2,9 +2,12 @@
 
 The counterpart of ``tpuir/ops/nss_epilogue.py:mixer_epilogue``: the gated
 four-direction sum, out_norm (LayerNorm over d_inner), times SiLU(z), then
-out_proj. The kernel is ``tpuir_torch/csrc/nss_epilogue.cu``; its source
-note gives what bounds it on the card and what the design does about that.
-It takes K2's output in image layout, so there is no half-block select.
+out_proj. The kernel is ``tpuir_torch/csrc/nss_epilogue.cu``: the gated
+rows, then out_proj on the tensor-core GEMM core in 3xTF32; its source note
+gives what bounds it on the card and what the design does about that. It
+takes K2's output in image layout, so there is no half-block select. The
+wrapper allocates the kernel's scratch: the gated rows and a copy of
+``w_out``, both ``padded_inner(d_inner)`` floats wide.
 
 ``mixer_epilogue`` is the wrapper: it checks its inputs and raises on
 anything the kernel does not take. On a CUDA tensor it launches the kernel
@@ -25,6 +28,12 @@ import torch.nn.functional as F
 from tpuir_torch.ops import _kernels
 
 MAX_INNER = 1024  # 32 channels a lane at most in the per-pixel warp
+
+
+def padded_inner(di: int) -> int:
+    """The row width of the gated rows and of the padded out_proj weight:
+    d_inner rounded up to a multiple of 4 floats, for 16-byte copies."""
+    return -(-di // 4) * 4
 
 
 def _check(y, gates, z, ln_w, ln_b, w_out) -> None:
@@ -72,14 +81,16 @@ def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: 
         raise RuntimeError("mixer_epilogue: the CUDA kernel has no backward")
     B, _, H, W, di = y.shape
     dm = w_out.shape[0]
+    dp = padded_inner(di)
     lib = _kernels.library()
     with torch.cuda.device(y.device):
-        gated = torch.empty(B, H, W, di, device=y.device, dtype=torch.float32)
+        gated = torch.empty(B, H, W, dp, device=y.device, dtype=torch.float32)
+        w_pad = torch.empty(dm, dp, device=y.device, dtype=torch.float32)
         out = torch.empty(B, H, W, dm, device=y.device, dtype=torch.float32)
         err = lib.tpuir_mixer_epilogue_f32(
             y.data_ptr(), gates.data_ptr(), z.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-            w_out.data_ptr(), gated.data_ptr(), out.data_ptr(), B, H * W, di, dm,
-            torch.cuda.current_stream(y.device).cuda_stream,
+            w_out.data_ptr(), gated.data_ptr(), w_pad.data_ptr(), out.data_ptr(), B, H * W, di,
+            dm, torch.cuda.current_stream(y.device).cuda_stream,
         )
     _kernels.check(err, "mixer_epilogue")
     _kernels.LAUNCHES["mixer_epilogue"] += 1

@@ -37,18 +37,21 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-# Kernel-name fragments of the mixer kernels, by stage. The SIMT GEMM's
-# epilogue type tells K6's in_proj (SplitXZ) from the row-store GEMMs of K2's
-# and K3's x_proj and K7's out_proj (StoreRows); the scan passes' path type
-# tells K2's (ImageIdsPath) from K3's (SequencePath) and K5's (StripePath).
+# Kernel-name fragments of the mixer kernels, by stage. The GEMMs are told
+# apart by their epilogue types: K6's in_proj (SplitXZ) and K7's out_proj
+# (StoreOut) run on the tensor-core core, the x_proj of K2, K3 and K5 on the
+# SIMT GEMM (StoreRows); the scan passes' path type tells K2's
+# (ImageIdsPath) from K3's (SequencePath) and K5's (StripePath).
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
     ("K2 scan passes", ("ImageIdsPath",)),
     ("K5 scan passes", ("StripePath",)),
     ("K3 scan passes", ("SequencePath",)),
-    ("x_proj (K2, K3, K5) + out_proj (K7) GEMMs", ("StoreRows",)),
+    ("x_proj GEMMs (K2, K3, K5)", ("StoreRows",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
+    ("K7 out_proj GEMM", ("StoreOut",)),
+    ("K7 out_proj weight padding", ("pad_weight_kernel",)),
 )
 # K1's launches (csrc/fused_block.cu), by kernel-name fragment: the four 1x1
 # products on the GEMM core are told apart by their store type BlockOut<G>.
