@@ -48,7 +48,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    (``selective_scan_fused_proj``) at that request's two K3 levels, 96x82
    and 48x41 (batch 2, d_state 16 and 32), against their plain versions on
    seeded MaIRUNet weights; K2 and K3 must repeat bit for bit. Kernel times
-   from CUDA events, the plain version timed once a shape; the GEMM core at
+   from CUDA events, the plain version timed once a shape, K3's beside its
+   MUFU floor (one exp2 a state update); the GEMM core at
    K6's in_proj and K7's out_proj shapes of each level beside
    ``torch.matmul``, as in phase 2.
 7. The MaIRUNet path: seeded weights for the released real-denoising
@@ -85,9 +86,9 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     within rtol 1e-5 and bit for bit on repeat; then the rate entry point
     (the three elementwise rates), the float32 (TF32 off), TF32 and bf16
     ``torch.matmul`` rates at 8192^3, and the scan floor at MaIR-CDN@128
-    and the three-pass MUFU floor (two exp2 a state update) from the
-    measured rates, beside K2's, K5's, K4's and K3's times of phases 4, 8,
-    10 and 6.
+    and the MUFU floors (two exp2 a state update for the three-pass scan of
+    K2, K5 and K4, one for K3's one-pass scan) from the measured rates,
+    beside K2's, K5's, K4's and K3's times of phases 4, 8, 10 and 6.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -98,17 +99,20 @@ plain ms (K1: per Restormer@256 forward; K6, K2, K7, K5: per call at
 MaIR-CDN@128, batch 8; K3: per forward chunk of the 481x321 request, its 12
 calls at 96x82 and 8 at 48x41; K4: per call at MaIR-CDN's shape; P1: per
 call at the JAX shapes, the mean over the three ops), the least time the
-card could take for the same work (``bound_ms``: the larger of its bytes
-over 3.35 TB/s and its float32 operations over 67 TFLOP/s, an exponential
-counted as one, the H100 SXM's data-sheet rates, computed from this run's
-shapes; P1, a rate probe: its mul and fma at the float32 lanes' 33.5 T
-instructions/s, its exp2 at the special-function lanes' eighth of that)
-and which of the two bounds it. K1, K6 and K7, whose products run on
+card could take for the same work (``bound_ms``: the largest of its bytes
+over 3.35 TB/s, its float32 operations over 67 TFLOP/s, an exponential
+counted as one, and, for the scans K2, K3, K4 and K5, their exponentials,
+one a state update, at the special-function lanes' 4.19 T/s, an eighth of
+the float32 lanes' 33.5 T instructions/s; the H100 SXM's data-sheet rates,
+computed from this run's shapes; P1, a rate probe: its mul and fma at
+33.5 T instructions/s, its exp2 at an eighth of that) and which bounds it
+("operations" for either rate of operations). K1, K6 and K7, whose products run on
 the tensor cores in 3xTF32, also carry ``bound_tc_ms``: their 1x1
 products' operations at the TF32 rate over 3 (494.7 / 3 TFLOP/s) plus the
 rest at 67 TFLOP/s, or the bytes over 3.35 TB/s where that is larger. The
-last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, exits non-zero and prints no
-last line; so does a machine without a CUDA card.
+last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
+exits non-zero and prints no last line; so does a machine without a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -214,10 +218,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms on the card, what bounds it) for work of nbytes and flops."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: float, flops: float, exps: float = 0):
+    """(least ms on the card, what bounds it) for work of nbytes, flops and
+    ``exps`` exponentials on the special-function lanes (``mufu_ms``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / FP32_FLOP_PER_S, mufu_ms(exps) / 1e3)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mufu_ms(exps):
+    """Least ms for ``exps`` exp2 on the special-function lanes,
+    ``P1_OP_PER_S["exp2"]``: a scan's MUFU floor, one exp2 a state update."""
+    return 1e3 * exps / P1_OP_PER_S["exp2"]
 
 
 def bound_tc(nbytes: float, gemm_flops: float, flops: float) -> float:
@@ -300,39 +312,41 @@ def scan_work(px, di, n, r):
     """K2: x and the id table in, y (4 directions) and pooled out, weights;
     per direction and pixel the x_dbl and dt projections, softplus, per
     state update exp(dt*A), dt*B*x, the FMA into h and C.h, then D*x and
-    the pooled sum. An exponential counts as one operation."""
+    the pooled sum. An exponential counts as one operation, and as one of
+    the exponentials (the third value, one a state update)."""
     c = r + 2 * n
     nbytes = 4 * (px * di + 4 * px + 4 * px * di + 4 * (c * di + di * r + di * n + 2 * di))
     flops = 4 * px * (2 * c * di + 2 * r * di + 4 * di + 7 * di * n + 4 * di)
-    return nbytes, flops
+    return nbytes, flops, 4 * px * di * n
 
 
 def k5_work(px, di, n, r):
     """K5: scan_work less the id table, which K5 does not read."""
-    nbytes, flops = scan_work(px, di, n, r)
-    return nbytes - 4 * 4 * px, flops
+    nbytes, flops, exps = scan_work(px, di, n, r)
+    return nbytes - 4 * 4 * px, flops, exps
 
 
 def k4_work(seqs, L, di, n):
     """K4: u and delta in, B and C in, y out (seqs = B*K sequences of L
     positions), A, D and the bias; per position and channel the bias add,
     softplus, D*u, and per state update exp(dt*A), dt*B*u, the FMA into h
-    and C.h."""
+    and C.h; one exponential a state update."""
     pos = seqs * L
     nbytes = 4 * (3 * pos * di + 2 * pos * n + seqs * (di * n + 2 * di))
     flops = pos * (5 * di + 7 * di * n + 2 * di)
-    return nbytes, flops
+    return nbytes, flops, pos * di * n
 
 
 def k3_work(seqs, L, di, n, r):
     """K3: xs in, y out (seqs = B*4 sequences of L positions), weights; per
     position the x_dbl and dt projections, softplus, per state update
-    exp(dt*A), dt*B*x, the FMA into h and C.h, then D*x."""
+    exp(dt*A), dt*B*x, the FMA into h and C.h, then D*x; one exponential a
+    state update."""
     c = r + 2 * n
     pos = seqs * L
     nbytes = 4 * (2 * pos * di + 4 * (c * di + di * r + di * n + 2 * di))
     flops = pos * (2 * c * di + 2 * r * di + 4 * di + 7 * di * n + 2 * di)
-    return nbytes, flops
+    return nbytes, flops, pos * di * n
 
 
 def epilogue_work(px, di, dm, images):
@@ -902,17 +916,21 @@ def phase_unet_kernels(device):
             row = check_case(f"K3 B=2 {hh}x{ww} Di={di} N={n}",
                              lambda: selective_scan_fused_proj(*args), want[0], scan_bound, 10,
                              plain_ms, work, repeat=True)
+            updates = work[2]
+            print(f"{'':34s} MUFU floor {mufu_ms(updates):.4f} ms (one exp2 a state update, "
+                  f"{updates:,} updates)", flush=True)
             keep("selective_scan_fused_proj", f"K3 {label}", row)
             k3_ms += count * row[1]
             k3_plain += count * row[2]
             k3_bytes += count * work[0]
             k3_flops += count * work[1]
-            k3_updates += count * 2 * 4 * L * di * n
+            k3_updates += count * updates
             del scan, xs, args, want
-    k3_row = (worst["selective_scan_fused_proj"], k3_ms, k3_plain) + bound(k3_bytes, k3_flops)
+    k3_row = ((worst["selective_scan_fused_proj"], k3_ms, k3_plain)
+              + bound(k3_bytes, k3_flops, k3_updates))
     print(f"K3 per forward chunk of the 481x321 request (12 calls at 96x82, 8 at 48x41, "
           f"batch 2): kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_row[3]:.3f} ms "
-          f"({k3_row[4]})", flush=True)
+          f"({k3_row[4]}), MUFU floor {mufu_ms(k3_updates):.3f} ms", flush=True)
     return worst, rows, k3_row, k3_updates
 
 
@@ -1237,9 +1255,9 @@ def phase_probe(device, scan_ms):
     rounds 32) for each op, within PROBE_RTOL and bit for bit on repeat;
     then the rate entry point (counts set to 0 just before, read just after),
     the GEMM rates and the two scan floors beside ``scan_ms`` ({kernel: (ms
-    a call, its state updates)}): 3 mul + 3 fma + 1 exp a state update, and
-    the three-pass MUFU floor (two exp2 a state update), each at the
-    measured rates and scaled to the kernel's updates. Returns (launches,
+    a call, its state updates, its exp2 a state update)}): 3 mul + 3 fma +
+    1 exp a state update, and the MUFU floor (the kernel's exp2 a state
+    update), each at the measured rates and scaled to the kernel's updates. Returns (launches,
     (max rel|d|, mean ms, mean plain ms, bound ms, bound by) over the three
     ops at rounds 32); the bound is the larger of the bytes over 3.35 TB/s
     and the mean over the ops of their operations at ``P1_OP_PER_S``."""
@@ -1286,8 +1304,9 @@ def phase_probe(device, scan_ms):
           f"update at the measured rates): {floor:.4f} ms; three-pass MUFU floor (2 exp2 a "
           f"state update at the measured exp2 rate): {mufu:.4f} ms; "
           + ", ".join(f"{k} {ms:.3f} ms ({ms / micro_rate.scan_floor_ms(rates, n):.2f}x, "
-                      f"{ms / micro_rate.mufu_floor_ms(rates, n):.2f}x MUFU)"
-                      for k, (ms, n) in scan_ms.items()),
+                      f"{ms / micro_rate.mufu_floor_ms(rates, n, exps):.2f}x its MUFU floor "
+                      f"of {exps} exp2 an update)"
+                      for k, (ms, n, exps) in scan_ms.items()),
           flush=True)
     mean = lambda i: sum(r[i] for r in rows) / len(rows)  # noqa: E731
     return launches, (worst, mean(0), mean(1), max(mean(2), mean(3)),
@@ -1369,9 +1388,9 @@ def main() -> int:
     from tpuir_torch.utils.micro_rate import cdn_scan_updates
 
     cdn = cdn_scan_updates()  # K4's first case has MaIR-CDN@128's shape
-    scan_ms = {"K2": (rows["nss_scan"][1], cdn), "K5": (rows["nss_scan_fused"][1], cdn),
-               "K4 at MaIR-CDN's shape": (rows["selective_scan"][1], cdn),
-               "K3 per 481x321 chunk": (rows["selective_scan_fused_proj"][1], k3_updates)}
+    scan_ms = {"K2": (rows["nss_scan"][1], cdn, 2), "K5": (rows["nss_scan_fused"][1], cdn, 2),
+               "K4 at MaIR-CDN's shape": (rows["selective_scan"][1], cdn, 2),
+               "K3 per 481x321 chunk": (rows["selective_scan_fused_proj"][1], k3_updates, 1)}
     launches["rate_probe"], rows["rate_probe"] = phase_probe(device, scan_ms)
     print(f"[P1 {time.time() - t0:.0f} s]", flush=True)
 

@@ -12,7 +12,8 @@ The split product is then held, at the K of K1's, K6's and K7's products,
 to the card tests' tolerance against float64: summed exactly, and
 accumulated in float32 in the core's order (eight k a step, the two small
 products before the large one) with each step rounded to nearest or, as
-tensor cores are reported to do, toward zero.
+tensor cores are reported to do, toward zero. Last, why K3's x_dbl, which
+its scan compounds over a sequence, is not taken on the core.
 """
 
 import numpy as np
@@ -147,6 +148,84 @@ def test_split_product_within_card_tolerance(K, accumulate):
     margin = float((err / (ATOL + RTOL * np.abs(ref))).max())  # 1.0 = at the tolerance
     print(f"K={K} {accumulate}: max|err| {err.max():.3e}, {margin:.4f} of the tolerance")
     assert margin < 0.5
+
+
+def step_sum_product(a, w):
+    """split_product with each k8 step's three products summed apart from
+    zero (each add rounded toward zero, as the tensor cores do) and added
+    to the running sum with a rounded float32 add."""
+    ah, al = (t.astype(np.float64) for t in split_tf32(a))
+    wh, wl = (t.astype(np.float64) for t in split_tf32(w))
+    acc = np.zeros((a.shape[0], w.shape[0]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        step = np.zeros_like(acc)
+        for x, y in ((al, wh), (ah, wl), (ah, wh)):
+            step = _round_toward_zero(step.astype(np.float64) + x[:, s] @ y[:, s].T)
+        acc = acc + step
+    return acc.astype(np.float64)
+
+
+# K3's x_dbl at MaIRUNet's level 3 and latent widths (L cut): (L, D, N, R)
+K3_SHAPES = [(128, 384, 16, 12), (64, 768, 32, 24)]
+
+
+def _k3_scan_share(L, d, n, r, product):
+    """K3's y from x_dbl taken by ``product`` against y from float64 x_dbl,
+    as its worst share of the scan's card tolerance 5e-5 + 1e-3 * |y| (the
+    plain chunked scan on both sides; the card tests' operands)."""
+    import torch
+
+    from tpuir_torch.ops.selective_scan import selective_scan
+
+    rng = np.random.RandomState(L + d)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    xs, wxp = f(1, 4, L, d), f(4, r + 2 * n, d) / np.float32(np.sqrt(d))
+    wdt = f(4, d, r) / np.float32(np.sqrt(r))
+    A = -np.exp(f(4, d, n) * np.float32(0.3)).astype(np.float32)
+    D, bias = f(4, d) * np.float32(0.3), f(4, d) * np.float32(0.3)
+    t = torch.from_numpy
+
+    def scan(xdbl):
+        xdbl = t(xdbl.astype(np.float32))
+        dts = torch.einsum("bklr,kdr->bkld", xdbl[..., :r], t(wdt))
+        return selective_scan(t(xs), dts, t(A), xdbl[..., r:r + n], xdbl[..., r + n:], t(D),
+                              t(bias), delta_softplus=True, chunk=256)
+
+    want = scan(np.einsum("bkld,kcd->bklc", xs.astype(np.float64), wxp.astype(np.float64)))
+    got = scan(np.stack([product(xs[0, k], wxp[k]) for k in range(4)])[None])
+    return ((got - want).abs() / (5e-5 + 1e-3 * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("L,d,n,r", K3_SHAPES)
+def test_truncated_running_sums_miss_k3_scan(L, d, n, r):
+    """Why K3's x_dbl is not taken on this core: its scan compounds x_dbl's
+    error over a sequence, and the core's 3xTF32 x_dbl, its running sums
+    truncated, puts y outside the scan's tolerance against float64. Summing
+    each k8 step apart would hold it there; on the card even that missed the
+    tolerance against the plain version, whose x_dbl measured bit for bit
+    an ascending FMA chain, so K3 takes the FMA-chain SIMT GEMM (PERF.md
+    §6)."""
+    truncated = _k3_scan_share(L, d, n, r, lambda a, w: split_product(a, w, _round_toward_zero))
+    step_sums = _k3_scan_share(L, d, n, r, step_sum_product)
+    print(f"K3 D={d}: truncated running sums {truncated:.3f}, step sums {step_sums:.3f} "
+          f"of the tolerance")
+    assert truncated > 1.0
+    assert step_sums < 0.4
+
+
+@pytest.mark.parametrize("K", [384, 768])
+def test_truncated_running_sums_drift_with_depth(K):
+    """At K3's depths the truncated running sums leave x_dbl more than 5
+    times a float32 product's error from float64; summed a k8 step apart,
+    within twice it."""
+    rng = np.random.RandomState(K)
+    a = rng.randn(96, K).astype(np.float32)
+    w = (rng.randn(44, K) / np.sqrt(K)).astype(np.float32)
+    ref = a.astype(np.float64) @ w.astype(np.float64).T
+    f32 = np.abs((a @ w.T).astype(np.float64) - ref).max()
+    assert np.abs(split_product(a, w, _round_toward_zero) - ref).max() > 5 * f32
+    assert np.abs(step_sum_product(a, w) - ref).max() < 2 * f32
 
 
 def test_single_tf32_would_miss_the_tolerance():

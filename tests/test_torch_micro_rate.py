@@ -124,12 +124,57 @@ def test_mufu_floor_counts_two_exp2_a_update(updates):
         n * (3 / 1000 + 3 / 500 + 1 / 250) / 1e6, rel=1e-12)
 
 
+def test_mufu_floor_of_a_one_pass_scan_is_half():
+    """K3's one-pass scan takes one exp2 a state update: half the three-pass floor."""
+    rates = {"mul": 1000.0, "fma": 500.0, "exp2": 250.0}  # Gelem/s
+    n = 8 * 7872 * 384 * 16  # K3 at MaIRUNet's level 3 of a 481x321 request
+    assert micro_rate.mufu_floor_ms(rates, n, exps=1) == pytest.approx(n / 250 / 1e6, rel=1e-12)
+    assert micro_rate.mufu_floor_ms(rates, n, exps=1) * 2 == pytest.approx(
+        micro_rate.mufu_floor_ms(rates, n), rel=1e-12)
+
+
 def test_scan_bench_needs_a_card(monkeypatch, capsys):
     from tpuir_torch.utils import scan_bench
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert scan_bench.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("regs,threads,smem,want", [
+    (64, 512, 49152, 2),   # 16 warps at the 64-register cap: registers allow two
+    (40, 128, 23424, 9),   # 4 warps: shared memory allows nine
+    (32, 256, 0, 8),       # threads allow eight
+    (16, 32, 0, 32),       # the ceiling of 32 blocks
+])
+def test_scan_bench_resident_blocks(regs, threads, smem, want):
+    from tpuir_torch.utils import scan_bench
+
+    assert scan_bench.resident_blocks(regs, threads, smem) == want
+
+
+def test_scan_bench_reads_ptxas_registers(monkeypatch):
+    """Registers by kernel from nvcc's -Xptxas=-v lines, the mangled names
+    demangled and shortened as the profiler's names are."""
+    from tpuir_torch.utils import scan_bench
+
+    log = ("ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1gv\n"
+           "ptxas info    : Used 64 registers\n")
+    plain = {"_Z1fv": "void (anonymous namespace)::seq_scan_kernel<32>((anonymous "
+                      "namespace)::SeqScanArgs)", "_Z1gv": "void tc::gemm_kernel<96, 4>(tc::Args)"}
+
+    class Done:
+        def __init__(self, names):
+            self.stdout = "\n".join(plain[n] for n in names.split("\n"))
+
+    monkeypatch.setattr(scan_bench.shutil, "which", lambda tool: "/bin/true")
+    monkeypatch.setattr(scan_bench.subprocess, "run", lambda cmd, input, **kw: Done(input))
+    assert scan_bench.ptxas_registers(log) == {"seq_scan_kernel<32>": 40,
+                                               "tc::gemm_kernel<96, 4>": 64}
+    assert scan_bench.ptxas_registers("") == {}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 // The chunked selective scan of MaIR's mixer in float32 on Hopper (sm_90a),
-// shared by K2 (nss_scan.cu), K3 (scan_fused_proj.cu), K5 (nss_fused.cu)
-// and K4 (selective_scan.cu).
+// shared by K2 (nss_scan.cu), K5 (nss_fused.cu) and K4 (selective_scan.cu);
+// K3 (scan_fused_proj.cu) takes its helpers (exp2_mufu, softplus) and scans
+// its short gathered sequences in one pass of its own.
 //
 // Per sequence bk = (b, k) and channel d, over the L positions t of the
 // sequence, with u the position's input:
@@ -64,8 +65,6 @@
 //   ImageIdsPath (K2): position t of direction k is image pixel
 //     p = ids[k][t]; x (B, L, D) and y (B, 4, L, D) are in image order,
 //     x_dbl (B, L, 4, C) pixel-major (one GEMM over all pixels).
-//   SequencePath (K3): x, y (B, 4, L, D) and x_dbl (B, 4, L, C) are in
-//     sequence order, already gathered by the caller.
 //   StripePath (K5): as ImageIdsPath, but the pixel is computed from t
 //     (nss_pixel below) instead of read from a table, and directions 2 and
 //     3 write y in the transposed (W, H) image layout.
@@ -88,13 +87,10 @@ constexpr int kGroup = 4;        // positions whose dt is computed together
 constexpr int kMaxState = 32;
 constexpr int kMaxRank = 64;
 
-enum class PathKind { kImageIds, kSequence, kStripe, kDelta };
+enum class PathKind { kImageIds, kStripe, kDelta };
 
 struct ImageIdsPath {
   static constexpr PathKind kKind = PathKind::kImageIds;
-};
-struct SequencePath {
-  static constexpr PathKind kKind = PathKind::kSequence;
 };
 struct StripePath {
   static constexpr PathKind kKind = PathKind::kStripe;
@@ -190,9 +186,9 @@ __device__ __forceinline__ void nss_pixel(int k, int t, int H, int W, int SL, bo
 }
 
 struct ChunkScanArgs {
-  const float* x;      // ImageIdsPath, StripePath (B, L, D); SequencePath (B, 4, L, D); DeltaPath (B, K, L, D)
+  const float* x;      // ImageIdsPath, StripePath (B, L, D); DeltaPath (B, K, L, D)
   const int* ids;      // (4, L): ImageIdsPath only
-  const float* xdbl;   // ImageIdsPath, StripePath (B, L, 4, C); SequencePath (B, 4, L, C); C = R + 2N
+  const float* xdbl;   // ImageIdsPath, StripePath (B, L, 4, C); C = R + 2N
   const float* dt_w;   // (4, D, R); not DeltaPath
   const float* A;      // (K, D, N), negative
   const float* Dskip;  // (K, D)

@@ -81,7 +81,7 @@ int tpuir_nss_scan_f32(const float* x, const int* ids, const float* x_proj_w, co
   float* partial = decay + BK * nchunk * D * N;
 
   // 0. x_dbl for every pixel and direction: (B*L, D) . (4*C, D)^T
-  int err = launch_simt_gemm(x, D, x_proj_w, (int)M, kK * C, D, StoreRows{xdbl, kK * C}, st);
+  int err = launch_simt_gemm(x, x_proj_w, xdbl, (int)M, kK * C, D, st);
   if (err) return err;
 
   // 1-3. the chunked scan through the id table

@@ -21,7 +21,7 @@
 // the measured exp2 rate, so its passes are bound by that pipe.
 //
 // What the design does about it:
-//   * chunk_scan.cuh's passes on DeltaPath, the code of K2, K3 and K5:
+//   * chunk_scan.cuh's passes on DeltaPath, the code of K2 and K5:
 //     256-position chunks from a zero state, the carries chained in chunk
 //     order, the chunks rescanned from their true states, no float atomics
 //     (the output repeats bit for bit). u, delta and y are read and written

@@ -3,7 +3,7 @@
 The counterpart of ``tpuir/ops/nss_fused.py:nss_scan_fused``, which MaIR's
 mixers take under ``TPUIR_NSS=fused`` (the port's ``nss="fused"``) on
 levels whose H and W are multiples of ``scan_len``. The kernel is
-``tpuir_torch/csrc/nss_fused.cu``, on the chunked scan it shares with K2, K3
+``tpuir_torch/csrc/nss_fused.cu``, on the chunked scan it shares with K2
 and K4 (``csrc/chunk_scan.cuh``); its source note gives the math, what
 bounds it on the card and what the design does about that. It computes the
 pixel each path position visits from the stripe arithmetic, with no id

@@ -5,8 +5,9 @@ the x_proj and dt_proj projections, softplus, the selective scan and D*x on
 sequences already gathered along the four NSS paths. MaIR's mixer takes it
 on a pyramid level whose H or W is not a multiple of ``scan_len``, where K2
 (``ops/nss_stripe.py``) does not apply. The kernel is
-``tpuir_torch/csrc/scan_fused_proj.cu``, on the chunked scan it shares with
-K2 (``csrc/chunk_scan.cuh``); its source note gives what bounds it on the
+``tpuir_torch/csrc/scan_fused_proj.cu``: x_dbl on the float32 SIMT GEMM it
+shares with K2 and K5, then one pass over each sequence with a channel's
+states across a warp's lanes; its source note gives what bounds it on the
 card and what the design does about that.
 
 ``selective_scan_fused_proj`` is the wrapper: it checks its inputs and

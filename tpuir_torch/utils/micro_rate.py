@@ -144,12 +144,13 @@ def scan_floor_ms(rates: Dict[str, float], updates: int = 0) -> float:
     return updates * (3 / rates["mul"] + 3 / rates["fma"] + 1 / rates["exp2"]) / 1e6
 
 
-def mufu_floor_ms(rates: Dict[str, float], updates: int = 0) -> float:
-    """The floor of the three-pass chunked scan (``csrc/chunk_scan.cuh``):
-    passes 1 and 3 each take one exp2 on the MUFU pipe a state update, so
-    2 * ``updates`` at the measured exp2 rate."""
+def mufu_floor_ms(rates: Dict[str, float], updates: int = 0, exps: int = 2) -> float:
+    """The MUFU floor of a scan: ``exps`` exp2 on the MUFU pipe a state
+    update, over ``updates``, at the measured exp2 rate. The three-pass
+    chunked scan (``csrc/chunk_scan.cuh``) takes 2 (passes 1 and 3 each
+    take one), K3's one-pass scan (``csrc/scan_fused_proj.cu``) 1."""
     updates = updates or cdn_scan_updates()
-    return 2 * updates / rates["exp2"] / 1e6
+    return exps * updates / rates["exp2"] / 1e6
 
 
 def scan_times(device, iters: int = 3) -> Dict[str, float]:

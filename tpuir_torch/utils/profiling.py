@@ -37,18 +37,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-# Kernel-name fragments of the mixer kernels, by stage. The GEMMs are told
-# apart by their epilogue types: K6's in_proj (SplitXZ) and K7's out_proj
-# (StoreOut) run on the tensor-core core, the x_proj of K2, K3 and K5 on the
-# SIMT GEMM (StoreRows); the scan passes' path type tells K2's
-# (ImageIdsPath) from K3's (SequencePath) and K5's (StripePath).
+# Kernel-name fragments of the mixer kernels, by stage. K6's in_proj
+# (SplitXZ) and K7's out_proj (StoreOut) run on the tensor-core core, told
+# apart by their epilogue types; the x_proj of K2, K3 and K5 on the SIMT
+# GEMM (simt_gemm_nt_kernel); the scan passes' path type tells K2's
+# (ImageIdsPath) from K5's (StripePath). K3 packs its x_proj weight and
+# scans in one pass.
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
     ("K2 scan passes", ("ImageIdsPath",)),
     ("K5 scan passes", ("StripePath",)),
-    ("K3 scan passes", ("SequencePath",)),
-    ("x_proj GEMMs (K2, K3, K5)", ("StoreRows",)),
+    ("K3 one-pass scan", ("seq_scan_kernel",)),
+    ("K3 x_proj weight packing", ("pack_xproj_kernel",)),
+    ("x_proj GEMMs (K2, K3, K5)", ("simt_gemm_nt_kernel",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
     ("K7 out_proj GEMM", ("StoreOut",)),
     ("K7 out_proj weight padding", ("pad_weight_kernel",)),
