@@ -89,6 +89,17 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     and the MUFU floors (two exp2 a state update for the three-pass scan of
     K2, K5 and K4, one for K3's one-pass scan) from the measured rates,
     beside K2's, K5's, K4's and K3's times of phases 4, 8, 10 and 6.
+12. Restormer's serving precision. The GEMM core's bf16 mode alone at K1
+    serving's product shapes (against float64 products of its rounded
+    operands, beside ``torch.matmul`` in bf16); K1's serving body at the
+    five Restormer@256 block shapes, batch 8, both LayerNorm variants, held
+    stage by stage against functions of its own previous stage
+    (``utils/serving_check.py``), bit for bit on repeat, timed beside its
+    plain version; then the released sigma=25 Restormer built through the
+    zoo with ``precision="serving"`` on phase 3's weights serves phase 3's
+    requests, three rounds: 44 serving-body launches a chunk and no parity
+    K1 launch, repeatable, within 2 uint8 LSB of the same path with plain
+    serving blocks, PSNR within 0.05 dB of phase 3's parity outputs.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -98,19 +109,23 @@ launches, max|kernel - plain| over every check (P1: relative), kernel and
 plain ms (K1: per Restormer@256 forward; K6, K2, K7, K5: per call at
 MaIR-CDN@128, batch 8; K3: per forward chunk of the 481x321 request, its 12
 calls at 96x82 and 8 at 48x41; K4: per call at MaIR-CDN's shape; P1: per
-call at the JAX shapes, the mean over the three ops), the least time the
-card could take for the same work (``bound_ms``: the largest of its bytes
-over 3.35 TB/s, its float32 operations over 67 TFLOP/s, an exponential
-counted as one, and, for the scans K2, K3, K4 and K5, their exponentials,
-one a state update, at the special-function lanes' 4.19 T/s, an eighth of
-the float32 lanes' 33.5 T instructions/s; the H100 SXM's data-sheet rates,
-computed from this run's shapes; P1, a rate probe: its mul and fma at
-33.5 T instructions/s, its exp2 at an eighth of that) and which bounds it
-("operations" for either rate of operations). K1, K6 and K7, whose products run on
-the tensor cores in 3xTF32, also carry ``bound_tc_ms``: their 1x1
+call at the JAX shapes, the mean over the three ops; K1 serving: per
+Restormer@256 forward), the least time the card could take for the same
+work (``bound_ms``: the largest of its bytes over 3.35 TB/s, its float32
+operations over 67 TFLOP/s, an exponential counted as one, and, for the
+scans K2, K3, K4 and K5, their exponentials, one a state update, at the
+special-function lanes' 4.19 T/s, an eighth of the float32 lanes' 33.5 T
+instructions/s; the H100 SXM's data-sheet rates, computed from this run's
+shapes; P1, a rate probe: its mul and fma at 33.5 T instructions/s, its
+exp2 at an eighth of that) and which bounds it ("operations" for either
+rate of operations). K1, K6 and K7, whose products run on the tensor cores
+in 3xTF32, also carry ``bound_tc_ms``: their 1x1
 products' operations at the TF32 rate over 3 (494.7 / 3 TFLOP/s) plus the
-rest at 67 TFLOP/s, or the bytes over 3.35 TB/s where that is larger. The
-last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
+rest at 67 TFLOP/s, or the bytes over 3.35 TB/s where that is larger. K1
+serving's ``bound_ms`` is the larger of its bytes (bf16 block IO, float32
+weights) over 3.35 TB/s and its products (the Gram and the attention
+apply at one head's width) at the dense bf16 rate, 989 TFLOP/s, plus the
+rest at 67 TFLOP/s. The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 exits non-zero and prints no last line; so does a machine without a CUDA
 card.
 """
@@ -175,6 +190,9 @@ ITERS = 10  # launches a CUDA-event timing averages over
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
+SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
+SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
 # P1's ops a second: a float32 mul or FMA is one instruction of the 128
 # float32 lanes an SM (67 TFLOP/s counts an FMA as two flops), an exp2 one
 # of the 16 special-function lanes (the Hopper architecture white paper)
@@ -190,6 +208,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nss_scan_fused": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
     "selective_scan": ("tpuir_torch/csrc/selective_scan.cu", "tpuir/ops/scan_pallas.py:117"),
     "rate_probe": ("tpuir_torch/csrc/rate_probe.cu", "benchmarks/micro_vpu.py:60"),
+    # the same TPU kernel's serving body (mm_bf16, fast_gelu)
+    "fused_transformer_block_serving": ("tpuir_torch/csrc/fused_block.cu",
+                                        "tpuir/ops/fused_block.py:338"),
 }
 
 
@@ -526,6 +547,7 @@ def plain_twin(model, net):
         name=f"{model.name} (plain)", net=net.to(model.device).eval(), device=model.device,
         patch_size=model.patch_size, patch_overlap=model.patch_overlap,
         pad_factor=model.pad_factor, batch_size=model.batch_size,
+        compute_dtype=model.compute_dtype,
     )
 
 
@@ -1313,6 +1335,226 @@ def phase_probe(device, scan_ms):
                       "bytes" if mean(2) >= mean(3) else "operations")
 
 
+def k1_serving_products(batch, hw, C):
+    """The products of K1's serving body on the bf16 core as (label, images,
+    M, N, K, one weight an image): qkv, the attention apply (blockdiag(A_b),
+    one C x C weight an image), the projection, project_in, project_out."""
+    h, px = int(C * 2.66), batch * hw * hw
+    return [("qkv", 1, px, 3 * C, C, False), ("apply", batch, hw * hw, C, C, True),
+            ("proj", 1, px, C, C, False), ("ffn_in", 1, px, 2 * h, C, False),
+            ("ffn_out", 1, px, C, h, False)]
+
+
+def k1_serving_work(batch, hw, C, heads, ln_bias=False):
+    """(bytes, tensor-core operations, other operations) of one serving
+    block: bf16 x in and out, float32 weights once; its products (the four
+    1x1 products, the Gram and the attention apply at one head's width) at
+    the bf16 tensor-core rate; the depthwise convs and the GELU gate at the
+    float32 rate."""
+    h, hc, px = int(C * 2.66), C // heads, batch * hw * hw
+    weights = 3 * C * C + 27 * C + heads + C * C + 2 * h * C + 18 * h + h * C + 2 * C
+    weights += 2 * C if ln_bias else 0
+    nbytes = 2 * 2 * px * C + 4 * weights
+    gemm = px * (2 * C * 3 * C + 4 * C * hc + 2 * C * C + 2 * C * 2 * h + 2 * h * C)
+    return nbytes, gemm, px * (18 * 3 * C + 18 * 2 * h + 8 * h)
+
+
+def bound_bf16(nbytes, gemm_flops, flops):
+    """(least ms, what bounds it) for work of nbytes whose gemm_flops run on
+    the tensor cores in bf16 and the other flops at the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = gemm_flops / BF16_FLOP_PER_S + flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed):
+    """The GEMM core's bf16 mode alone (``ops/tc_gemm.gemm_bf16``) at one
+    product shape, against float64 products of its bf16-rounded operands,
+    and beside ``torch.matmul`` on the same operands in bf16 (a bf16
+    output): prints max |error|, its share of atol + rtol * |ref| and
+    TFLOP/s of each; fails if the core misses the tolerance."""
+    import torch
+
+    from tpuir_torch.ops.tc_gemm import gemm_bf16
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(images, M, K, device=device, generator=gen)
+    w = torch.randn(*((images,) if per_image else ()), N, K, device=device,
+                    generator=gen) * K ** -0.5
+    a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    with torch.inference_mode():
+        mm = lambda: torch.matmul(a16, w16.transpose(-1, -2))  # noqa: E731
+        core = lambda: gemm_bf16(a, w)  # noqa: E731
+        ref = torch.matmul(a16.double(), w16.double().transpose(-1, -2))
+        stats = []
+        for fn in (core, mm):
+            err = (fn().double() - ref).abs()
+            stats.append((err.max().item(), (err / (ATOL + RTOL * ref.abs())).max().item()))
+            del err
+        del ref
+        core(), mm()
+        t_mm = cuda_ms(mm, ITERS)
+        t_core = (cuda_ms(core, ITERS) + cuda_ms(core, ITERS)) / 2
+        t_mm = (t_mm + cuda_ms(mm, ITERS)) / 2
+    tflop = 2 * images * M * N * K / 1e12
+    print(f"  bf16 core {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
+          f"{tflop / t_core * 1e3:6.1f} TFLOP/s max|err| {stats[0][0]:.2e} "
+          f"({stats[0][1]:.3f} of tol)  torch.matmul bf16 {t_mm:.3f} ms "
+          f"{tflop / t_mm * 1e3:6.1f} TFLOP/s max|err| {stats[1][0]:.2e} (bf16 out)", flush=True)
+    if not stats[0][1] <= 1.0:
+        fail(f"the bf16 core misses atol {ATOL:g} + rtol {RTOL:g} against float64 products of "
+             f"its rounded operands at {label}")
+
+
+def ulp2_ratio(got, want) -> float:
+    """max |got - want| in units of 2^-6 * max(|want|, 1), two bf16 ulps."""
+    return ((got - want).abs() / (2.0 ** -6 * want.abs().clamp_min(1.0))).max().item()
+
+
+def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
+    """K1's serving body stage by stage at each block shape, both LN
+    variants, on bf16 inputs; bit for bit on repeat.
+
+    End to end the body cannot be held to its plain version at these
+    widths: a float32 sum that differs in its last bit from another order's
+    flips a bf16 operand of the next product now and then, and the flips
+    cascade. So each stage the kernel writes (``ops/fused_block.
+    serving_stages``, its two parts on the check's own scratch) is held to
+    its function of the kernel's own previous stage
+    (``utils/serving_check.check_serving_stages``): the LayerNorm
+    statistics, the Gram sums and the norms bit for bit against emulations
+    of the kernel's float32 arithmetic, each product within 5e-5 + 1e-4
+    |ref| of float64 sums of its bf16 operands, the bf16 output the
+    rounding of a value within that of its float64 reference. The output
+    against the plain version (max|d|, and tpuir's block criteria, two bf16
+    ulps and 1/20 of the serving-parity gap) is printed beside, for the
+    record. Before each shape, the bf16 core alone at the body's five
+    product shapes (``gemm_bf16_yardstick``). Returns (max |kernel -
+    plain|, per-forward kernel ms, per-forward plain ms, bound ms, what
+    bounds it), the per-forward figures summing each BiasFree shape's over
+    its blocks.
+    """
+    import torch
+
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.restormer import init_block_params
+    from tpuir_torch.ops.fused_block import (
+        fused_transformer_block,
+        fused_transformer_block_plain,
+        fused_transformer_block_serving_plain,
+        serving_stages,
+    )
+    from tpuir_torch.utils.serving_check import check_serving_stages
+
+    worst = 0.0
+    fwd_ms = fwd_plain_ms = fwd_bytes = fwd_gemm = fwd_other = 0.0
+    with torch.inference_mode(), true_float32():
+        for name, hw, C, heads, count in shapes:
+            for label, images, M, N, K, per_image in k1_serving_products(batch, hw, C):
+                gemm_bf16_yardstick(f"K1s {name} {label}", images, M, N, K, per_image, device,
+                                    SEED + K)
+            for ln_bias in (False, True):
+                p = {k: v.to(device) for k, v in
+                     init_block_params(C, heads, ln_bias, SEED + C).items()}
+                x = torch.from_numpy(
+                    np.random.RandomState(SEED + hw).rand(batch, hw, hw, C).astype(np.float32)
+                ).to(device).to(torch.bfloat16).permute(0, 3, 1, 2)
+                kern = lambda: fused_transformer_block(  # noqa: E731
+                    x, p, heads, ln_bias, serving=True)
+                plain = lambda: fused_transformer_block_serving_plain(  # noqa: E731
+                    x, p, heads, ln_bias)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                repeat = torch.equal(got, again)
+                stages = serving_stages(x, p, heads, ln_bias)
+                # the two parts give the whole body's output (on a CPU tensor both are
+                # plain versions, with different sum orders)
+                parts = device.type != "cuda" or torch.equal(stages["out"], got)
+                verdicts = check_serving_stages(x, p, heads, ln_bias, stages)
+                del stages, again
+                got, want = got.float(), plain().float()
+                gap = (want - fused_transformer_block_plain(x.float(), p, heads, ln_bias)
+                       ).abs().mean().item()
+                max_err = (got - want).abs().max().item()
+                tp_ratio, tp_mean = ulp2_ratio(got, want), (got - want).abs().mean().item() / gap
+                del got, want
+                t_kern, t_plain = timed_pair(kern, plain)
+                nbytes, gemm, other = k1_serving_work(batch, hw, C, heads, ln_bias)
+                b_ms, _ = bound_bf16(nbytes, gemm, other)
+                missed = [v.name for v in verdicts if not v.ok]
+                print(f"K1 serving {name:20s} B={batch} {hw}x{hw} C={C:3d} heads={heads} "
+                      f"ln_bias={int(ln_bias)}  stages {'ok' if not missed else 'MISS'}; "
+                      f"against plain max|d| {max_err:.3e} ({tp_ratio:.2f} x 2 ulps, mean "
+                      f"{tp_mean:.3f} of the gap); repeat {'bit for bit' if repeat else 'DIFFERS'}"
+                      f"; parts {'= whole' if parts else 'DIFFER'}  kernel {t_kern:.3f} ms  "
+                      f"plain {t_plain:.3f} ms  bound {b_ms:.3f} ms", flush=True)
+                for v in verdicts:
+                    print(f"    {v.name:18s} {'ok  ' if v.ok else 'MISS'} {v.detail}", flush=True)
+                if missed:
+                    fail(f"K1 serving misses its stage checks at {name} ln_bias={ln_bias}: "
+                         f"{', '.join(missed)}")
+                if not repeat or not parts:
+                    fail(f"K1 serving is not repeatable at {name} ln_bias={ln_bias}")
+                worst = max(worst, max_err)
+                if not ln_bias:
+                    fwd_ms += count * t_kern
+                    fwd_plain_ms += count * t_plain
+                    fwd_bytes += count * nbytes
+                    fwd_gemm += count * gemm
+                    fwd_other += count * other
+                del x, p
+    return (worst, fwd_ms, fwd_plain_ms) + bound_bf16(fwd_bytes, fwd_gemm, fwd_other)
+
+
+def phase_serving_path(device, parity_rate, parity_outs, requests=REQUESTS):
+    """Serve Restormer through the zoo with ``precision="serving"`` on phase
+    3's seeded weights and requests (host AWGN sigma 25), ROUNDS rounds: 44
+    serving-body launches a chunk and no parity K1 launch, bit for bit on
+    repeat, within SERVING_LSB of the same path with plain serving blocks,
+    and within SERVING_PSNR_DB of phase 3's parity outputs ``parity_outs``
+    ({(h, w): (output, ms)}) on every request; engine Mpix/s beside phase
+    3's ``parity_rate``. Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.metrics import calculate_metrics
+    from tpuir_torch.models.restormer import Restormer, init_state_dict
+
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        path = os.path.join(wdir, "Restormer", "denoising", "gaussian_color_denoising_sigma25.pth")
+        os.makedirs(os.path.dirname(path))
+        torch.save({"params": init_state_dict(CONFIG, seed=SEED)}, path)
+        model = zoo.get_model_instance("denoising", "gaussian", "Restormer", gray=False,
+                                       sigma=SIGMA, weights_dir=wdir, precision="serving",
+                                       device=device)
+    print(f"serving path: Restormer color sigma={SIGMA}, precision=serving, compute_dtype "
+          f"{model.compute_dtype}, patch {model.patch_size} batch {model.batch_size}", flush=True)
+    clean = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
+    launches, outs = serve_kernel_rounds(
+        "Restormer serving", model, clean, requests,
+        lambda h, w: {"fused_transformer_block_serving": 44}, SIGMA)
+    plain = serve(plain_twin(model, Restormer(**CONFIG, fused=False, serving=True)), clean)
+    for (h, w), img, (pred, ms), (ppred, _, _, _) in zip(requests, clean, outs, plain):
+        psnr, ssim = calculate_metrics(pred, img)
+        par_pred, par_ms = parity_outs[(h, w)]
+        par_psnr, par_ssim = calculate_metrics(par_pred, img)
+        diff = lsb(pred, ppred)
+        print(f"Restormer serving request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f} "
+              f"(parity {par_psnr:.4f} dB {par_ssim:.5f}, delta {psnr - par_psnr:+.4f} dB, "
+              f"max|serving-parity| {lsb(pred, par_pred)} LSB)  serving {ms:.1f} ms "
+              f"{h * w / 1e3 / ms:.3f} Mpix/s (parity {par_ms:.1f} ms)  max|kernel-plain| "
+              f"{diff} LSB", flush=True)
+        if diff > SERVING_LSB:
+            fail(f"the serving path and its plain-block twin differ by {diff} LSB on {h}x{w}")
+        if abs(psnr - par_psnr) > SERVING_PSNR_DB:
+            fail(f"serving PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity on {h}x{w}")
+    mpix = sum(h * w for h, w in requests) / 1e6
+    rate = mpix / (sum(ms for _, ms in outs) / 1e3)
+    print(f"Restormer engine over the {len(requests)} requests ({mpix:.4f} Mpix): serving "
+          f"{rate:.3f} Mpix/s, parity {parity_rate['kernel']:.3f} Mpix/s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1346,7 +1588,7 @@ def main() -> int:
           f"plain {k1_plain_ms:.2f} ms, bound {k1_bound:.2f} ms ({k1_by}), 3xTF32 bound "
           f"{k1_tc:.2f} ms; max|d| {k1_err:.3e}  [{time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    launches, _, _ = phase_main_path(device)
+    launches, restormer_rate, restormer_outs = phase_main_path(device)
     print(f"[Restormer path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     rows = {"fused_transformer_block": (k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by)}
@@ -1393,6 +1635,14 @@ def main() -> int:
                "K3 per 481x321 chunk": (rows["selective_scan_fused_proj"][1], k3_updates, 1)}
     launches["rate_probe"], rows["rate_probe"] = phase_probe(device, scan_ms)
     print(f"[P1 {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    row = phase_serving_kernels(device)
+    rows["fused_transformer_block_serving"] = row
+    print(f"K1 serving per forward (44 BiasFree blocks, batch {BATCH}): kernel {row[1]:.2f} ms, "
+          f"plain {row[2]:.2f} ms, bound {row[3]:.2f} ms ({row[4]}); max|d| {row[0]:.3e}",
+          flush=True)
+    launches.update(phase_serving_path(device, restormer_rate, restormer_outs))
+    print(f"[serving {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

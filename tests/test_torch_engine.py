@@ -67,7 +67,8 @@ def test_zoo_missing_checkpoint_raises(tmp_path):
 @pytest.mark.parametrize(
     "model_name,kw,err",
     [
-        ("Restormer", dict(precision="serving"), NotImplementedError),
+        # Restormer's serving precision is ported: an absent checkpoint is what stops it
+        ("Restormer", dict(precision="serving"), FileNotFoundError),
         ("MaIR", dict(subtask="real", sigma=None, precision="serving"), NotImplementedError),
         ("DnCNN", {}, NotImplementedError),
         ("Restormer", dict(sigma=35), ValueError),

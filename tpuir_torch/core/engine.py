@@ -14,10 +14,14 @@ restore are NumPy copies. Patches go to the device in
 ``batch_size`` chunks; a ragged last chunk runs as it is, since eager
 PyTorch has no compile cache to bound.
 
-Parity mode pins true float32: TF32 is off for cuBLAS and cuDNN while a
-chunk runs (cuDNN allows TF32 by default), the counterpart of
-``jax.default_matmul_precision("float32")`` in the JAX engine. DeblurGANv2's
-phase-layout I/O is a TPU layout and has no counterpart here.
+Parity mode (``compute_dtype=None``) pins true float32: TF32 is off for
+cuBLAS and cuDNN while a chunk runs (cuDNN allows TF32 by default), the
+counterpart of ``jax.default_matmul_precision("float32")`` in the JAX
+engine. A ``compute_dtype`` (the serving modes) skips the pin, leaving
+PyTorch's own TF32 defaults, the counterpart of XLA's default precision;
+``"bfloat16"`` also casts the chunk to bf16 before the forward. The output
+is widened to float32 in every mode. DeblurGANv2's phase-layout I/O is a
+TPU layout and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -80,7 +84,9 @@ class InferenceModel:
     ``net`` maps an NCHW float32 batch on ``device`` to NCHW. The hooks are
     the JAX engine's: ``normalize`` (host, HWC -> float32), ``pad_factor``
     (reflect pad-to-multiple; Restormer and MaIR: 8), ``pad_block``
-    (DeblurGANv2's always-pad), ``postprocess`` (on the device output).
+    (DeblurGANv2's always-pad), ``postprocess`` (on the device output),
+    ``compute_dtype`` (None: parity, true float32; "float32": no TF32 pin;
+    "bfloat16": no pin, the chunk cast to bf16).
     """
 
     name: str
@@ -94,16 +100,24 @@ class InferenceModel:
     postprocess: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     batch_size: int = 8
     param_count: int = 0
+    compute_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r} "
+                             "(None|'float32'|'bfloat16')")
 
     @torch.inference_mode()
     def step(self, x: torch.Tensor) -> torch.Tensor:
-        """pad -> forward -> crop -> postprocess, for one chunk (n, C, h, w)."""
+        """cast -> pad -> forward -> crop -> postprocess, for one chunk (n, C, h, w)."""
         h, w = x.shape[-2:]
+        if self.compute_dtype == "bfloat16":
+            x = x.to(torch.bfloat16)
         if self.pad_factor:
             x = pad_to_multiple(x, self.pad_factor, mode="reflect")
         elif self.pad_block:
             x = pad_always_block(x, self.pad_block)
-        with true_float32():
+        with true_float32() if self.compute_dtype is None else contextlib.nullcontext():
             y = self.net(x)
         y = y[:, :, :h, :w]
         if self.postprocess is not None:

@@ -50,6 +50,30 @@
 // Intermediates (qkv, x2, h1, the gate) still go through device memory; a
 // later change that fuses the launches would remove those trips.
 //
+// The serving body (tpuir_fused_block_bf16) replaces the same TPU kernel
+// built with mm_bf16=True, fast_gelu=True (_make_kernel's serving branches):
+//   * x and out are bf16; x is widened to a float32 scratch once, for LN1's
+//     statistics and the qkv product, and the projection's residual reads
+//     the bf16 x as it is; out = x2 + ... is rounded to bf16 on its store,
+//     x2 stays float32;
+//   * every product takes bf16 operands with float32 sums (the core's Bf16
+//     mode, which rounds A' and W on their way to the fragments): the four
+//     1x1 products, the Gram q . k^T (q and k rounded in the Gram pass, their
+//     squared norms taken from the unrounded values) and the attention apply;
+//   * attention is not folded into the projection, since at bf16 resolution
+//     that rounds Mt instead of v, A and then v . A^T: the core computes
+//     ao = v . blockdiag(A_b)^T with one C x C weight an image (the off-diagonal
+//     zeros are exact), then x2 = x + ao . Wproj^T;
+//   * LayerNorm takes the one-pass variance max(E[x^2] - mu^2, 0), and the
+//     gate GELU's sigmoid form x * sigmoid(1.702 x) (expf, not __expf);
+//   * the depthwise convs, the softmax and the residual sums stay float32.
+// What bounds it: with its products at the tensor cores' bf16 rate (989
+// TFLOP/s dense), the body's least time is its float32 rest (the depthwise
+// convs, at 67 TFLOP/s), about 4 ms a batch-8 Restormer@256 forward against
+// 0.3 ms for its bf16 block IO. The kernel is far from that (PERF.md): its
+// intermediates go through device memory, as the parity body's do, and the
+// core stages float32 tiles.
+//
 // C interface (bound with ctypes, no PyTorch headers): every launch goes on
 // the caller's stream, nothing is allocated or synchronised here, and the
 // entry point returns the first cudaError_t it meets (0 = success).
@@ -64,24 +88,30 @@ namespace {
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
-// The four 1x1 products run on tc_gemm.cuh. BlockOut<G> is product G's store
-// (1 qkv, 2 projection, 3 project_in, 4 project_out), a type of its own so
-// that a profile tells the products apart by kernel name:
-// out[row * ldo + n] = v (+ resid[row * ldo + n]).
+// The products run on tc_gemm.cuh. BlockOut<G> is product G's store (1 qkv,
+// 2 projection, 3 project_in, 4 project_out, 5 the serving body's attention
+// apply), a type of its own so that a profile tells the products apart by
+// kernel name: out[row * ldo + n] = v (+ resid[row * ldo + n]), each float or
+// bf16.
 // ---------------------------------------------------------------------------
 
-template <int G>
-struct BlockOut : tc::StoreOut {};
+template <int G, class TOut = float, class TRes = float>
+struct BlockOut : tc::Store<TOut, TRes> {};
 
-template <int G, class Pro>
-int launch_product(const tc::Args& p, int batch, const Pro& pro, float* out, const float* resid,
-                   int ldo, cudaStream_t st) {
-  BlockOut<G> epi;
+template <class T>
+struct Id {  // keeps a parameter out of deduction, so that it may be nullptr
+  using type = T;
+};
+
+template <int G, class Prec = tc::F32x3, class TRes = float, class TOut, class Pro>
+int launch_product(const tc::Args& p, int batch, const Pro& pro, TOut* out,
+                   const typename Id<TRes>::type* resid, int ldo, cudaStream_t st) {
+  BlockOut<G, TOut, TRes> epi;
   epi.out = out;
   epi.resid = resid;
   epi.ldo = ldo;
-  epi.vec2 = tc::pairs_aligned(out, resid, ldo);
-  return tc::launch_tc_gemm(p, batch, pro, epi, st);
+  epi.vec2 = tc::pairs_aligned<TOut, TRes>(out, resid, ldo);
+  return tc::launch_tc_gemm<Prec>(p, batch, pro, epi, st);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -97,34 +127,54 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Per-row LayerNorm statistics over C channels, one warp a row: the mean,
-// then 1/sqrt(biased variance + 1e-5) by a second pass, as the reference.
+// then 1/sqrt(biased variance + 1e-5), the variance by a second pass, as the
+// parity reference, or (ONE_PASS, the serving body) as max(E[x^2] - mu^2, 0).
 // Written once here instead of by every GEMM tile that reads the row.
+template <bool ONE_PASS>
 __global__ void __launch_bounds__(kThreads) ln_stats_kernel(
     const float* __restrict__ x, float2* __restrict__ stats, long long rows, int C) {
   const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // the whole warp leaves together
   const float* r = x + row * C;
-  float s = 0.f;
-  for (int k = lane; k < C; k += 32) s += r[k];
-  const float mu = warp_sum(s) / (float)C;
-  float v = 0.f;
+  float s = 0.f, s2 = 0.f;
   for (int k = lane; k < C; k += 32) {
-    const float d = r[k] - mu;
-    v = fmaf(d, d, v);
+    s += r[k];
+    if (ONE_PASS) s2 = fmaf(r[k], r[k], s2);
   }
-  const float rs = 1.0f / sqrtf(warp_sum(v) / (float)C + 1e-5f);
+  const float mu = warp_sum(s) / (float)C;
+  float var;
+  if (ONE_PASS) {
+    var = fmaxf(fmaf(-mu, mu, warp_sum(s2) / (float)C), 0.f);  // one rounding, spelt out
+  } else {
+    float v = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float d = r[k] - mu;
+      v = fmaf(d, d, v);
+    }
+    var = warp_sum(v) / (float)C;
+  }
+  const float rs = 1.0f / sqrtf(var + 1e-5f);
   if (lane == 0) stats[row] = make_float2(mu, rs);
 }
 
 // ---------------------------------------------------------------------------
 // Depthwise 3x3, zero padding, channels-last. w is (Cin, 1, 3, 3) as PyTorch
-// keeps it. GATE: Cin = 2*Cout and out = gelu_exact(dw[c]) * dw[Cout + c].
+// keeps it. With a gate: Cin = 2*Cout and out = gelu(dw[c]) * dw[Cout + c],
+// the exact GELU (parity) or its sigmoid form (serving).
 // Output rows are ldo >= Cout floats; columns [Cout, ldo) are written as 0.
 // ---------------------------------------------------------------------------
 
+enum Gate { kNoGate = 0, kGeluExact = 1, kGeluSigmoid = 2 };  // dwconv3x3_kernel<0|1|2>
+
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// x * sigmoid(1.702 x), with expf (the card checks hold it to the plain
+// version's torch.sigmoid)
+__device__ __forceinline__ float gelu_sigmoid(float v) {
+  return v * (1.0f / (1.0f + expf(-1.702f * v)));
 }
 
 // Block (32 channels) x (8 runs of kDwRun pixels along x) of one image row;
@@ -133,10 +183,11 @@ __device__ __forceinline__ float gelu_exact(float v) {
 // consecutive channels of one pixel.
 constexpr int kDwRun = 8;
 
-template <bool GATE>
+template <int G>  // a Gate
 __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
     const float* __restrict__ in, const float* __restrict__ w, float* __restrict__ out,
     int H, int W, int Cin, int Cout, int ldo) {
+  constexpr bool GATE = G != kNoGate;
   const int c = blockIdx.z * 32 + threadIdx.x;
   const int x0 = (blockIdx.y * blockDim.y + threadIdx.y) * kDwRun;
   const int row = blockIdx.x;  // b*H + y
@@ -183,7 +234,10 @@ __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
         s1 = fmaf(r1[d], w1[d * 3 + 2], s1);
       }
     }
-    out[(img + (long long)y * W + x) * ldo + c] = GATE ? gelu_exact(s0) * s1 : s0;
+    float o = s0;
+    if (G == kGeluExact) o = gelu_exact(s0) * s1;
+    if (G == kGeluSigmoid) o = gelu_sigmoid(s0) * s1;
+    out[(img + (long long)y * W + x) * ldo + c] = o;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       l0[d] = m0[d];
@@ -197,7 +251,9 @@ __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
 // ---------------------------------------------------------------------------
 // Channel attention statistics. qkv is (B, HW, 3C) channels-last, q | k | v,
 // head-major inside each. Pass 1: one block per (pixel chunk, head, image)
-// writes its partial G (hc x hc), sum q^2 (hc) and sum k^2 (hc). Pass 2 sums
+// writes its partial G (hc x hc), sum q^2 (hc) and sum k^2 (hc); with BF16
+// (the serving body) G sums the products of q and k rounded to bf16, the
+// squared norms those of the unrounded values. Pass 2 sums
 // the partials in chunk order, one thread an entry. Pass 3: one block per
 // (head, image) normalises, applies the temperature and takes the row
 // softmax.
@@ -206,7 +262,11 @@ __global__ void __launch_bounds__(kThreads) dwconv3x3_kernel(
 constexpr int kGramChunk = 256;  // pixels per partial
 constexpr int kGramTile = 32;    // pixels staged in shared memory at a time
 
-template <int R>  // R = ceil(hc / 16); hc <= 128
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int R, bool BF16>  // R = ceil(hc / 16); hc <= 128
 __global__ void __launch_bounds__(kThreads) gram_partial_kernel(
     const float* __restrict__ qkv, float* __restrict__ part, int HW, int C, int heads,
     int nchunk) {
@@ -249,6 +309,10 @@ __global__ void __launch_bounds__(kThreads) gram_partial_kernel(
         qr[i] = c < hc ? qs[pp * hc + c] : 0.f;
         const int d = td + 16 * i;
         kr[i] = d < hc ? ks[pp * hc + d] : 0.f;
+        if (BF16) {
+          qr[i] = round_bf16(qr[i]);
+          kr[i] = round_bf16(kr[i]);
+        }
       }
 #pragma unroll
       for (int i = 0; i < R; ++i)
@@ -344,9 +408,36 @@ __global__ void __launch_bounds__(kThreads) fold_proj_kernel(
   mt[(long long)b * C * C + idx] = s;
 }
 
-int launch_ln_stats(const float* x, float2* stats, long long rows, int C, cudaStream_t st) {
+// bd[b][n][k] = A_b[head][n - h0][k - h0] where n and k lie in one head
+// (h0 its first channel), else 0: the attention as one C x C weight an image,
+// so that the core computes ao = v . blockdiag(A_b)^T (the serving body).
+__global__ void __launch_bounds__(kThreads) block_diag_kernel(const float* __restrict__ attn,
+                                                              float* __restrict__ bd, int C,
+                                                              int heads) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= C * C) return;
+  const int n = idx / C, k = idx - n * C;
+  const int hc = C / heads;
+  const int h = n / hc, h0 = h * hc;
+  bd[(long long)b * C * C + idx] =
+      k / hc == h ? attn[((long long)b * heads + h) * hc * hc + (n - h0) * hc + (k - h0)] : 0.f;
+}
+
+// dst = src widened to float32, n values
+__global__ void __launch_bounds__(kThreads) widen_kernel(const __nv_bfloat16* __restrict__ src,
+                                                         float* __restrict__ dst, long long n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) dst[i] = __bfloat162float(src[i]);
+}
+
+int launch_ln_stats(const float* x, float2* stats, long long rows, int C, bool one_pass,
+                    cudaStream_t st) {
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  ln_stats_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(x, stats, rows, C);
+  if (one_pass)
+    ln_stats_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(x, stats, rows, C);
+  else
+    ln_stats_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(x, stats, rows, C);
   return (int)cudaGetLastError();
 }
 
@@ -361,25 +452,33 @@ __global__ void __launch_bounds__(kThreads) pad_rows_kernel(const float* __restr
 }
 
 int launch_dwconv(const float* in, const float* w, float* out, int B, int H, int W, int Cin,
-                  int Cout, int ldo, bool gate, cudaStream_t st) {
+                  int Cout, int ldo, Gate gate, cudaStream_t st) {
   const dim3 block(32, kThreads / 32);
   const dim3 grid(B * H, (W + block.y * kDwRun - 1) / (block.y * kDwRun), (ldo + 31) / 32);
-  if (gate)
-    dwconv3x3_kernel<true><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
-  else
-    dwconv3x3_kernel<false><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
+  switch (gate) {
+    case kGeluExact:
+      dwconv3x3_kernel<kGeluExact><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
+      break;
+    case kGeluSigmoid:
+      dwconv3x3_kernel<kGeluSigmoid><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
+      break;
+    default:
+      dwconv3x3_kernel<kNoGate><<<grid, block, 0, st>>>(in, w, out, H, W, Cin, Cout, ldo);
+  }
   return (int)cudaGetLastError();
 }
 
+template <bool BF16>
 int launch_gram(const float* qkv, float* part, int B, int HW, int C, int heads, int nchunk,
                 cudaStream_t st) {
   const int hc = C / heads;
   dim3 grid(nchunk, heads, B);
   const size_t smem = 2 * kGramTile * hc * sizeof(float);
   switch ((hc + 15) / 16) {
-#define TPUIR_GRAM_CASE(R)                                                                   \
-  case R:                                                                                    \
-    gram_partial_kernel<R><<<grid, kThreads, smem, st>>>(qkv, part, HW, C, heads, nchunk); \
+#define TPUIR_GRAM_CASE(R)                                                    \
+  case R:                                                                     \
+    gram_partial_kernel<R, BF16>                                              \
+        <<<grid, kThreads, smem, st>>>(qkv, part, HW, C, heads, nchunk);      \
     break;
     TPUIR_GRAM_CASE(1)
     TPUIR_GRAM_CASE(2)
@@ -393,6 +492,24 @@ int launch_gram(const float* qkv, float* part, int B, int HW, int C, int heads, 
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The per-head attention A (B, heads, hc, hc) from qkv (B, HW, 3C): Gram
+// partials, their chunk-order sum, the normalised, tempered softmax.
+template <bool BF16>
+int launch_attention(const float* qkv, float* partials, const float* temperature, float* attn,
+                     int B, int HW, int C, int heads, cudaStream_t st) {
+  const int hc = C / heads;
+  const int nchunk = (HW + kGramChunk - 1) / kGramChunk;
+  int err;
+  if ((err = launch_gram<BF16>(qkv, partials, B, HW, C, heads, nchunk, st))) return err;
+  const int stride = hc * hc + 2 * hc;
+  float* red = partials + (long long)B * heads * nchunk * stride;
+  gram_reduce_kernel<<<dim3((stride + kThreads - 1) / kThreads, heads, B), kThreads, 0, st>>>(
+      partials, red, C, heads, nchunk);
+  if ((err = (int)cudaGetLastError())) return err;
+  attn_softmax_kernel<<<dim3(heads, B), kThreads, 0, st>>>(red, temperature, attn, C, heads);
   return (int)cudaGetLastError();
 }
 
@@ -432,31 +549,24 @@ int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const 
   if (B <= 0 || HW <= 0 || heads <= 0 || C % heads != 0 || hc > 128 || hidden <= 0 ||
       (long long)B * HW > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int nchunk = (HW + kGramChunk - 1) / kGramChunk;
   const long long hwl = HW;
   int err;
 
   float2* st2 = reinterpret_cast<float2*>(stats);
 
   // 1-3. qkv = dw3x3(LN1(x) . Wqkv^T) -> buf2
-  if ((err = launch_ln_stats(x, st2, B * hwl, C, st))) return err;
+  if ((err = launch_ln_stats(x, st2, B * hwl, C, false, st))) return err;
   const int rows = B * HW;  // the products without per-image weights take the batch as rows
   const tc::LnPrologue ln1{st2, ln1_w, ln_bias ? ln1_b : nullptr, ln_bias};
   if ((err = launch_product<1>(tc::Args{x, 0, C, w_qkv, 0, rows, 3 * C, C}, 1, ln1, buf1,
                                nullptr, 3 * C, st)))
     return err;
-  if ((err = launch_dwconv(buf1, dw_qkv, buf2, B, H, W, 3 * C, 3 * C, 3 * C, false, st)))
+  if ((err = launch_dwconv(buf1, dw_qkv, buf2, B, H, W, 3 * C, 3 * C, 3 * C, kNoGate, st)))
     return err;
 
   // 4-5. per-head Gram -> softmax -> A; fold A into the projection -> mt
-  if ((err = launch_gram(buf2, partials, B, HW, C, heads, nchunk, st))) return err;
-  const int stride = hc * hc + 2 * hc;
-  float* red = partials + (long long)B * heads * nchunk * stride;
-  gram_reduce_kernel<<<dim3((stride + kThreads - 1) / kThreads, heads, B), kThreads, 0, st>>>(
-      partials, red, C, heads, nchunk);
-  if ((err = (int)cudaGetLastError())) return err;
-  attn_softmax_kernel<<<dim3(heads, B), kThreads, 0, st>>>(red, temperature, attn, C, heads);
-  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_attention<false>(buf2, partials, temperature, attn, B, HW, C, heads, st)))
+    return err;
   fold_proj_kernel<<<dim3((C * C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
       attn, w_proj, mt, C, heads);
   if ((err = (int)cudaGetLastError())) return err;
@@ -469,13 +579,13 @@ int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const 
 
   // 8-11. gate = gelu(dw(h1)[:h]) * dw(h1)[h:], h1 = LN2(x2) . Win^T -> buf2, in rows of
   // hp floats with zeros past h, so that project_out's operands are 16-byte aligned
-  if ((err = launch_ln_stats(x2, st2, B * hwl, C, st))) return err;
+  if ((err = launch_ln_stats(x2, st2, B * hwl, C, false, st))) return err;
   const tc::LnPrologue ln2{st2, ln2_w, ln_bias ? ln2_b : nullptr, ln_bias};
   if ((err = launch_product<3>(tc::Args{x2, 0, C, w_in, 0, rows, 2 * hidden, C}, 1, ln2, buf1,
                                nullptr, 2 * hidden, st)))
     return err;
   const int hp = (hidden + 3) / 4 * 4;
-  if ((err = launch_dwconv(buf1, dw_in, buf2, B, H, W, 2 * hidden, hidden, hp, true, st)))
+  if ((err = launch_dwconv(buf1, dw_in, buf2, B, H, W, 2 * hidden, hidden, hp, kGeluExact, st)))
     return err;
 
   // 12. out = x2 + gate . Wout^T, over hp columns (w_out padded with zeros alike)
@@ -484,6 +594,86 @@ int tpuir_fused_block_f32(const float* x, float* out, const float* ln1_w, const 
   if ((err = (int)cudaGetLastError())) return err;
   return launch_product<4>(tc::Args{buf2, 0, hp, w_out_p, 0, rows, C, hp}, 1, tc::NoPrologue{},
                            out, x2, C, st);
+}
+
+// The serving body (mm_bf16, fast_gelu): x, out (B, H, W, C) channels-last
+// bf16, weights float32 as for tpuir_fused_block_f32. Scratch: xf >= B*H*W*C
+// (x widened, then x2), buf1 >= B*H*W*max(3C, 2h), buf2 >= B*H*W*max(3C, hp),
+// w_out_p >= C*hp, partials >= tpuir_fused_block_partials_numel,
+// attn >= B*C*C/heads, bd >= B*C*C, stats >= 2*B*H*W (16-byte aligned).
+// part 0 runs the whole body. Part 1 runs steps 1-6 and leaves x widened in
+// xf, LN1's (mean, rstd) in stats, qkv in buf2, the Gram sums and norms
+// after the partials, A in attn and ao in buf1; part 2 then runs steps 7-12
+// on that scratch and leaves x2 in xf, LN2's statistics in stats, h1 in buf1
+// and the gate in buf2. The two parts let a check read every stage's output.
+int tpuir_fused_block_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, const float* ln1_w,
+                           const float* ln1_b, const float* ln2_w, const float* ln2_b,
+                           const float* w_qkv, const float* dw_qkv, const float* temperature,
+                           const float* w_proj, const float* w_in, const float* dw_in,
+                           const float* w_out, float* xf, float* buf1, float* buf2,
+                           float* w_out_p, float* partials, float* attn, float* bd, float* stats,
+                           int B, int H, int W, int C, int heads, int hidden, int ln_bias,
+                           int part, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int HW = H * W;
+  if (B <= 0 || HW <= 0 || heads <= 0 || C % heads != 0 || C / heads > 128 || hidden <= 0 ||
+      (long long)B * HW > 0x7fffffffLL || part < 0 || part > 2)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * HW;
+  const long long n = (long long)rows * C;
+  float2* st2 = reinterpret_cast<float2*>(stats);
+  int err;
+  float* x2 = xf;
+
+  if (part != 2) {
+    // 1-3. qkv = dw3x3(LN1(x) . Wqkv^T) -> buf2, LN1 on x widened to xf
+    widen_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(x, xf, n);
+    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = launch_ln_stats(xf, st2, rows, C, true, st))) return err;
+    const tc::LnPrologue ln1{st2, ln1_w, ln_bias ? ln1_b : nullptr, ln_bias};
+    if ((err = launch_product<1, tc::Bf16>(tc::Args{xf, 0, C, w_qkv, 0, rows, 3 * C, C}, 1, ln1,
+                                           buf1, nullptr, 3 * C, st)))
+      return err;
+    if ((err = launch_dwconv(buf1, dw_qkv, buf2, B, H, W, 3 * C, 3 * C, 3 * C, kNoGate, st)))
+      return err;
+
+    // 4-5. per-head Gram of bf16 q, k -> softmax -> A -> blockdiag(A_b) -> bd
+    if ((err = launch_attention<true>(buf2, partials, temperature, attn, B, HW, C, heads, st)))
+      return err;
+    block_diag_kernel<<<dim3((C * C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
+        attn, bd, C, heads);
+    if ((err = (int)cudaGetLastError())) return err;
+
+    // 6. ao = v . bd_b^T -> buf1
+    const tc::Args v_bd{buf2 + 2 * C, (long long)HW * 3 * C, 3 * C, bd, (long long)C * C, HW, C, C};
+    if ((err = launch_product<5, tc::Bf16>(v_bd, B, tc::NoPrologue{}, buf1, nullptr, C, st)))
+      return err;
+    if (part == 1) return 0;
+  }
+
+  // 7. x2 = x + ao . Wproj^T -> xf (x's widened copy is dead)
+  if ((err = launch_product<2, tc::Bf16, __nv_bfloat16>(
+           tc::Args{buf1, 0, C, w_proj, 0, rows, C, C}, 1, tc::NoPrologue{}, x2, x, C, st)))
+    return err;
+
+  // 8-11. gate = gelu_sigmoid(dw(h1)[:h]) * dw(h1)[h:], h1 = LN2(x2) . Win^T -> buf2, rows
+  // of hp floats
+  if ((err = launch_ln_stats(x2, st2, rows, C, true, st))) return err;
+  const tc::LnPrologue ln2{st2, ln2_w, ln_bias ? ln2_b : nullptr, ln_bias};
+  if ((err = launch_product<3, tc::Bf16>(tc::Args{x2, 0, C, w_in, 0, rows, 2 * hidden, C}, 1,
+                                         ln2, buf1, nullptr, 2 * hidden, st)))
+    return err;
+  const int hp = (hidden + 3) / 4 * 4;
+  if ((err = launch_dwconv(buf1, dw_in, buf2, B, H, W, 2 * hidden, hidden, hp, kGeluSigmoid,
+                           st)))
+    return err;
+
+  // 12. out = bf16(x2 + gate . Wout^T), over hp columns (w_out padded with zeros alike)
+  pad_rows_kernel<<<(unsigned)(((long long)C * hp + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      w_out, w_out_p, C, hidden, hp);
+  if ((err = (int)cudaGetLastError())) return err;
+  return launch_product<4, tc::Bf16>(tc::Args{buf2, 0, hp, w_out_p, 0, rows, C, hp}, 1,
+                                     tc::NoPrologue{}, out, x2, C, st);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
-// The measurement entry point of the tensor-core GEMM core (tc_gemm.cuh):
-// the core alone, with its LayerNorm prologue and its row store (with an
-// optional residual), so that its accuracy and rate can be held against
-// float64 and torch.mm at the shapes of K1's and K6's products. The port's
-// main paths reach the core through K1 and K6, never through this.
+// The measurement entry points of the tensor-core GEMM core (tc_gemm.cuh):
+// the core alone, in either precision (3xTF32 float32 parity, bf16 products),
+// with its LayerNorm prologue and its row store (with an optional residual),
+// so that its accuracy and rate can be held against float64 and torch.matmul
+// at the shapes of K1's, K6's and K7's products. The port's main paths reach
+// the core through those kernels, never through this.
 //
 // C interface (ctypes, no PyTorch headers): the launch goes on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met is
@@ -11,6 +12,25 @@
 #include <cuda_runtime.h>
 
 #include "tc_gemm.cuh"
+
+namespace {
+
+template <class Prec>
+int tc_gemm(const float* a, long long a_batch, int lda, const float* w, long long w_batch,
+            const float* resid, float* out, int ldo, const float* ln_stats, const float* ln_w,
+            const float* ln_b, int ln_sub_mean, int batch, int M, int N, int K, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ldo < N) return (int)cudaErrorInvalidValue;
+  const tc::Args p{a, a_batch, lda, w, w_batch, M, N, K};
+  const tc::StoreOut epi{out, resid, ldo, tc::pairs_aligned(out, resid, ldo)};
+  if (ln_w) {
+    const tc::LnPrologue ln{reinterpret_cast<const float2*>(ln_stats), ln_w, ln_b, ln_sub_mean};
+    return tc::launch_tc_gemm<Prec>(p, batch, ln, epi, st);
+  }
+  return tc::launch_tc_gemm<Prec>(p, batch, tc::NoPrologue{}, epi, st);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -24,15 +44,18 @@ int tpuir_tc_gemm_f32(const float* a, long long a_batch, int lda, const float* w
                       long long w_batch, const float* resid, float* out, int ldo,
                       const float* ln_stats, const float* ln_w, const float* ln_b,
                       int ln_sub_mean, int batch, int M, int N, int K, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ldo < N) return (int)cudaErrorInvalidValue;
-  const tc::Args p{a, a_batch, lda, w, w_batch, M, N, K};
-  const tc::StoreOut epi{out, resid, ldo, tc::pairs_aligned(out, resid, ldo)};
-  if (ln_w) {
-    const tc::LnPrologue ln{reinterpret_cast<const float2*>(ln_stats), ln_w, ln_b, ln_sub_mean};
-    return tc::launch_tc_gemm(p, batch, ln, epi, st);
-  }
-  return tc::launch_tc_gemm(p, batch, tc::NoPrologue{}, epi, st);
+  return tc_gemm<tc::F32x3>(a, a_batch, lda, w, w_batch, resid, out, ldo, ln_stats, ln_w, ln_b,
+                            ln_sub_mean, batch, M, N, K, stream);
+}
+
+// The same with bf16 products: A' and w rounded to bf16 (nearest even), float32
+// sums, a float32 output.
+int tpuir_tc_gemm_bf16(const float* a, long long a_batch, int lda, const float* w,
+                       long long w_batch, const float* resid, float* out, int ldo,
+                       const float* ln_stats, const float* ln_w, const float* ln_b,
+                       int ln_sub_mean, int batch, int M, int N, int K, void* stream) {
+  return tc_gemm<tc::Bf16>(a, a_batch, lda, w, w_batch, resid, out, ldo, ln_stats, ln_w, ln_b,
+                           ln_sub_mean, batch, M, N, K, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// A float32-parity GEMM on Hopper's tensor cores (sm_90a), hand-written, shared
-// by K1 (fused_block.cu) and K6 (nss_prologue.cu), and behind the measurement
-// entry point of tc_gemm.cu:
+// A GEMM on Hopper's tensor cores (sm_90a), hand-written, shared by K1
+// (fused_block.cu), K6 (nss_prologue.cu) and K7 (nss_epilogue.cu), and behind
+// the measurement entry points of tc_gemm.cu:
 //
 //   out[z*M + m, n] = epi( sum_k A'[z, m, k] * Wt[z, n, k] )
 //
@@ -9,21 +9,32 @@
 // when w_batch != 0 (K1's folded projection). A' is A, or A under a per-row
 // LayerNorm (LnPrologue). epi stores two neighbouring outputs of a row.
 //
-// Products: 3xTF32. Each float32 operand x is split as hi = rna_tf32(x) and
-// lo = rna_tf32(x - hi) (x - hi is exact; rna: cvt.rna.tf32.f32's round to
-// nearest, ties away from zero), and a.b is taken as
+// Products, chosen by the precision tag Prec:
+//
+// F32x3 (float32 parity, the default). Each float32 operand x is split as
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is exact; rna:
+// cvt.rna.tf32.f32's round to nearest, ties away from zero), and a.b is taken as
 // a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the two small products first, on
 // mma.sync.m16n8k8 TF32 with float32 accumulators; a_lo.b_lo (2^-22 of a.b)
 // is dropped. The result keeps float32 parity (tests/test_torch_gemm_split.py
 // bounds the split's error; the card tests hold it to float64). No product is
 // taken in plain TF32.
 //
+// Bf16 (the serving bodies). Each operand is rounded to bf16 with
+// cvt.rn.bf16x2.f32 (round to nearest even, as the JAX kernels'
+// astype(bfloat16)) on its way from shared memory to the fragments, and each
+// k16 step is one mma.sync.m16n8k16 bf16 product with float32 accumulators.
+// A bf16 x bf16 product is exact in float32, so the result is the float32 sum
+// of the rounded operands' products. The staged tiles stay float32.
+//
 // What bounds it on this card: 3xTF32 costs three tensor-core products and
 // the two splits, so its ceiling is the TF32 rate over 3 (494.7 / 3 TFLOP/s)
 // and, with the splits on the ALU, below that; at K1's level 1 and K6's
 // widths (K 48-384) a product moves 4 (K + N) bytes a row for 2 K N flops,
 // so the short-K products sit near the 3.35 TB/s line and the rest on the
-// tensor-core line.
+// tensor-core line. Bf16 issues a sixth of the mma instructions and no
+// splits, but stages the same float32 tiles: at K 48-96 it is no faster
+// than 3xTF32 (PERF.md); bf16 tiles, ldmatrix and wgmma are untried.
 //
 // Design:
 //   * Block tile 128 x BN x 32, BN in {48, 96, 128} picked per call for the
@@ -35,6 +46,11 @@
 //     multiple of 4 floats), zero-filled past M, N and K. Row stride 36
 //     floats, so the fragment reads (row g = lane / 4, column t = lane % 4)
 //     hit 32 distinct banks.
+//   * Fragment columns: m16n8k8 TF32 reads columns (t, t + 4) of a k8 step.
+//     m16n8k16 bf16 packs k-slots (2t, 2t + 1) and (2t + 8, 2t + 9) into a
+//     register; the core gives those slots the staged columns (t, t + 4) and
+//     (t + 8, t + 12) of the k16 step, in A and W alike. The product's sum
+//     over k is the same; the reads stay on 32 distinct banks.
 //   * The LayerNorm is applied to A on its way from shared memory to the
 //     fragments, with each row's (mean, rstd) read once into registers and
 //     the LayerNorm weight and bias staged in shared memory.
@@ -48,10 +64,21 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tc {
+
+// The precision tags: the k depth of one tensor-core step.
+struct F32x3 {
+  static constexpr int kStep = 8;
+};
+struct Bf16 {
+  static constexpr int kStep = 16;
+};
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128, kBK = 32;
@@ -136,9 +163,28 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// bf16(lo) in the low half, bf16(hi) in the high half, each rounded to
+// nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a . b on one m16n8k16 bf16 tile; a: register j holds row g + 8 (j & 1),
+// k-slots 2t + 8 (j >> 1) + (0, 1); b: column g, k-slots 2t + (0, 1) and
+// 2t + 8 + (0, 1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // One block: a 128 x BN output tile of image blockIdx.y; blockIdx.x walks the
 // N tiles fastest, then the M tiles. VEC: floats a cp.async copies (4 or 1).
-template <int BN, int VEC, class Pro, class Epi>
+template <int BN, int VEC, class Prec, class Pro, class Epi>
 __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Args p, Pro pro, Epi epi) {
   constexpr int NT = BN / 16;  // n8 tiles of a warp's BN / 2 columns
   extern __shared__ __align__(16) float smem[];
@@ -236,39 +282,62 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Args p, Pro pro, Epi 
     const int slot = kt % kStages;
     const float* as = As + slot * kBM * kBKP + wm * 32 * kBKP;
     const float* ws = Ws + slot * BN * kBKP + wn * (BN / 2) * kBKP;
+    constexpr int kStep = Prec::kStep;
+    constexpr int NC = kStep / 4;  // staged columns a thread reads a row: t + 4c
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      float lw[2], lb[2];
+    for (int kk = 0; kk < kBK; kk += kStep) {
+      float lw[NC], lb[NC];
       if constexpr (Pro::kActive) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
+        for (int c = 0; c < NC; ++c) {
           lw[c] = ext[kt * kBK + kk + t + 4 * c];
           lb[c] = ext[kp + kt * kBK + kk + t + 4 * c];
         }
       }
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), column t + 4 (j >> 1)
-          float v = as[(mi * 16 + (j & 1) * 8 + g) * kBKP + kk + t + (j >> 1) * 4];
-          if constexpr (Pro::kActive) {
-            const float2 q = rp[mi][j & 1];
-            v = fmaf((v - q.x) * q.y, lw[j >> 1], lb[j >> 1]);
-          }
-          split_tf32(v, ah[mi][j], al[mi][j]);
+      // A' at row r of the warp's tile, staged column t + 4c of this step
+      auto a_at = [&](int mi, int r, int c) {
+        float v = as[(mi * 16 + r) * kBKP + kk + t + 4 * c];
+        if constexpr (Pro::kActive) {
+          const float2 q = rp[mi][r >> 3];
+          v = fmaf((v - q.x) * q.y, lw[c], lb[c]);
         }
+        return v;
+      };
+      if constexpr (std::is_same_v<Prec, Bf16>) {
+        uint32_t af[2][4];
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(wr[0], bh0, bl0);
-        split_tf32(wr[4], bh1, bl1);
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
-          mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
-          mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
+          for (int j = 0; j < 4; ++j) {  // row g + 8 (j & 1), columns t + 8 (j >> 1) + (0, 4)
+            const int r = (j & 1) * 8 + g, c = 2 * (j >> 1);
+            af[mi][j] = pack_bf16(a_at(mi, r, c), a_at(mi, r, c + 1));
+          }
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
+          const uint32_t b0 = pack_bf16(wr[0], wr[4]), b1 = pack_bf16(wr[8], wr[12]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
+        }
+      } else {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)  // a_j: row g + 8 (j & 1), column t + 4 (j >> 1)
+            split_tf32(a_at(mi, (j & 1) * 8 + g, j >> 1), ah[mi][j], al[mi][j]);
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(wr[0], bh0, bl0);
+          split_tf32(wr[4], bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
+            mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
+            mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
+          }
         }
       }
     }
@@ -303,11 +372,11 @@ inline int pick_bn(int N) {
   return best;
 }
 
-template <int BN, int VEC, class Pro, class Epi>
+template <int BN, int VEC, class Prec, class Pro, class Epi>
 int launch_bn(const Args& p, int batch, const Pro& pro, const Epi& epi, cudaStream_t st) {
   const int kp = (p.K + kBK - 1) / kBK * kBK;
   const int smem = (int)sizeof(float) * (kStages * (kBM + BN) * kBKP + Pro::smem_floats(kp));
-  auto kern = gemm_kernel<BN, VEC, Pro, Epi>;
+  auto kern = gemm_kernel<BN, VEC, Prec, Pro, Epi>;
   static int smem_set = 48 * 1024;  // the largest size asked for so far
   if (smem > smem_set) {
     const cudaError_t e =
@@ -321,10 +390,11 @@ int launch_bn(const Args& p, int batch, const Pro& pro, const Epi& epi, cudaStre
   return (int)cudaGetLastError();
 }
 
-// Launch the product of p over `batch` images (gridDim.y) on st; returns the
-// first CUDA error (0 = success). epi(row, n, v0, v1, two) stores output
-// (row, n) and, when two, (row, n + 1); n is even.
-template <class Pro, class Epi>
+// Launch the product of p over `batch` images (gridDim.y) on st, in precision
+// Prec (F32x3 or Bf16); returns the first CUDA error (0 = success).
+// epi(row, n, v0, v1, two) stores output (row, n) and, when two, (row, n + 1);
+// n is even.
+template <class Prec = F32x3, class Pro, class Epi>
 int launch_tc_gemm(const Args& p, int batch, const Pro& pro, const Epi& epi, cudaStream_t st) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || batch <= 0 || batch > 65535 || p.lda < p.K)
     return (int)cudaErrorInvalidValue;
@@ -332,22 +402,42 @@ int launch_tc_gemm(const Args& p, int batch, const Pro& pro, const Epi& epi, cud
                   ((uintptr_t)p.a & 15) == 0 && ((uintptr_t)p.w & 15) == 0;
   switch (pick_bn(p.N)) {
     case 48:
-      return v4 ? launch_bn<48, 4>(p, batch, pro, epi, st)
-                : launch_bn<48, 1>(p, batch, pro, epi, st);
+      return v4 ? launch_bn<48, 4, Prec>(p, batch, pro, epi, st)
+                : launch_bn<48, 1, Prec>(p, batch, pro, epi, st);
     case 96:
-      return v4 ? launch_bn<96, 4>(p, batch, pro, epi, st)
-                : launch_bn<96, 1>(p, batch, pro, epi, st);
+      return v4 ? launch_bn<96, 4, Prec>(p, batch, pro, epi, st)
+                : launch_bn<96, 1, Prec>(p, batch, pro, epi, st);
     default:
-      return v4 ? launch_bn<128, 4>(p, batch, pro, epi, st)
-                : launch_bn<128, 1>(p, batch, pro, epi, st);
+      return v4 ? launch_bn<128, 4, Prec>(p, batch, pro, epi, st)
+                : launch_bn<128, 1, Prec>(p, batch, pro, epi, st);
   }
 }
 
-// out[row * ldo + n] = v (+ resid[row * ldo + n]); pairs as float2 when vec2
-// (ldo even, out and resid 8-byte aligned).
-struct StoreOut {
-  float* out;
-  const float* resid;  // may be null
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float2 load_f32x2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_f32x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_f32x2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store_f32x2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// out[row * ldo + n] = v (+ resid[row * ldo + n]), out and resid float or
+// bf16 (a bf16 residual is widened exactly, a bf16 output rounded to nearest
+// even); pairs in one access when vec2 (ldo even, out and resid aligned to a
+// pair).
+template <class TOut, class TRes = TOut>
+struct Store {
+  TOut* out;
+  const TRes* resid;  // may be null
   int ldo;
   int vec2;
   __device__ __forceinline__ void operator()(long long row, int n, float v0, float v1,
@@ -356,20 +446,27 @@ struct StoreOut {
     if (two && vec2) {
       float2 v = make_float2(v0, v1);
       if (resid) {
-        const float2 r = *reinterpret_cast<const float2*>(resid + off);
+        const float2 r = load_f32x2(resid + off);
         v.x = r.x + v.x;
         v.y = r.y + v.y;
       }
-      *reinterpret_cast<float2*>(out + off) = v;
+      store_f32x2(out + off, v);
     } else {
-      out[off] = resid ? resid[off] + v0 : v0;
-      if (two) out[off + 1] = resid ? resid[off + 1] + v1 : v1;
+      store_f32(out + off, resid ? load_f32(resid + off) + v0 : v0);
+      if (two) store_f32(out + off + 1, resid ? load_f32(resid + off + 1) + v1 : v1);
     }
   }
 };
+using StoreOut = Store<float>;
+
+template <class TOut, class TRes>
+inline int pairs_aligned(const TOut* out, const TRes* resid, int ldo) {
+  return (ldo % 2 == 0 && ((uintptr_t)out % (2 * sizeof(TOut))) == 0 &&
+          ((uintptr_t)resid % (2 * sizeof(TRes))) == 0) ? 1 : 0;
+}
 
 inline int pairs_aligned(const float* out, const float* resid, int ldo) {
-  return (ldo % 2 == 0 && ((uintptr_t)out & 7) == 0 && ((uintptr_t)resid & 7) == 0) ? 1 : 0;
+  return pairs_aligned<float, float>(out, resid, ldo);
 }
 
 }  // namespace tc

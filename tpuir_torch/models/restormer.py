@@ -11,6 +11,14 @@ runs: through the K1 wrapper (``tpuir_torch.ops.fused_block``; the zoo's
 choice) or through the plain ``nn.Module`` composition below. Convolutions
 outside the blocks are ``F.conv2d`` in both modes.
 
+``serving=True`` is the counterpart of ``tpuir/models/restormer_fused.py``
+with ``mm_bf16=True, io_bf16=True, fast_gelu=True``: patch_embed runs in
+float32 and is cast to bf16; every other convolution, pixel (un)shuffle and
+concat runs in bf16 with bf16 copies of the weights; the blocks take K1's
+serving body (``fused``) or its plain version; the output conv's bf16
+result is widened and the float32 input added. The parameters stay float32,
+so a released ``.pth`` loads as it is.
+
 Fidelity notes (as for the Flax module):
   * LayerNorm acts over channels with biased variance and eps 1e-5; the
     BiasFree variant divides by sqrt(var) without subtracting the mean in
@@ -29,7 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuir_torch.ops.fused_block import fused_transformer_block
+from tpuir_torch.ops.fused_block import (
+    fused_transformer_block,
+    fused_transformer_block_serving_plain,
+)
 
 
 class BiasFreeLayerNorm(nn.Module):
@@ -104,22 +115,24 @@ class GDFN(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, expansion: float, bias: bool,
-                 ln_bias: bool, fused: bool):
+                 ln_bias: bool, fused: bool, serving: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.ln_bias = ln_bias
         self.fused = fused
+        self.serving = serving
         self.norm1 = ChannelLayerNorm(dim, ln_bias)
         self.attn = MDTA(dim, num_heads, bias)
         self.norm2 = ChannelLayerNorm(dim, ln_bias)
         self.ffn = GDFN(dim, expansion, bias)
 
     def forward(self, x):
-        if self.fused:
-            return fused_transformer_block(
-                x.contiguous(memory_format=torch.channels_last),
-                dict(self.named_parameters()), self.num_heads, self.ln_bias,
-            )
+        if self.fused or self.serving:
+            args = (x.contiguous(memory_format=torch.channels_last),
+                    dict(self.named_parameters()), self.num_heads, self.ln_bias)
+            if self.fused:
+                return fused_transformer_block(*args, serving=self.serving)
+            return fused_transformer_block_serving_plain(*args)
         x = x + self.attn(self.norm1(x))
         return x + self.ffn(self.norm2(x))
 
@@ -167,13 +180,16 @@ class Restormer(nn.Module):
         layer_norm_bias: bool = True,  # WithBias (deblurring) vs BiasFree (denoising)
         dual_pixel_task: bool = False,
         fused: bool = False,
+        serving: bool = False,
     ):
         super().__init__()
         nb, hd = num_blocks, heads
+        self.serving = serving
 
         def blocks(n, d, h):
             return nn.Sequential(*[
-                TransformerBlock(d, h, ffn_expansion_factor, bias, layer_norm_bias, fused)
+                TransformerBlock(d, h, ffn_expansion_factor, bias, layer_norm_bias, fused,
+                                 serving)
                 for _ in range(n)
             ])
 
@@ -201,22 +217,40 @@ class Restormer(nn.Module):
 
     def forward(self, x):
         x = x.contiguous(memory_format=torch.channels_last)
-        feat1 = self.patch_embed(x)
-        e1 = self.encoder_level1(feat1)
-        e2 = self.encoder_level2(self.down1_2(e1))
-        e3 = self.encoder_level3(self.down2_3(e2))
-        lat = self.latent(self.down3_4(e3))
+        if self.serving:  # bf16 activations and convs, as restormer_fused.apply(io_bf16=True)
+            act = torch.bfloat16
+            feat1 = self.patch_embed(x).to(act)
 
-        d3 = self.reduce_chan_level3(torch.cat([self.up4_3(lat), e3], 1))
+            def conv(m, h):
+                b = None if m.bias is None else m.bias.to(act)
+                return F.conv2d(h, m.weight.to(act), b, m.stride, m.padding, m.dilation, m.groups)
+        else:
+            feat1 = self.patch_embed(x)
+
+            def conv(m, h):
+                return m(h)
+
+        def down(m, h):
+            return F.pixel_unshuffle(conv(m.body[0], h), 2)
+
+        def up(m, h):
+            return F.pixel_shuffle(conv(m.body[0], h), 2)
+
+        e1 = self.encoder_level1(feat1)
+        e2 = self.encoder_level2(down(self.down1_2, e1))
+        e3 = self.encoder_level3(down(self.down2_3, e2))
+        lat = self.latent(down(self.down3_4, e3))
+
+        d3 = conv(self.reduce_chan_level3, torch.cat([up(self.up4_3, lat), e3], 1))
         d3 = self.decoder_level3(d3)
-        d2 = self.reduce_chan_level2(torch.cat([self.up3_2(d3), e2], 1))
+        d2 = conv(self.reduce_chan_level2, torch.cat([up(self.up3_2, d3), e2], 1))
         d2 = self.decoder_level2(d2)
-        d1 = self.decoder_level1(torch.cat([self.up2_1(d2), e1], 1))
+        d1 = self.decoder_level1(torch.cat([up(self.up2_1, d2), e1], 1))
         d1 = self.refinement(d1)
 
         if self.dual_pixel_task:
-            return self.output(d1 + self.skip_conv(feat1))
-        return self.output(d1) + x
+            return conv(self.output, d1 + conv(self.skip_conv, feat1)).float()
+        return conv(self.output, d1).float() + x
 
 
 # ---------------------------------------------------------------------------

@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: Dict[str, int] = {
-    "fused_transformer_block": 0, "mixer_prologue": 0, "nss_scan": 0, "mixer_epilogue": 0,
-    "selective_scan_fused_proj": 0, "nss_scan_fused": 0, "selective_scan": 0, "rate_probe": 0,
-    "tc_gemm": 0,
+    "fused_transformer_block": 0, "fused_transformer_block_serving": 0, "mixer_prologue": 0,
+    "nss_scan": 0, "mixer_epilogue": 0, "selective_scan_fused_proj": 0, "nss_scan_fused": 0,
+    "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0, "tc_gemm_bf16": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tpuir_fused_block_f32.argtypes = [vp] * 21 + [ci] * 7 + [vp]
         lib.tpuir_fused_block_f32.restype = ci
+        lib.tpuir_fused_block_bf16.argtypes = [vp] * 21 + [ci] * 8 + [vp]
+        lib.tpuir_fused_block_bf16.restype = ci
         lib.tpuir_fused_block_partials_numel.argtypes = [ci] * 5
         lib.tpuir_fused_block_partials_numel.restype = ctypes.c_longlong
         lib.tpuir_mixer_prologue_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
@@ -148,6 +150,8 @@ def library() -> ctypes.CDLL:
         lib.tpuir_tc_gemm_f32.argtypes = ([vp, ll, ci, vp, ll, vp, vp, ci, vp, vp, vp]
                                           + [ci] * 5 + [vp])
         lib.tpuir_tc_gemm_f32.restype = ci
+        lib.tpuir_tc_gemm_bf16.argtypes = lib.tpuir_tc_gemm_f32.argtypes
+        lib.tpuir_tc_gemm_bf16.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

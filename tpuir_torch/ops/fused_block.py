@@ -1,15 +1,24 @@
 """K1: one Restormer TransformerBlock, hand-written for Hopper.
 
-The counterpart of ``tpuir/ops/fused_block.py:fused_transformer_block``.
-The kernel is ``tpuir_torch/csrc/fused_block.cu``; its source note gives
-the math, what bounds it on the card and what the design does about that.
+The counterpart of ``tpuir/ops/fused_block.py:fused_transformer_block``,
+in its two bodies: float32 parity, and serving (``mm_bf16=True,
+fast_gelu=True``: bf16 block IO and bf16 products with float32 sums, a
+one-pass LayerNorm variance, the sigmoid GELU). The kernels are
+``tpuir_torch/csrc/fused_block.cu`` (``tpuir_fused_block_f32``,
+``tpuir_fused_block_bf16``); its source note gives the math, what bounds
+them on the card and what the design does about that.
 
 ``fused_transformer_block`` is the wrapper. It checks its inputs and raises
 on anything the kernel does not take. On a CUDA tensor it launches the
-kernel on the current stream and counts the launch; on a CPU tensor, and
-only there, it runs ``fused_transformer_block_plain``, the same math in
-plain PyTorch. The plain version is also what the kernel is compared with
-on the card.
+kernel on the current stream and counts the launch, under
+``fused_transformer_block`` or, for the serving body,
+``fused_transformer_block_serving``; on a CPU tensor, and only there, it
+runs ``fused_transformer_block_plain`` or
+``fused_transformer_block_serving_plain``, the same math in plain PyTorch.
+The plain versions are also what the kernels are compared with on the card.
+``serving_stages`` runs the serving kernel in its two parts and returns
+every stage's output, for the stage-by-stage check of
+``utils/serving_check.py``.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, so
 each pixel's C channels are contiguous (the NHWC order of the JAX kernel).
@@ -40,12 +49,14 @@ _MAX_HEAD_WIDTH = 128  # the Gram and softmax kernels' limit
 
 
 def _check(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
-           ln_bias: bool) -> int:
+           ln_bias: bool, serving: bool) -> int:
     """Validate the inputs; return the GDFN hidden width h."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_transformer_block: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"fused_transformer_block: float32 only, got {x.dtype}")
+    want_dtype = torch.bfloat16 if serving else torch.float32
+    if x.dtype != want_dtype:
+        raise TypeError(f"fused_transformer_block: x must be {want_dtype} "
+                        f"{'in serving' if serving else 'in parity'} mode, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"fused_transformer_block: x must be (B, C, H, W), got {tuple(x.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -84,10 +95,15 @@ def _check(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
 
 
 def _layer_norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                ln_bias: bool) -> torch.Tensor:
-    """Over the last axis; biased variance, eps 1e-5; BiasFree keeps x in the numerator."""
+                ln_bias: bool, one_pass: bool = False) -> torch.Tensor:
+    """Over the last axis; biased variance, eps 1e-5; BiasFree keeps x in the
+    numerator. ``one_pass`` (the serving body) takes the variance as
+    max(E[x^2] - mu^2, 0)."""
     mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    if one_pass:
+        var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    else:
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
     y = (x - mu if ln_bias else x) * torch.rsqrt(var + 1e-5) * w
     return y + b if ln_bias else y
 
@@ -127,49 +143,166 @@ def fused_transformer_block_plain(x: torch.Tensor, p: Mapping[str, torch.Tensor]
     return out.permute(0, 3, 1, 2)
 
 
-def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-                            heads: int, ln_bias: bool) -> torch.Tensor:
-    """One TransformerBlock: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor. Forward only, float32 only, bias-free convs."""
-    hidden = _check(x, p, heads, ln_bias)
-    if x.device.type == "cpu":
-        return fused_transformer_block_plain(x, p, heads, ln_bias)
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest even), in t's dtype: a product operand."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def fused_transformer_block_serving_plain(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                                          heads: int, ln_bias: bool) -> torch.Tensor:
+    """The serving body in plain PyTorch, step for step as the JAX kernel
+    computes it with ``mm_bf16=True, fast_gelu=True``: every product's
+    operands rounded to bf16 and summed in float32 (the 1x1 products, q . k^T,
+    A . v); q's and k's norms, the depthwise convs, the softmax and both
+    residuals in float32; the one-pass LayerNorm variance; the sigmoid GELU;
+    attention applied to v before the projection.
+
+    x: (B, C, H, W) bfloat16; returns a channels_last bfloat16 tensor of the
+    same shape. The sums are taken in the weights' dtype: float32, or float64
+    for a reference whose only roundings are the bf16 ones. On a card, turn
+    TF32 off first (cuBLAS and cuDNN).
+    """
+    B, C, H, W = x.shape
+    hc = C // heads
+    hidden = p["ffn.project_out.weight"].shape[1]
+    xh = x.permute(0, 2, 3, 1).to(p["attn.qkv.weight"].dtype)  # (B, H, W, C)
+
+    y = _layer_norm(xh, p["norm1.body.weight"], p.get("norm1.body.bias"), ln_bias, True)
+    qkv = _bf16(y) @ _bf16(p["attn.qkv.weight"].reshape(3 * C, C)).t()
+    qkv = F.conv2d(qkv.permute(0, 3, 1, 2), p["attn.qkv_dwconv.weight"],
+                   padding=1, groups=3 * C)
+    q, k, v = qkv.reshape(B, 3, heads, hc, H * W).unbind(1)  # (B, heads, hc, HW)
+    qn = q.square().sum(-1).sqrt().clamp_min(1e-12)
+    kn = k.square().sum(-1).sqrt().clamp_min(1e-12)
+    g = _bf16(q) @ _bf16(k).transpose(-1, -2)
+    logits = g / qn[..., :, None] / kn[..., None, :] * p["attn.temperature"].reshape(1, heads, 1, 1)
+    ao = (_bf16(logits.softmax(-1)) @ _bf16(v)).reshape(B, C, H, W).permute(0, 2, 3, 1)
+    x2 = xh + _bf16(ao) @ _bf16(p["attn.project_out.weight"].reshape(C, C)).t()
+
+    y2 = _layer_norm(x2, p["norm2.body.weight"], p.get("norm2.body.bias"), ln_bias, True)
+    h1 = _bf16(y2) @ _bf16(p["ffn.project_in.weight"].reshape(2 * hidden, C)).t()
+    h1 = F.conv2d(h1.permute(0, 3, 1, 2), p["ffn.dwconv.weight"],
+                  padding=1, groups=2 * hidden)
+    a1, a2 = h1.chunk(2, dim=1)
+    gate = (a1 * torch.sigmoid(1.702 * a1) * a2).permute(0, 2, 3, 1)
+    out = x2 + _bf16(gate) @ _bf16(p["ffn.project_out.weight"].reshape(C, hidden)).t()
+    return out.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def _scratch(x: torch.Tensor, heads: int, hidden: int) -> dict:
+    """The kernels' scratch for x (B, C, H, W) on its card (csrc/fused_block.cu
+    gives each buffer's use)."""
+    B, C, H, W = x.shape
+    n = B * H * W
+    hp = -(-hidden // 4) * 4  # the gate's row stride
+    lib = _kernels.library()
+    empty = lambda numel: torch.empty(numel, device=x.device, dtype=torch.float32)  # noqa: E731
+    return {
+        "buf1": empty(n * max(3 * C, 2 * hidden)), "buf2": empty(n * max(3 * C, hp)),
+        "x2": empty(n * C),  # serving: x widened, then x2
+        "w_out_p": empty(C * hp),
+        "partials": empty(lib.tpuir_fused_block_partials_numel(B, H, W, C, heads)),
+        "attn": empty(B * C * (C // heads)),
+        "mt": empty(B * C * C),  # parity: the folded projection; serving: blockdiag(A_b)
+        "stats": empty(2 * n),  # per-pixel LayerNorm (mean, rstd)
+    }
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
+            ln_bias: bool, hidden: int, serving: bool, sc: dict, part: int = 0) -> None:
+    """One launch of a body's kernels on x's card with scratch ``sc``;
+    ``part`` as ``tpuir_fused_block_bf16`` takes it (serving only)."""
+    B, C, H, W = x.shape
+    lib = _kernels.library()
+    ln1_b = p["norm1.body.bias"].data_ptr() if ln_bias else None
+    ln2_b = p["norm2.body.bias"].data_ptr() if ln_bias else None
+    weights = (
+        p["norm1.body.weight"].data_ptr(), ln1_b,
+        p["norm2.body.weight"].data_ptr(), ln2_b,
+        p["attn.qkv.weight"].data_ptr(), p["attn.qkv_dwconv.weight"].data_ptr(),
+        p["attn.temperature"].data_ptr(), p["attn.project_out.weight"].data_ptr(),
+        p["ffn.project_in.weight"].data_ptr(), p["ffn.dwconv.weight"].data_ptr(),
+        p["ffn.project_out.weight"].data_ptr(),
+    )
+    ptr = {k: v.data_ptr() for k, v in sc.items()}
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        dims = (B, H, W, C, heads, hidden, int(ln_bias))
+        if serving:
+            err = lib.tpuir_fused_block_bf16(
+                x.data_ptr(), out.data_ptr(), *weights, ptr["x2"], ptr["buf1"], ptr["buf2"],
+                ptr["w_out_p"], ptr["partials"], ptr["attn"], ptr["mt"], ptr["stats"], *dims,
+                part, stream)
+        else:
+            err = lib.tpuir_fused_block_f32(
+                x.data_ptr(), out.data_ptr(), *weights, ptr["buf1"], ptr["buf2"], ptr["x2"],
+                ptr["w_out_p"], ptr["partials"], ptr["attn"], ptr["mt"], ptr["stats"], *dims,
+                stream)
+    _kernels.check(err, "fused_transformer_block_serving" if serving else "fused_transformer_block")
+
+
+def _check_cuda(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int) -> None:
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in p.values())):
         raise RuntimeError("fused_transformer_block: the CUDA kernel has no backward")
-    B, C, H, W = x.shape
-    if C // heads > _MAX_HEAD_WIDTH:
-        raise ValueError(f"fused_transformer_block: head width {C // heads} > {_MAX_HEAD_WIDTH}")
+    if x.shape[1] // heads > _MAX_HEAD_WIDTH:
+        raise ValueError(f"fused_transformer_block: head width {x.shape[1] // heads} > "
+                         f"{_MAX_HEAD_WIDTH}")
 
-    lib = _kernels.library()
-    n = B * H * W
-    with torch.cuda.device(x.device):
-        empty = lambda numel: torch.empty(numel, device=x.device, dtype=torch.float32)  # noqa: E731
-        buf1 = empty(n * max(3 * C, 2 * hidden))
-        hp = -(-hidden // 4) * 4  # the gate's row stride (csrc/fused_block.cu)
-        buf2 = empty(n * max(3 * C, hp))
-        x2 = empty(n * C)
-        w_out_p = empty(C * hp)
-        partials = empty(lib.tpuir_fused_block_partials_numel(B, H, W, C, heads))
-        attn = empty(B * C * (C // heads))
-        mt = empty(B * C * C)
-        stats = empty(2 * n)  # per-pixel LayerNorm (mean, rstd)
-        out = torch.empty_like(x)
-        ln1_b = p["norm1.body.bias"].data_ptr() if ln_bias else None
-        ln2_b = p["norm2.body.bias"].data_ptr() if ln_bias else None
-        err = lib.tpuir_fused_block_f32(
-            x.data_ptr(), out.data_ptr(),
-            p["norm1.body.weight"].data_ptr(), ln1_b,
-            p["norm2.body.weight"].data_ptr(), ln2_b,
-            p["attn.qkv.weight"].data_ptr(), p["attn.qkv_dwconv.weight"].data_ptr(),
-            p["attn.temperature"].data_ptr(), p["attn.project_out.weight"].data_ptr(),
-            p["ffn.project_in.weight"].data_ptr(), p["ffn.dwconv.weight"].data_ptr(),
-            p["ffn.project_out.weight"].data_ptr(),
-            buf1.data_ptr(), buf2.data_ptr(), x2.data_ptr(), w_out_p.data_ptr(),
-            partials.data_ptr(),
-            attn.data_ptr(), mt.data_ptr(), stats.data_ptr(),
-            B, H, W, C, heads, hidden, int(ln_bias),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _kernels.check(err, "fused_transformer_block")
-    _kernels.LAUNCHES["fused_transformer_block"] += 1
+
+def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                            heads: int, ln_bias: bool, serving: bool = False) -> torch.Tensor:
+    """One TransformerBlock: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor. Forward only, bias-free convs, float32 weights;
+    x float32 (parity) or, with ``serving``, bfloat16, and the output alike.
+
+    The serving kernel reads the float32 weights as they are and rounds each
+    product operand to bf16 on its way to the tensor cores, so no bf16 weight
+    copy is made, per call or per parameter set.
+    """
+    hidden = _check(x, p, heads, ln_bias, serving)
+    if x.device.type == "cpu":
+        plain = fused_transformer_block_serving_plain if serving else fused_transformer_block_plain
+        return plain(x, p, heads, ln_bias)
+    _check_cuda(x, p, heads)
+    out = torch.empty_like(x)
+    _launch(x, out, p, heads, ln_bias, hidden, serving, _scratch(x, heads, hidden))
+    name = "fused_transformer_block_serving" if serving else "fused_transformer_block"
+    _kernels.LAUNCHES[name] += 1
     return out
+
+
+def serving_stages(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
+                   ln_bias: bool) -> dict:
+    """The serving kernel's output and every stage's, from one run of its two
+    parts on x's card, for a check (``utils/serving_check.py``); counts no
+    launch. Returns float32 tensors, channels last: ``xw`` (x widened),
+    ``stats1`` and ``stats2`` (LN1's and LN2's (mean, rstd) a pixel, (n, 2)),
+    ``qkv`` (B, H, W, 3C), ``gram`` (B, heads, hc, hc) and ``norms`` (B,
+    heads, 2, hc), ``attn`` (B, heads, hc, hc), ``ao`` and ``x2`` (B, H, W, C),
+    ``h1`` (B, H, W, 2h), ``gate`` (B, H, W, hp), and ``out`` (bf16, as the
+    wrapper returns it). On a CPU tensor, and only there, the same stages
+    of the plain version with the kernel's sum orders
+    (``utils/serving_check.serving_stage_values``)."""
+    hidden = _check(x, p, heads, ln_bias, True)
+    if x.device.type == "cpu":
+        from tpuir_torch.utils.serving_check import serving_stage_values
+
+        return serving_stage_values(x, p, heads, ln_bias)
+    _check_cuda(x, p, heads)
+    B, C, H, W = x.shape
+    hc, n, hp = C // heads, B * H * W, -(-hidden // 4) * 4
+    sc = _scratch(x, heads, hidden)
+    out = torch.empty_like(x)
+    rows = lambda t, w: t[: n * w].view(B, H, W, w).clone()  # noqa: E731
+    _launch(x, out, p, heads, ln_bias, hidden, True, sc, part=1)
+    stride = hc * hc + 2 * hc
+    red = sc["partials"][-B * heads * stride:].view(B, heads, stride)
+    got = {"xw": rows(sc["x2"], C), "stats1": sc["stats"].view(n, 2).clone(),
+           "qkv": rows(sc["buf2"], 3 * C), "ao": rows(sc["buf1"], C),
+           "gram": red[..., : hc * hc].reshape(B, heads, hc, hc).clone(),
+           "norms": red[..., hc * hc:].reshape(B, heads, 2, hc).clone(),
+           "attn": sc["attn"].view(B, heads, hc, hc).clone()}
+    _launch(x, out, p, heads, ln_bias, hidden, True, sc, part=2)
+    got.update(x2=rows(sc["x2"], C), stats2=sc["stats"].view(n, 2).clone(),
+               h1=rows(sc["buf1"], 2 * hidden), gate=rows(sc["buf2"], hp), out=out)
+    return got

@@ -8,6 +8,7 @@ read device time from its profile by kernel and by aten op.
 
     python -m tpuir_torch.utils.profiling [--model mair|mairunet|restormer]
                                           [--batches 1,2,3,4,8] [--nss stripe|fused|0]
+                                          [--precision parity|serving]
 
 profiles one forward of MaIR-CDN@128 (``--model mair``, the default),
 MaIRUNet@384 (``--model mairunet``) or Restormer@256 (``--model
@@ -16,7 +17,9 @@ batch size on the card: full released width and depth, weights drawn from
 a seed, every mixer through its kernels as the zoo builds it on the
 ``--nss`` route (``stripe``, the default: K6, K2 and K7; ``fused``: K5;
 ``0``: K3 everywhere; K3 on levels the others do not take), every
-Restormer block through K1, TF32 off as in the engine. Per batch it prints
+Restormer block through K1, TF32 off as in the engine (Restormer under
+``--precision serving``: K1's serving body and bf16 convs, TF32 left at
+PyTorch's defaults, as the engine serves it). Per batch it prints
 the forward's milliseconds (CUDA events), its device time by stage (for
 Restormer, K1's launches by kernel: the LayerNorm statistics, its four 1x1
 products on the GEMM core, the two depthwise convs, the Gram pass, its
@@ -55,20 +58,24 @@ MIXER_STAGES = (
     ("K7 out_proj GEMM", ("StoreOut",)),
     ("K7 out_proj weight padding", ("pad_weight_kernel",)),
 )
-# K1's launches (csrc/fused_block.cu), by kernel-name fragment: the four 1x1
-# products on the GEMM core are told apart by their store type BlockOut<G>.
+# K1's launches (csrc/fused_block.cu), by kernel-name fragment: the products
+# on the GEMM core are told apart by their store type BlockOut<G, out, resid>
+# (the core's precision tag, F32x3 or Bf16, tells the bodies apart), the
+# depthwise convs by their gate (0 none, 1 exact GELU, 2 sigmoid GELU).
 BLOCK_STAGES = (
     ("K1 LayerNorm statistics", ("ln_stats_kernel",)),
-    ("K1 qkv product (LN1 prologue)", ("BlockOut<1>",)),
-    ("K1 projection product (+ residual)", ("BlockOut<2>",)),
-    ("K1 project_in product (LN2 prologue)", ("BlockOut<3>",)),
-    ("K1 project_out product (+ residual)", ("BlockOut<4>",)),
-    ("K1 qkv depthwise conv", ("dwconv3x3_kernel<false>",)),
-    ("K1 gated depthwise conv", ("dwconv3x3_kernel<true>",)),
+    ("K1 qkv product (LN1 prologue)", ("BlockOut<1,",)),
+    ("K1 projection product (+ residual)", ("BlockOut<2,",)),
+    ("K1 project_in product (LN2 prologue)", ("BlockOut<3,",)),
+    ("K1 project_out product (+ residual)", ("BlockOut<4,",)),
+    ("K1 serving: attention apply product", ("BlockOut<5,",)),
+    ("K1 qkv depthwise conv", ("dwconv3x3_kernel<0>",)),
+    ("K1 gated depthwise conv", ("dwconv3x3_kernel<1>", "dwconv3x3_kernel<2>")),
     ("K1 Gram partials", ("gram_partial_kernel",)),
     ("K1 Gram sum", ("gram_reduce_kernel",)),
     ("K1 softmax", ("attn_softmax_kernel",)),
     ("K1 fold into the projection", ("fold_proj_kernel",)),
+    ("K1 serving: x widened, blockdiag(A)", ("widen_kernel", "block_diag_kernel")),
 )
 # Library ops by the aten op that launched them (their self device time).
 LIBRARY_STAGES = (
@@ -145,13 +152,13 @@ def cuda_ms(fn: Callable, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe"
-                ) -> torch.nn.Module:
+def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe",
+                serving: bool = False) -> torch.nn.Module:
     from tpuir_torch import zoo
     from tpuir_torch.models import mair, mair_unet, restormer
 
     if model == "restormer":
-        net = restormer.Restormer(**RESTORMER_CONFIG, fused=True)
+        net = restormer.Restormer(**RESTORMER_CONFIG, fused=True, serving=serving)
         net.load_state_dict(restormer.init_state_dict(RESTORMER_CONFIG, seed=seed))
     elif model == "mair":
         net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss)
@@ -162,11 +169,14 @@ def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe"
     return net.to(dev).eval().requires_grad_(False)
 
 
-def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator) -> dict:
+def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator,
+               dtype: torch.dtype = torch.float32) -> dict:
     """{conv name: (C, H, W, ms on the batch, ms once per image)} for each
     full conv of net that a forward of x runs and for the first depthwise
     conv of each (C, H, W) it runs, at that (C, H, W), on random
-    channels_last inputs of x's batch."""
+    channels_last inputs of x's batch, in ``dtype`` (bf16: with a bf16 copy
+    of the weight, as Restormer's serving forward runs them). net's forward
+    must call its convs as modules (a parity net)."""
     shapes, hooks, depthwise = {}, [], set()
 
     def record(name, mod, args):
@@ -187,24 +197,35 @@ def conv_times(net: torch.nn.Module, x: torch.Tensor, gen: torch.Generator) -> d
     out = {}
     for name, (conv, (c, hh, ww)) in shapes.items():
         inp = torch.rand(x.shape[0], hh, ww, c, device=x.device, generator=gen).permute(0, 3, 1, 2)
-        out[name] = (c, hh, ww, cuda_ms(lambda: conv(inp)),
-                     cuda_ms(lambda: [conv(inp[i:i + 1]) for i in range(inp.shape[0])]))
+        if dtype == torch.float32:
+            run = conv
+        else:
+            inp, weight = inp.to(dtype), conv.weight.to(dtype)
+            run = lambda t, _c=conv, _w=weight: torch.nn.functional.conv2d(  # noqa: E731
+                t, _w, None, _c.stride, _c.padding, _c.dilation, _c.groups)
+        out[name] = (c, hh, ww, cuda_ms(lambda: run(inp)),
+                     cuda_ms(lambda: [run(inp[i:i + 1]) for i in range(inp.shape[0])]))
         del inp
     return out
 
 
 def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
-                  nss: str = "stripe") -> dict:
+                  nss: str = "stripe", precision: str = "parity") -> dict:
     """The forward breakdown described in the module docstring."""
     from tpuir_torch.core.engine import true_float32
 
+    if precision == "serving" and model != "restormer":
+        raise ValueError("serving precision is ported for Restormer only")
     dev = torch.device("cuda")
     tile = TILES[model]
-    net = _seeded_net(model, seed, dev, nss)
+    net = _seeded_net(model, seed, dev, nss, serving=precision == "serving")
+    # the convs' shapes come from a parity net's forward (serving calls them as functions)
+    parity_net = net if precision == "parity" else _seeded_net(model, seed, dev, nss)
     gen = torch.Generator(device=dev).manual_seed(seed)
     res = {"card": torch.cuda.get_device_name(0), "model": model, "nss": nss, "tile": tile,
-           "batches": {}}
-    with torch.inference_mode(), true_float32():
+           "precision": precision, "batches": {}}
+    pin = true_float32() if precision == "parity" else contextlib.nullcontext()
+    with torch.inference_mode(), pin:
         for b in batches:
             x = torch.rand(b, 3, tile, tile, device=dev, generator=gen)
             fwd_ms = cuda_ms(lambda: net(x), iters=2)
@@ -222,7 +243,8 @@ def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
             res["batches"][b] = {
                 "forward_ms": fwd_ms, "device_ms": total, "stages_ms": stages,
                 "top_kernels": [[k[:100], ms, n] for k, (ms, n) in top],
-                "convs": conv_times(net, x, gen),
+                "convs": conv_times(parity_net, x, gen, torch.float32 if precision == "parity"
+                                    else torch.bfloat16),
             }
             del x, prof
     return res
@@ -233,15 +255,17 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=sorted(TILES), default="mair")
     ap.add_argument("--batches", default="1,2,3,4,8")
     ap.add_argument("--nss", choices=("stripe", "fused", "0"), default="stripe")
+    ap.add_argument("--precision", choices=("parity", "serving"), default="parity")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device")
         return 1
     res = profile_model(args.model, tuple(int(b) for b in args.batches.split(",")),
-                        nss=args.nss)
+                        nss=args.nss, precision=args.precision)
     print(res["card"])
     for b, r in res["batches"].items():
-        print(f"{args.model}@{res['tile']} nss={args.nss} batch {b}: forward {r['forward_ms']:.3f} ms "
+        print(f"{args.model}@{res['tile']} nss={args.nss} {args.precision} batch {b}: "
+              f"forward {r['forward_ms']:.3f} ms "
               f"(CUDA events), device {r['device_ms']:.3f} ms (profiler)")
         for name, ms in r["stages_ms"].items():
             print(f"  {name:40s} {ms:9.3f} ms")

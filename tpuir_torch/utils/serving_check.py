@@ -1,0 +1,279 @@
+"""K1's serving body held stage by stage, with no cascade.
+
+At Restormer's widths the serving body cannot be held to its plain version
+end to end: a float32 sum that differs in its last bit from another order's
+flips a bf16 operand of the next product now and then, and the flips
+compound through the block's rounding points. So ``check_serving_stages``
+reads every stage's output from the kernel itself
+(``ops/fused_block.serving_stages``) and computes each stage from the
+kernel's own output of the stage before:
+
+* where the kernel's float32 arithmetic decides a bf16 operand or a value
+  that is compared bit for bit (the one-pass LayerNorm statistics, the
+  LayerNorm applied in the GEMM core's prologue, the Gram pass's sums of
+  bf16 products in chunk order, q's and k's norms), that arithmetic is
+  emulated bit for bit (``fma32`` rounds a float32 FMA once), so each bf16
+  operand is the kernel's own and no rounding flips;
+* every product stage is computed in float64 from those bf16 operands and
+  held to the GEMM core's card tolerance, |got - ref| <= 5e-5 + 1e-4 |ref|.
+  An operand left unrounded, or rounded elsewhere (attention folded into
+  the projection), moves a product by about 2^-9 of its terms, ten times
+  that tolerance;
+* the bf16 output must be the rounding of a value within that tolerance
+  of its float64 reference.
+
+``serving_stage_values`` runs the same stage functions in float32, each on
+its own previous stage: the body in plain PyTorch with the kernel's sum
+orders, which the CPU tests hold against tpuir and against the checks.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+ATOL, RTOL = 5e-5, 1e-4  # the GEMM core's card tolerance against float64
+GRAM_CHUNK = 256  # pixels a Gram partial (csrc/fused_block.cu kGramChunk)
+EPS = torch.tensor(1e-5, dtype=torch.float32).item()  # 1e-5f, as the kernel adds it
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) elementwise on float32 tensors, rounded once: a * b is
+    exact in float64, the sum is rounded to odd there (TwoSum's error sets
+    the last bit where the float64 sum is inexact), and float64 to float32
+    to nearest then rounds the exact value once (53 >= 24 + 2 bits)."""
+    c64, p = c.double(), a.double() * b.double()
+    s = c64 + p
+    bb = s - c64
+    e = (c64 - (s - bb)) + (p - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
+    return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def _f32(t64: torch.Tensor) -> torch.Tensor:
+    """A float64 result of one IEEE operation on float32 values, rounded to
+    float32: the correctly rounded float32 operation for +, -, *, / and sqrt
+    (53 >= 2 * 24 + 2 bits)."""
+    return t64.float()
+
+
+def _bf16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 t rounded to bf16 (nearest even), as the kernel rounds a
+    product operand, in ``dtype``."""
+    return t.to(torch.bfloat16).to(dtype)
+
+
+def _warp_sum(v: torch.Tensor) -> torch.Tensor:
+    """v (..., 32) summed as the kernel's butterfly (xor 16, 8, 4, 2, 1)."""
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    return v[..., 0]
+
+
+def ln_stats(x: torch.Tensor) -> torch.Tensor:
+    """(mean, rstd) of each row of float32 x (n, C), bit for bit as the
+    serving body's one-pass ``ln_stats_kernel<true>``: lane l of a warp sums
+    x[l], x[l + 32], ... and fmaf(x, x, .) in that order, a butterfly joins
+    the lanes, var = max(fmaf(-mu, mu, E[x^2]), 0), rstd = 1 / sqrtf(var +
+    1e-5f). Returns (n, 2) float32."""
+    n, C = x.shape
+    xp = F.pad(x, (0, -C % 32)).view(n, -1, 32)
+    s = torch.zeros(n, 32, dtype=torch.float32, device=x.device)
+    s2 = torch.zeros_like(s)
+    for j in range(xp.shape[1]):
+        s = s + xp[:, j]
+        s2 = fma32(xp[:, j], xp[:, j], s2)
+    mu = _f32(_warp_sum(s).double() / C)
+    e2 = _f32(_warp_sum(s2).double() / C)
+    var = fma32(-mu, mu, e2).clamp_min(0.0)
+    v = fma32(var, torch.ones_like(var), torch.full_like(var, EPS))  # var + 1e-5f
+    rs = _f32(1.0 / _f32(v.double().sqrt()).double())
+    return torch.stack([mu, rs], -1)
+
+
+def ln_prologue(a: torch.Tensor, stats: torch.Tensor, w: torch.Tensor, b, ln_bias: bool
+                ) -> torch.Tensor:
+    """The GEMM core's LayerNorm prologue on float32 a (n, K), bit for bit:
+    fmaf((a - mu) * rstd, w, b), with mu and b 0 where BiasFree."""
+    mu = stats[:, :1] if ln_bias else torch.zeros_like(stats[:, :1])
+    t = (a - mu) * stats[:, 1:]
+    return fma32(t, w.expand_as(t), (b if ln_bias else torch.zeros_like(w)).expand_as(t))
+
+
+def gram(qkv: torch.Tensor, heads: int):
+    """The Gram pass on the kernel's qkv (B, H, W, 3C), bit for bit: per
+    chunk of GRAM_CHUNK pixels an FMA chain in pixel order of q and k
+    rounded to bf16 (the products exact in float32), and of the unrounded
+    q^2 and k^2; the chunks summed in order; the norms sqrtf'd and clamped
+    at 1e-12. Returns (G (B, heads, hc, hc), norms (B, heads, 2, hc))."""
+    B, H, W, C3 = qkv.shape
+    C, HW = C3 // 3, H * W
+    hc, nch = C // heads, -(-HW // GRAM_CHUNK)
+    t = F.pad(qkv.reshape(B, HW, 3, heads, hc)[:, :, :2],
+              (0, 0, 0, 0, 0, 0, 0, nch * GRAM_CHUNK - HW))
+    # (pixel of the chunk, B, heads, chunk, q | k, hc)
+    t = t.view(B, nch, GRAM_CHUNK, 2, heads, hc).permute(2, 0, 4, 1, 3, 5)
+    r = t.to(torch.bfloat16).float()
+    acc = torch.zeros(B, heads, nch, hc, hc, dtype=torch.float32, device=qkv.device)
+    sq = torch.zeros(B, heads, nch, 2, hc, dtype=torch.float32, device=qkv.device)
+    for pp in range(GRAM_CHUNK):
+        acc = acc + r[pp, :, :, :, 0, :, None] * r[pp, :, :, :, 1, None, :]
+        sq = fma32(t[pp], t[pp], sq)
+    g = torch.zeros(B, heads, hc, hc, dtype=torch.float32, device=qkv.device)
+    s = torch.zeros(B, heads, 2, hc, dtype=torch.float32, device=qkv.device)
+    for ch in range(nch):
+        g, s = g + acc[:, :, ch], s + sq[:, :, ch]
+    return g, _f32(s.double().sqrt()).clamp_min(1e-12)
+
+
+def _dwconv(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3, zero padding, on channels-last t (B, H, W, c)."""
+    return F.conv2d(t.permute(0, 3, 1, 2), w.to(t.dtype), padding=1,
+                    groups=t.shape[-1]).permute(0, 2, 3, 1)
+
+
+def _product(a32: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """bf16(a32) . bf16(w)^T summed in ``dtype``; w (N, K) float32."""
+    return _bf16(a32, dtype) @ _bf16(w.reshape(w.shape[0], -1), dtype).t()
+
+
+def stage_qkv(xw, stats1, p, ln_bias, dtype):
+    """qkv = dw3x3(bf16(LN1(x)) . bf16(Wqkv)^T), LN1 from the kernel's
+    statistics."""
+    B, H, W, C = xw.shape
+    y = ln_prologue(xw.reshape(-1, C), stats1, p["norm1.body.weight"], p.get("norm1.body.bias"),
+                    ln_bias)
+    return _dwconv(_product(y, p["attn.qkv.weight"], dtype).view(B, H, W, 3 * C),
+                   p["attn.qkv_dwconv.weight"])
+
+
+def stage_attn(g, norms, temperature, dtype):
+    """A = softmax(G / |q| / |k| * t), the logits as the kernel takes them in
+    float32, the softmax in ``dtype``."""
+    logits = g / norms[:, :, 0, :, None] / norms[:, :, 1, None, :]
+    return (logits * temperature.reshape(1, -1, 1, 1)).to(dtype).softmax(-1)
+
+
+def stage_ao(qkv, attn, heads, dtype):
+    """ao = bf16(v) . bf16(A)^T per head."""
+    B, H, W, C3 = qkv.shape
+    C = C3 // 3
+    v = _bf16(qkv[..., 2 * C:].reshape(B, H * W, heads, C // heads), dtype)
+    ao = torch.einsum("bphd,bhcd->bphc", v, _bf16(attn, dtype))
+    return ao.reshape(B, H, W, C)
+
+
+def stage_x2(xw, ao, p, dtype):
+    """x2 = x + bf16(ao) . bf16(Wproj)^T."""
+    return xw.to(dtype) + _product(ao, p["attn.project_out.weight"], dtype)
+
+
+def stage_h1(x2, stats2, p, ln_bias, dtype):
+    """h1 = bf16(LN2(x2)) . bf16(Win)^T, LN2 from the kernel's statistics."""
+    B, H, W, C = x2.shape
+    y = ln_prologue(x2.reshape(-1, C), stats2, p["norm2.body.weight"], p.get("norm2.body.bias"),
+                    ln_bias)
+    return _product(y, p["ffn.project_in.weight"], dtype).view(B, H, W, -1)
+
+
+def stage_gate(h1, p, dtype):
+    """gate = a1 * sigmoid(1.702 a1) * a2, (a1, a2) = dw3x3(h1)."""
+    a1, a2 = _dwconv(h1.to(dtype), p["ffn.dwconv.weight"]).chunk(2, dim=-1)
+    return a1 * torch.sigmoid(1.702 * a1) * a2
+
+
+def stage_out(x2, gate, p, dtype):
+    """x2 + bf16(gate) . bf16(Wout)^T, before the output's bf16 rounding."""
+    return x2.to(dtype) + _product(gate, p["ffn.project_out.weight"], dtype)
+
+
+def serving_stage_values(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
+                         ln_bias: bool) -> Dict[str, torch.Tensor]:
+    """The serving body in plain float32 PyTorch with the kernel's sum orders
+    where they decide a bit (LayerNorm statistics, Gram), stage by stage:
+    the dict ``ops/fused_block.serving_stages`` returns. x: (B, C, H, W)
+    bfloat16. On a card, turn TF32 off first."""
+    f32 = torch.float32
+    B, C, H, W = x.shape
+    st = {"xw": x.permute(0, 2, 3, 1).float().contiguous()}
+    st["stats1"] = ln_stats(st["xw"].reshape(-1, C))
+    st["qkv"] = stage_qkv(st["xw"], st["stats1"], p, ln_bias, f32)
+    st["gram"], st["norms"] = gram(st["qkv"], heads)
+    st["attn"] = stage_attn(st["gram"], st["norms"], p["attn.temperature"], f32)
+    st["ao"] = stage_ao(st["qkv"], st["attn"], heads, f32)
+    st["x2"] = stage_x2(st["xw"], st["ao"], p, f32)
+    st["stats2"] = ln_stats(st["x2"].reshape(-1, C))
+    st["h1"] = stage_h1(st["x2"], st["stats2"], p, ln_bias, f32)
+    gate = stage_gate(st["h1"], p, f32)
+    st["gate"] = F.pad(gate, (0, -gate.shape[-1] % 4))  # rows of hp, as the kernel's
+    st["out"] = stage_out(st["x2"], gate, p, f32).to(torch.bfloat16).permute(0, 3, 1, 2)
+    return st
+
+
+class Stage(NamedTuple):
+    name: str
+    ok: bool
+    detail: str
+
+
+def _within(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| as a share of ATOL + RTOL |ref| (float64 ref)."""
+    return ((got.double() - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
+
+
+def _differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """How many values of two tensors differ (a NaN always does)."""
+    return int((got != want).sum().item())
+
+
+def check_serving_stages(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
+                         ln_bias: bool, st: Mapping[str, torch.Tensor]) -> List[Stage]:
+    """Each stage of ``st`` (from ``ops/fused_block.serving_stages``, or
+    ``serving_stage_values``) against its function of st's own previous
+    stage: bit for bit where the module's docstring says so, else within
+    ATOL + RTOL |ref| of float64; the bf16 output as the rounding of a value
+    within that of its float64 reference. x: the block's bf16 input."""
+    f64 = torch.float64
+    B, C, H, W = x.shape
+    hidden = p["ffn.project_out.weight"].shape[1]
+    out: List[Stage] = []
+
+    def exact(name, got, want):
+        n = _differ(got, want)
+        out.append(Stage(name, n == 0, f"{n} of {want.numel()} values differ"))
+
+    def close(name, got, ref):
+        r = _within(got, ref)
+        out.append(Stage(name, r <= 1.0, f"max {r:.3f} of the tolerance"))
+
+    xh = x.permute(0, 2, 3, 1).float()
+    exact("x widened", st["xw"], xh)
+    exact("LN1 statistics", st["stats1"], ln_stats(st["xw"].reshape(-1, C)))
+    close("qkv", st["qkv"], stage_qkv(st["xw"], st["stats1"], p, ln_bias, f64))
+    g, norms = gram(st["qkv"], heads)
+    exact("Gram of bf16 q, k", st["gram"], g)
+    exact("norms of q, k", st["norms"], norms)
+    close("attention", st["attn"], stage_attn(st["gram"], st["norms"], p["attn.temperature"], f64))
+    close("ao", st["ao"], stage_ao(st["qkv"], st["attn"], heads, f64))
+    close("x2", st["x2"], stage_x2(st["xw"], st["ao"], p, f64))
+    exact("LN2 statistics", st["stats2"], ln_stats(st["x2"].reshape(-1, C)))
+    close("h1", st["h1"], stage_h1(st["x2"], st["stats2"], p, ln_bias, f64))
+    gate = st["gate"]
+    pads = int((gate[..., hidden:] != 0).sum().item())
+    r = _within(gate[..., :hidden], stage_gate(st["h1"], p, f64))
+    out.append(Stage("gate", r <= 1.0 and pads == 0,
+                     f"max {r:.3f} of the tolerance, {pads} pad values not 0"))
+    ref = stage_out(st["x2"], gate[..., :hidden], p, f64)
+    tol = ATOL + RTOL * ref.abs()
+    lo, hi = ((ref + s * tol).to(torch.bfloat16).double() for s in (-1, 1))
+    got = st["out"].permute(0, 2, 3, 1).double()
+    outside = int(((got < lo) | (got > hi) | ~torch.isfinite(got)).sum().item())
+    flips = int((got != ref.to(torch.bfloat16).double()).sum().item())
+    out.append(Stage("out", outside == 0,
+                     f"{outside} values not the rounding of one within the tolerance; "
+                     f"{flips} of {got.numel()} not bf16(float64 reference)"))
+    return out

@@ -1,10 +1,11 @@
 """Model zoo of the PyTorch port: (task, subtask, model, gray, sigma) -> InferenceModel.
 
 The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
-(all 12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15,
-25 and 50) and MaIRUNet (MaIR's real denoising and motion deblurring); the
-other families and serving precision raise ``NotImplementedError`` naming
-the ROADMAP item that ports them. Checkpoints are the released
+(all 12 released configs, in parity and serving precision), MaIR-CDN
+(Gaussian color denoising, sigma 15, 25 and 50) and MaIRUNet (MaIR's real
+denoising and motion deblurring); the other families and MaIR's serving
+precision raise ``NotImplementedError`` naming the ROADMAP item that ports
+them. Checkpoints are the released
 files, read with ``torch.load(..., weights_only=True)``; a missing file
 raises ``FileNotFoundError``, which the harness treats as "skip this cell".
 Models are built on the card unless the caller asks for another device.
@@ -23,8 +24,9 @@ from tpuir_torch.utils.misc import param_count
 
 
 def resolve_precision(precision: Optional[str] = None) -> str:
-    """'parity' (default: true float32) or 'serving' (reduced precision,
-    not yet ported). Defaults to the TPUIR_PRECISION environment variable."""
+    """'parity' (default: true float32) or 'serving' (bf16 products and
+    activations where the JAX zoo takes them; Restormer only so far).
+    Defaults to the TPUIR_PRECISION environment variable."""
     p = precision or os.environ.get("TPUIR_PRECISION", "parity")
     if p not in ("parity", "serving"):
         raise ValueError(f"unknown precision mode {p!r} (parity|serving)")
@@ -75,22 +77,22 @@ RESTORMER_CONFIGS = {
 def build_restormer(weights_dir: str, task: str, subtask: str, gray: bool, sigma,
                     precision: str = "parity",
                     device: Union[str, torch.device] = "cuda") -> InferenceModel:
-    """The released Restormer for this config, every block through K1."""
+    """The released Restormer for this config, every block through K1: its
+    float32 body (parity), or under ``precision="serving"`` its serving body
+    with bf16 activations between the blocks, as ``tpuir/zoo.py`` builds
+    ``restormer_fused.make_apply_fn(mm_bf16=True, io_bf16=True,
+    fast_gelu=True)`` with ``compute_dtype="float32"``."""
     from tpuir_torch.models import restormer as m
 
     key = (task, subtask, gray, sigma)
     if key not in RESTORMER_CONFIGS:
         raise ValueError(f"no Restormer config for {key}")
-    if precision != "parity":
-        raise NotImplementedError(
-            "precision='serving' (bf16) is not ported yet: ROADMAP Queue 1, "
-            "'Serving precision and K1's bf16 mode'"
-        )
+    serving = resolve_precision(precision) == "serving"
     rel, in_ch, out_ch, ln_bias, dual = RESTORMER_CONFIGS[key]
     sd = _load_sd(os.path.join(weights_dir, "Restormer", rel), key="params")
     device = torch.device(device)
     net = m.Restormer(inp_channels=in_ch, out_channels=out_ch, layer_norm_bias=ln_bias,
-                      dual_pixel_task=dual, fused=True)
+                      dual_pixel_task=dual, fused=True, serving=serving)
     net.load_state_dict(sd)
     net = net.to(device).eval().requires_grad_(False)
     pc = get_patch_config(task, subtask.split("-")[0], "Restormer")
@@ -98,6 +100,8 @@ def build_restormer(weights_dir: str, task: str, subtask: str, gray: bool, sigma
         name="Restormer", net=net, device=device,
         patch_size=pc["patch_size"], patch_overlap=pc["patch_overlap"],
         pad_factor=8, param_count=param_count(net),
+        # float32 at the engine boundary, no TF32 pin; bf16 lives inside the model
+        compute_dtype="float32" if serving else None,
     )
 
 
@@ -134,8 +138,8 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
         raise ValueError(f"no MaIR config for {task}/{subtask}")
     if precision != "parity":
         raise NotImplementedError(
-            "precision='serving' is not ported yet: ROADMAP Queue 1 item 5, "
-            "'Serving precision and K1's bf16 mode'"
+            "MaIR's precision='serving' is not ported yet: ROADMAP Queue 2 A2, "
+            "'K6, K2 and K7 serving'"
         )
     rel = (os.path.join("denoising", f"MaIR_CDN_s{sigma}.pth") if gaussian
            else MAIR_UNET_WEIGHTS[(task, subtask)])
