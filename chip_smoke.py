@@ -100,6 +100,24 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     requests, three rounds: 44 serving-body launches a chunk and no parity
     K1 launch, repeatable, within 2 uint8 LSB of the same path with plain
     serving blocks, PSNR within 0.05 dB of phase 3's parity outputs.
+13. MaIR-CDN's serving precision. The GEMM core's bf16 mode alone at K6's
+    in_proj and K7's out_proj shapes (beside ``torch.matmul`` in bf16); the
+    serving bodies of K6, K2 (shift off and on) and K7 at MaIR-CDN@128,
+    batch 8, and at the 96x72 tile, batch 1, on phase 4's seeded
+    activations (bf16 where the body takes bf16), each held stage by stage
+    against float64 functions of its own previous stage
+    (``utils/serving_check.py``: K6's in_proj halves and x, K2's x_dbl, y
+    and pooled, K7's gated rows and out_proj), bit for bit on repeat, timed
+    beside its plain version; the mutation controls for the three bodies
+    (``utils/serving_mutants.py --bodies mixer``: each fault in its own
+    copy, built there; the check must reject the required ones and accept
+    the unmutated copy, and prints its verdict on the reported ones); then
+    the released sigma=25 MaIR-CDN built through the zoo with
+    ``precision="serving"`` on phase 5's weights serves phase 5's requests,
+    three rounds: 36 launches a chunk of each serving body and none of the
+    parity K6, K2 or K7, repeatable, within 2 uint8 LSB of the same path
+    with plain serving mixers, PSNR within 0.05 dB of phase 5's parity
+    outputs.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -125,7 +143,12 @@ rest at 67 TFLOP/s, or the bytes over 3.35 TB/s where that is larger. K1
 serving's ``bound_ms`` is the larger of its bytes (bf16 block IO, float32
 weights) over 3.35 TB/s and its products (the Gram and the attention
 apply at one head's width) at the dense bf16 rate, 989 TFLOP/s, plus the
-rest at 67 TFLOP/s. The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
+rest at 67 TFLOP/s. The MaIR mixer's serving bodies (K6, K2, K7 serving:
+per call at MaIR-CDN@128, batch 8; K2 the mean over both shifts) take the
+same ``bound_ms``: bf16 where the body moves bf16, their products at the
+bf16 rate, and for K2 also its exponentials, one a state update, at the
+special-function lanes' rate. The last line is ``{"ok": true, "device":
+{...}}``. Any failed phase raises,
 exits non-zero and prints no last line; so does a machine without a CUDA
 card.
 """
@@ -208,10 +231,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nss_scan_fused": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
     "selective_scan": ("tpuir_torch/csrc/selective_scan.cu", "tpuir/ops/scan_pallas.py:117"),
     "rate_probe": ("tpuir_torch/csrc/rate_probe.cu", "benchmarks/micro_vpu.py:60"),
-    # the same TPU kernel's serving body (mm_bf16, fast_gelu)
+    # the same TPU kernels' serving bodies (K1: mm_bf16, fast_gelu; K6, K2, K7: serving=True)
     "fused_transformer_block_serving": ("tpuir_torch/csrc/fused_block.cu",
                                         "tpuir/ops/fused_block.py:338"),
+    "mixer_prologue_serving": ("tpuir_torch/csrc/nss_prologue.cu",
+                               "tpuir/ops/nss_prologue.py:121"),
+    "nss_scan_serving": ("tpuir_torch/csrc/nss_scan.cu", "tpuir/ops/nss_stripe.py:484"),
+    "mixer_epilogue_serving": ("tpuir_torch/csrc/nss_epilogue.cu",
+                               "tpuir/ops/nss_epilogue.py:140"),
 }
+MIXER_SERVING = ("mixer_prologue_serving", "nss_scan_serving", "mixer_epilogue_serving")
 
 
 def fail(msg: str) -> None:
@@ -1359,11 +1388,12 @@ def k1_serving_work(batch, hw, C, heads, ln_bias=False):
     return nbytes, gemm, px * (18 * 3 * C + 18 * 2 * h + 8 * h)
 
 
-def bound_bf16(nbytes, gemm_flops, flops):
+def bound_bf16(nbytes, gemm_flops, flops, exps=0):
     """(least ms, what bounds it) for work of nbytes whose gemm_flops run on
-    the tensor cores in bf16 and the other flops at the float32 rate."""
+    the tensor cores in bf16 and the other flops at the float32 rate, or
+    whose ``exps`` exponentials take the special-function lanes longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = gemm_flops / BF16_FLOP_PER_S + flops / FP32_FLOP_PER_S
+    t_ops = max(gemm_flops / BF16_FLOP_PER_S + flops / FP32_FLOP_PER_S, mufu_ms(exps) / 1e3)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1555,6 +1585,220 @@ def phase_serving_path(device, parity_rate, parity_outs, requests=REQUESTS):
     return launches
 
 
+def serving_prologue_work(px, dm, di):
+    """K6 serving: (bytes, products, other operations): h float32 in, x and z
+    bf16 out, float32 weights; in_proj at the bf16 rate, the depthwise conv,
+    bias + SiLU at the float32 rate."""
+    return (4 * px * dm + 2 * 2 * px * di + 4 * (2 * di * dm + 10 * di),
+            px * 2 * dm * 2 * di, px * (18 * di + 5 * di))
+
+
+def serving_scan_work(px, di, n, r):
+    """K2 serving: (bytes, products, other operations, exponentials): bf16 x
+    in and bf16 y out, the id table, float32 weights; x_proj and dt_proj at
+    the bf16 rate, the rest of ``scan_work`` at the float32 rate, one exp2 a
+    state update."""
+    c = r + 2 * n
+    nbytes = 2 * px * di + 4 * 4 * px + 2 * 4 * px * di + 4 * 4 * (c * di + di * r + di * n
+                                                                    + 2 * di)
+    return (nbytes, 4 * px * (2 * c * di + 2 * r * di), 4 * px * (8 * di + 7 * di * n),
+            4 * px * di * n)
+
+
+def serving_epilogue_work(px, di, dm, images):
+    """K7 serving: (bytes, products, other operations): four bf16 direction
+    images and bf16 z in, float32 gates and weights, float32 out; out_proj at
+    the bf16 rate, the gated sum, LayerNorm and SiLU gate at the float32
+    rate."""
+    return (2 * (4 * px * di + px * di) + 4 * (4 * images * di + 2 * di + dm * di + px * dm),
+            px * 2 * di * dm, px * (8 * di + 8 * di + 6 * di))
+
+
+def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72),
+                               mutants=True):
+    """The serving bodies of K6, K2 and K7 stage by stage, timed, and their
+    mutation controls.
+
+    At MaIR-CDN@``tile``, batch ``batch`` (timed: plain, kernel, kernel,
+    plain), and at the ``rect`` tile, batch 1, on phase 4's seeded
+    activations (the plain parity mixer's, rounded to bf16 where a body
+    takes bf16): each body's stages (``ops/*.mixer_*_serving_stages``,
+    ``nss_scan_serving_stages``) twice, bit for bit, the wrapper's output
+    the same, each stage held to its float64 function of the kernel's own
+    previous stage (``utils/serving_check.py``); the output against the
+    plain version (max|d|, and tpuir's criterion of two bf16 ulps) printed
+    for the record. Before, the bf16 core alone at K6's in_proj and K7's
+    out_proj shapes (``gemm_bf16_yardstick``); after, with ``mutants``,
+    ``utils/serving_mutants.run_mutants("mixer")``. Returns {kernel: (max
+    |kernel - plain|, ms, plain ms, bound ms, bound by)} per call at
+    ``tile``, K2 the mean over both shifts."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops.nss_epilogue import (mixer_epilogue, mixer_epilogue_serving_plain,
+                                              mixer_epilogue_serving_stages)
+    from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_serving_plain,
+                                              mixer_prologue_serving_stages)
+    from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
+                                            nss_scan_serving_stages)
+    from tpuir_torch.utils import serving_check as ck
+
+    cfg = zoo.MAIR_CDN_CONFIG
+    dm = cfg["embed_dim"]
+    di = int(cfg["ssm_ratio"] * dm)
+    n, r = cfg["d_state"], -(-dm // 16)
+    bf = torch.bfloat16
+    res = {}
+    with torch.inference_mode(), true_float32():
+        px = batch * tile * tile
+        gemm_bf16_yardstick(f"K6s MaIR-CDN@{tile} in_proj", 1, px, 2 * di, dm, False, device,
+                            SEED)
+        gemm_bf16_yardstick(f"K7s MaIR-CDN@{tile} out_proj", 1, px, dm, di, False, device,
+                            SEED)
+        for b, hw, timed in ((batch, (tile, tile), True), (1, rect, False)):
+            pro, scan, epi = mixer_inputs(device, b, hw)
+            px = b * hw[0] * hw[1]
+            x = scan.pop("x").to(bf)
+            y, z = epi.pop("y").to(bf), epi.pop("z").to(bf)
+            # (name, label, shift, stages, their check, kernel, plain, the kernel's
+            # outputs among its stages, iterations timed, plain's, work)
+            bodies = [("mixer_prologue_serving", "K6s", None,
+                       lambda: mixer_prologue_serving_stages(*pro),
+                       lambda st: ck.check_prologue_serving(*pro, st),
+                       lambda: mixer_prologue(*pro, serving=True),
+                       lambda: mixer_prologue_serving_plain(*pro),
+                       lambda st: (st["x"], st["z"]), ITERS, ITERS,
+                       serving_prologue_work(px, dm, di))]
+            for shift in (False, True):
+                bodies.append((
+                    "nss_scan_serving", "K2s", shift,
+                    lambda shift=shift: nss_scan_serving_stages(x, **scan, shift=shift),
+                    lambda st, shift=shift: ck.check_scan_serving(x, **scan, scan_len=4,
+                                                                  shift=shift, st=st),
+                    lambda shift=shift: nss_scan(x, **scan, shift=shift, serving=True),
+                    lambda shift=shift: nss_scan_serving_plain(x, **scan, shift=shift),
+                    lambda st: (st["y"], st["pooled"]), 3, 1, serving_scan_work(px, di, n, r)))
+            bodies.append(("mixer_epilogue_serving", "K7s", None,
+                           lambda: mixer_epilogue_serving_stages(y, z=z, **epi),
+                           lambda st: ck.check_epilogue_serving(y, z=z, **epi, st=st),
+                           lambda: mixer_epilogue(y, z=z, **epi, serving=True),
+                           lambda: mixer_epilogue_serving_plain(y, z=z, **epi),
+                           lambda st: st["out"], ITERS, ITERS,
+                           serving_epilogue_work(px, di, dm, b)))
+            for (name, short, shift, stages, check, kern, plain, outs, iters, plain_iters,
+                 work) in bodies:
+                st = {k: v.clone() for k, v in stages().items()}
+                again = stages()
+                got = kern()
+                torch.cuda.synchronize()
+                repeat = all(torch.equal(st[k], again[k]) for k in st) and all(
+                    torch.equal(g, s) for g, s in zip(as_tuple(got), as_tuple(outs(st))))
+                del again
+                verdicts = check(st)
+                del st
+                want = plain()
+                max_err, ulps = 0.0, 0.0
+                for g, w in zip(as_tuple(got), as_tuple(want)):
+                    max_err = max(max_err, (g.float() - w.float()).abs().max().item())
+                    if g.dtype == bf:
+                        ulps = max(ulps, ulp2_ratio(g.float(), w.float()))
+                del got, want
+                label = (f"{short} B={b} {hw[0]}x{hw[1]}"
+                         + (f" shift={int(shift)}" if shift is not None else ""))
+                missed = [v.name for v in verdicts if not v.ok]
+                t_kern = t_plain = None
+                b_ms, b_by = bound_bf16(*work)
+                if timed:
+                    t_kern, t_plain = timed_pair(kern, plain, iters, plain_iters)
+                times = (f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms "
+                         f"({b_by})" if timed else "(not timed)")
+                print(f"{label:26s} stages {'ok' if not missed else 'MISS'}; against plain "
+                      f"max|d| {max_err:.3e}" + (f" ({ulps:.2f} x 2 bf16 ulps)" if ulps else "")
+                      + f"; repeat {'bit for bit' if repeat else 'DIFFERS'}  {times}",
+                      flush=True)
+                for v in verdicts:
+                    print(f"    {v.name:16s} {'ok  ' if v.ok else 'MISS'} {v.detail}", flush=True)
+                if missed:
+                    fail(f"{label} misses its stage checks: {', '.join(missed)}")
+                if not repeat:
+                    fail(f"{label} is not repeatable")
+                prev = res.get(name)
+                if timed:
+                    row = (max_err, t_kern, t_plain, b_ms, b_by)
+                    if prev and prev[1] is not None:  # K2: the mean over both shifts
+                        row = (max(prev[0], max_err), (prev[1] + t_kern) / 2,
+                               (prev[2] + t_plain) / 2, b_ms, b_by)
+                else:
+                    row = (max(prev[0], max_err),) + prev[1:]
+                res[name] = row
+            del pro, scan, epi, x, y, z, bodies
+            torch.cuda.empty_cache()
+    if mutants:
+        from tpuir_torch.utils.serving_mutants import failures, run_mutants
+
+        t0 = time.time()
+        verdicts = run_mutants("mixer")
+        bad = failures("mixer", verdicts)
+        print(f"mixer serving mutants ({time.time() - t0:.0f} s): "
+              + (f"FAILED {bad}" if bad else "every required mutant rejected, the unmutated "
+                 "copy accepted"), flush=True)
+        if bad:
+            fail(f"the mixer serving check's mutation controls failed: {bad}")
+    return res
+
+
+def phase_mair_serving_path(device, parity_rate, parity_outs, requests=MAIR_REQUESTS):
+    """Serve MaIR-CDN through the zoo with ``precision="serving"`` on phase
+    5's seeded weights and requests (host AWGN sigma 25), ROUNDS rounds: 36
+    launches a chunk of each serving body and none of the parity K6, K2 and
+    K7, bit for bit on repeat, within SERVING_LSB of the same path with
+    plain serving mixers, and within SERVING_PSNR_DB of phase 5's parity
+    outputs ``parity_outs`` ({(h, w): (output, ms)}) on every request;
+    engine Mpix/s beside phase 5's ``parity_rate``. Returns {kernel:
+    launches}."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.metrics import calculate_metrics
+    from tpuir_torch.models.mair import MaIR, init_state_dict
+
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        path = os.path.join(wdir, "MaIR", "denoising", f"MaIR_CDN_s{SIGMA}.pth")
+        os.makedirs(os.path.dirname(path))
+        torch.save({"params": init_state_dict(zoo.MAIR_CDN_CONFIG, seed=SEED)}, path)
+        model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
+                                       weights_dir=wdir, precision="serving", device=device)
+    print(f"serving path: MaIR-CDN sigma={SIGMA}, precision=serving, compute_dtype "
+          f"{model.compute_dtype}, patch {model.patch_size} batch {model.batch_size}", flush=True)
+    clean = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
+    launches, outs = serve_kernel_rounds(
+        "MaIR-CDN serving", model, clean, requests,
+        lambda h, w: dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS), SIGMA)
+    plain = serve(plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, serving=True)),
+                  clean)
+    for (h, w), img, (pred, ms), (ppred, _, _, _) in zip(requests, clean, outs, plain):
+        psnr, ssim = calculate_metrics(pred, img)
+        par_pred, par_ms = parity_outs[(h, w)]
+        par_psnr, par_ssim = calculate_metrics(par_pred, img)
+        diff = lsb(pred, ppred)
+        print(f"MaIR-CDN serving request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f} "
+              f"(parity {par_psnr:.4f} dB {par_ssim:.5f}, delta {psnr - par_psnr:+.4f} dB, "
+              f"max|serving-parity| {lsb(pred, par_pred)} LSB)  serving {ms:.1f} ms "
+              f"{h * w / 1e3 / ms:.3f} Mpix/s (parity {par_ms:.1f} ms)  max|kernel-plain| "
+              f"{diff} LSB", flush=True)
+        if diff > SERVING_LSB:
+            fail(f"the MaIR-CDN serving path and its plain twin differ by {diff} LSB on {h}x{w}")
+        if abs(psnr - par_psnr) > SERVING_PSNR_DB:
+            fail(f"MaIR-CDN serving PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity "
+                 f"on {h}x{w}")
+    mpix = sum(h * w for h, w in requests) / 1e6
+    rate = mpix / (sum(ms for _, ms in outs) / 1e3)
+    print(f"MaIR-CDN engine over the {len(requests)} requests ({mpix:.4f} Mpix): serving "
+          f"{rate:.3f} Mpix/s, parity {parity_rate['kernel']:.3f} Mpix/s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1602,7 +1846,7 @@ def main() -> int:
                  "mixer_epilogue": bound_tc(ebytes, px * 2 * di * dm, eflops)}
     print(f"[MaIR kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    mair_launches, _, mair_outs = phase_mair_path(device)
+    mair_launches, mair_rate, mair_outs = phase_mair_path(device)
     launches.update(mair_launches)
     print(f"[MaIR path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
@@ -1643,6 +1887,12 @@ def main() -> int:
           flush=True)
     launches.update(phase_serving_path(device, restormer_rate, restormer_outs))
     print(f"[serving {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    rows.update(phase_mair_serving_kernels(device))
+    print(f"[MaIR serving kernels {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    launches.update(phase_mair_serving_path(device, mair_rate, mair_outs))
+    print(f"[MaIR serving path {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

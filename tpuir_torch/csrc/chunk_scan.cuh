@@ -65,6 +65,13 @@
 //   ImageIdsPath (K2): position t of direction k is image pixel
 //     p = ids[k][t]; x (B, L, D) and y (B, 4, L, D) are in image order,
 //     x_dbl (B, L, 4, C) pixel-major (one GEMM over all pixels).
+//   ImageIdsBf16Path (K2's serving body): as ImageIdsPath, with x read and
+//     y stored in bf16 (y rounded to nearest even; the chunk sums of y for
+//     pooled taken from the float32 y before it is rounded), and dt_proj's
+//     operands rounded to bf16 in shared memory (W_dt where it is staged,
+//     each tile's dt columns of x_dbl once the tile has landed), so that
+//     each dt product is exact in float32 (the JAX kernel's bf16 x bf16
+//     dt_proj). B, C and the scan stay float32.
 //   StripePath (K5): as ImageIdsPath, but the pixel is computed from t
 //     (nss_pixel below) instead of read from a table, and directions 2 and
 //     3 write y in the transposed (W, H) image layout.
@@ -74,8 +81,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -89,15 +99,38 @@ constexpr int kMaxRank = 64;
 
 enum class PathKind { kImageIds, kStripe, kDelta };
 
+// io_t: the type of x and y in device memory
 struct ImageIdsPath {
   static constexpr PathKind kKind = PathKind::kImageIds;
+  using io_t = float;
+};
+struct ImageIdsBf16Path {
+  static constexpr PathKind kKind = PathKind::kImageIds;
+  using io_t = __nv_bfloat16;
 };
 struct StripePath {
   static constexpr PathKind kKind = PathKind::kStripe;
+  using io_t = float;
 };
 struct DeltaPath {
   static constexpr PathKind kKind = PathKind::kDelta;
+  using io_t = float;
 };
+
+// x and y in bf16, dt_proj's operands rounded to bf16 (the serving body)
+template <class Path>
+constexpr bool kBf16Io = std::is_same_v<typename Path::io_t, __nv_bfloat16>;
+
+__device__ __forceinline__ float scan_widen(float v) { return v; }
+__device__ __forceinline__ float scan_widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void scan_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void scan_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// v rounded to bf16 (nearest even), as a float
+__device__ __forceinline__ float scan_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // x and x_dbl in image order (one row a pixel), y pooled into chunk sums
 template <class Path>
@@ -186,14 +219,14 @@ __device__ __forceinline__ void nss_pixel(int k, int t, int H, int W, int SL, bo
 }
 
 struct ChunkScanArgs {
-  const float* x;      // ImageIdsPath, StripePath (B, L, D); DeltaPath (B, K, L, D)
+  const void* x;       // Path::io_t: image paths (B, L, D); DeltaPath (B, K, L, D)
   const int* ids;      // (4, L): ImageIdsPath only
   const float* xdbl;   // ImageIdsPath, StripePath (B, L, 4, C); C = R + 2N
   const float* dt_w;   // (4, D, R); not DeltaPath
   const float* A;      // (K, D, N), negative
   const float* Dskip;  // (K, D)
   const float* bias;   // (K, D)
-  float* y;            // (B, K, L, D)
+  void* y;             // Path::io_t (B, K, L, D)
   float* hstate;       // (B*K, nchunk, D, N): chunk end states, then initial states
   float* decay;        // (B*K, nchunk, D, N): chunk decay products
   float* partial;      // (B*K, nchunk, D): chunk sums of y, ImageIdsPath and StripePath only
@@ -262,6 +295,7 @@ __global__ void __launch_bounds__(kMaxScanThreads,
     scan_chunk_kernel(ChunkScanArgs a) {
   constexpr PathKind kind = Path::kKind;
   constexpr bool kDeltaRows = kind == PathKind::kDelta;
+  using io_t = typename Path::io_t;
   static_assert(MAXN % 4 == 0, "states go in fours");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -291,9 +325,10 @@ __global__ void __launch_bounds__(kMaxScanThreads,
   // caller checks L * max(D, 4C) < 2^31).
   const long long L = a.L;
   const int C = R + 2 * N;
-  const float* xb = a.x + (kImageRows<Path> ? (long long)b : (long long)bk) * L * D + d;
+  const io_t* xb = static_cast<const io_t*>(a.x) +
+                   (kImageRows<Path> ? (long long)b : (long long)bk) * L * D + d;
   const float* deltab = kDeltaRows ? a.delta + (long long)bk * L * D + d : nullptr;
-  float* yb = a.y + (long long)bk * L * D + d;
+  io_t* yb = static_cast<io_t*>(a.y) + (long long)bk * L * D + d;
   const float* xdbl_b = kImageRows<Path> ? a.xdbl + (long long)b * L * kK * C + k * C
                                          : a.xdbl + (long long)bk * L * C;
   const int xdbl_stride = kImageRows<Path> ? kK * C : C;
@@ -310,8 +345,10 @@ __global__ void __launch_bounds__(kMaxScanThreads,
       rows_s[t] = t0 + t;
     }
   }
-  for (int r = 0; r < R4; ++r)
-    wdt_s[r * bw + tid] = valid && r < R ? a.dt_w[((long long)k * D + d) * R + r] : 0.f;
+  for (int r = 0; r < R4; ++r) {
+    const float w = valid && r < R ? a.dt_w[((long long)k * D + d) * R + r] : 0.f;
+    wdt_s[r * bw + tid] = kBf16Io<Path> ? scan_round_bf16(w) : w;
+  }
   for (int e = tid; e < lay.rows - lay.ring; e += bw) ring_s[e] = 0.f;
   __syncthreads();
 
@@ -337,20 +374,24 @@ __global__ void __launch_bounds__(kMaxScanThreads,
           cp_async4(dst + R4 + j + (j >= N ? NP - N : 0), src + R + j);
       }
     }
-    if (kDeltaRows && valid) {
-      float* us = xs + T * CS + tid;
-      for (int p = 0; p < nt; ++p) {
-        cp_async4(us + p * bw, xb + (t0 + p0 + p) * D);
-        cp_async4(us + (T + p) * bw, deltab + (t0 + p0 + p) * D);
+    if constexpr (kDeltaRows) {
+      if (valid) {
+        float* us = xs + T * CS + tid;
+        for (int p = 0; p < nt; ++p) {
+          cp_async4(us + p * bw, xb + (t0 + p0 + p) * D);
+          cp_async4(us + (T + p) * bw, deltab + (t0 + p0 + p) * D);
+        }
       }
     }
   };
   // Elsewhere u is loaded a group of kGroup positions ahead into registers,
-  // across tiles.
-  auto load_u = [&](int q) { return q < nc ? xb[rows_s[q] * D] : 0.f; };
-  float un[kGroup];
+  // across tiles, as it is in memory (a bf16 u is widened when it is used,
+  // so that the load is not waited on early).
+  const io_t u0 = static_cast<io_t>(0.f);
+  auto load_u = [&](int q) { return q < nc ? xb[rows_s[q] * D] : u0; };
+  io_t un[kGroup];
 #pragma unroll
-  for (int g = 0; g < kGroup; ++g) un[g] = !kDeltaRows && valid ? load_u(g) : 0.f;
+  for (int g = 0; g < kGroup; ++g) un[g] = !kDeltaRows && valid ? load_u(g) : u0;
 
   const long long kd = (long long)k * D + d;
   const long long state = (((long long)bk * a.nchunk + c) * D + d) * N;
@@ -374,6 +415,19 @@ __global__ void __launch_bounds__(kMaxScanThreads,
     __syncthreads();     // everyone's; and everyone is done with tile i - 1
     if (i + 2 < ntiles) stage(i + 2);  // into tile i - 1's slot
     cp_async_commit();   // (empty at the tail: keeps one group a tile)
+    if constexpr (kBf16Io<Path>) {
+      // dt_proj's operand: tile i's dt columns rounded to bf16 in place, by
+      // the whole block, so that the walk below reads them as it is (a
+      // rounding at staging would wait on each load; one at use would cost
+      // every channel R conversions a position)
+      float* xt = ring_s + (i % kStages) * stage_floats;
+      const int nt = min(T, nc - i * T);
+      for (int e = tid; e < nt * R; e += bw) {
+        const int p = e / R, j = e - p * R;
+        xt[p * CS + j] = scan_round_bf16(xt[p * CS + j]);
+      }
+      __syncthreads();
+    }
     if (!valid) continue;
     const float* xs = ring_s + (i % kStages) * stage_floats;
     const float* us = xs + T * CS + tid;
@@ -390,7 +444,7 @@ __global__ void __launch_bounds__(kMaxScanThreads,
           ug[g] = us[(p + g) * bw];
           dr[g] += us[(T + p + g) * bw];
         } else {
-          ug[g] = un[g];
+          ug[g] = scan_widen(un[g]);
           un[g] = load_u(p0 + p + g + kGroup);
         }
       }
@@ -443,8 +497,8 @@ __global__ void __launch_bounds__(kMaxScanThreads,
           if constexpr (kind == PathKind::kStripe)
             yb[outs_s[p0 + p + g] * D] = out;
           else
-            yb[rows_s[p0 + p + g] * D] = out;
-          if (kImageRows<Path>) pool += out;
+            scan_store(yb + rows_s[p0 + p + g] * D, out);  // bf16: rounded to nearest even
+          if (kImageRows<Path>) pool += out;  // the float32 y, before any rounding
         }
       }
     }

@@ -39,6 +39,14 @@
 // direction images at more than about 1.4 TB/s, and the blocks' load and
 // product phases did not overlap.
 //
+// The serving body (tpuir_mixer_epilogue_bf16; the TPU kernel with
+// serving=True) reads y and z in bf16 (widened exactly), takes the gated sum
+// and the LayerNorm in float32 with the one-pass variance, max(E[s^2] -
+// mu^2, 0), writes the float32 gated rows as before, and runs out_proj on
+// the core's bf16 mode, which rounds the gated rows and W_out to bf16 at
+// fragment load and sums in float32; the output stays float32. y and z move
+// half the bytes (the combine reads 4 + 1 rows of bf16 a pixel).
+//
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
 // is returned (0 = success).
@@ -76,6 +84,22 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[VW]) {
   }
 }
 
+// VW bf16 at p (VW * 2-byte aligned) into v, widened.
+template <int VW>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  } else if constexpr (VW == 2) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
 template <int VW>
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
   if constexpr (VW == 4)
@@ -88,13 +112,15 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
 
 // One warp a pixel. A lane holds V groups of VW consecutive channels, group
 // g = lane + 32 i at channels VW g .. VW g + VW - 1 (Di a multiple of VW, the
-// pointers and rows aligned to VW floats, ldg <= 32 V VW), so that it loads
-// and stores VW floats at a time.
-// y (B, 4, HW, Di), gates (B, 4, Di), z (B, HW, Di); gated (B, HW, ldg) with
-// columns [Di, ldg) set to 0.
-template <int VW, int V>
+// pointers and rows aligned to VW values, ldg <= 32 V VW), so that it loads
+// and stores VW values at a time.
+// y (B, 4, HW, Di) and z (B, HW, Di) of TI (float32, or bf16 in the serving
+// body), gates (B, 4, Di); gated (B, HW, ldg) float32 with columns [Di, ldg)
+// set to 0. The variance is the mean of squared deviations (two passes, the
+// parity body) or, ONE_PASS (the serving body), max(E[s^2] - mu^2, 0).
+template <int VW, int V, class TI, bool ONE_PASS>
 __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
-    const float* __restrict__ y, const float* __restrict__ gates, const float* __restrict__ z,
+    const TI* __restrict__ y, const float* __restrict__ gates, const TI* __restrict__ z,
     const float* __restrict__ ln_w, const float* __restrict__ ln_b, float* __restrict__ gated,
     long long M, int HW, int Di, int ldg) {
   const long long m = (long long)blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
@@ -103,11 +129,11 @@ __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
   const long long b = m / HW;
   const long long p = m - b * HW;
   const long long plane = (long long)HW * Di;  // one direction image
-  const float* yp = y + (b * kK * HW + p) * Di;
+  const TI* yp = y + (b * kK * HW + p) * Di;
   const float* gb = gates + b * kK * Di;
 
   float v[V][VW];
-  float s = 0.f;
+  float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int d = (lane + 32 * i) * VW;
@@ -124,22 +150,31 @@ __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
       }
     }
 #pragma unroll
-    for (int c = 0; c < VW; ++c) s += v[i][c];
-  }
-  const float mu = warp_sum(s) / (float)Di;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    if ((lane + 32 * i) * VW < Di) {
-#pragma unroll
-      for (int c = 0; c < VW; ++c) {
-        const float dv = v[i][c] - mu;
-        q = fmaf(dv, dv, q);
-      }
+    for (int c = 0; c < VW; ++c) {
+      s += v[i][c];
+      if (ONE_PASS) s2 = fmaf(v[i][c], v[i][c], s2);
     }
   }
-  const float rstd = 1.0f / sqrtf(warp_sum(q) / (float)Di + 1e-5f);
-  const float* zp = z + m * Di;
+  const float mu = warp_sum(s) / (float)Di;
+  float var;
+  if constexpr (ONE_PASS) {
+    var = fmaxf(fmaf(-mu, mu, warp_sum(s2) / (float)Di), 0.f);
+  } else {
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if ((lane + 32 * i) * VW < Di) {
+#pragma unroll
+        for (int c = 0; c < VW; ++c) {
+          const float dv = v[i][c] - mu;
+          q = fmaf(dv, dv, q);
+        }
+      }
+    }
+    var = warp_sum(q) / (float)Di;
+  }
+  const float rstd = 1.0f / sqrtf(var + 1e-5f);
+  const TI* zp = z + m * Di;
   float* out = gated + m * ldg;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -161,22 +196,22 @@ __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
   }
 }
 
-// The combine kernel for Di: VW floats a load where Di and every pointer
+// The combine kernel for Di: VW values a load where Di and every pointer
 // allow it, and V groups a lane for the padded width dp.
-template <int VW>
-void launch_combine(const float* y, const float* gates, const float* z, const float* ln_w,
+template <int VW, class TI, bool ONE_PASS>
+void launch_combine(const TI* y, const float* gates, const TI* z, const float* ln_w,
                     const float* ln_b, float* gated, long long M, int HW, int Di, int dp,
                     cudaStream_t st) {
   const unsigned blocks = (unsigned)((M + kRowThreads / 32 - 1) / (kRowThreads / 32));
-  const int groups = (dp + VW - 1) / VW;  // of VW floats, a row
+  const int groups = (dp + VW - 1) / VW;  // of VW values, a row
   if (groups <= 32 * 8 / VW)
-    combine_norm_gate_kernel<VW, 8 / VW><<<blocks, kRowThreads, 0, st>>>(
+    combine_norm_gate_kernel<VW, 8 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
         y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
   else if (groups <= 32 * 16 / VW)
-    combine_norm_gate_kernel<VW, 16 / VW><<<blocks, kRowThreads, 0, st>>>(
+    combine_norm_gate_kernel<VW, 16 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
         y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
   else
-    combine_norm_gate_kernel<VW, 32 / VW><<<blocks, kRowThreads, 0, st>>>(
+    combine_norm_gate_kernel<VW, 32 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
         y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
 }
 
@@ -192,6 +227,44 @@ __global__ void __launch_bounds__(kRowThreads) pad_weight_kernel(const float* __
   dst[i] = c < cols ? src[(long long)r * cols + c] : 0.f;
 }
 
+// The gated rows, then out_proj in precision Prec: y and z of TI, the
+// variance one-pass or not.
+template <class Prec, class TI, bool ONE_PASS>
+int epilogue(const TI* y, const float* gates, const TI* z, const float* ln_w, const float* ln_b,
+             const float* w_out, float* gated, float* w_pad, float* out, int B, int HW, int Di,
+             int Dm, cudaStream_t st) {
+  if (B <= 0 || HW <= 0 || Di <= 0 || Di > 1024 || Dm <= 0) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * HW;
+  if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int dp = (Di + 3) / 4 * 4;
+  // VW values a load: every pointer and row aligned to VW values of its type
+  constexpr int kIn = (int)sizeof(TI);
+  const void* ins[2] = {y, z};
+  const void* f32s[4] = {gates, ln_w, ln_b, gated};
+  bool a4 = Di % 4 == 0, a2 = Di % 2 == 0;
+  for (const void* q : ins) a4 = a4 && aligned(q, 4 * kIn), a2 = a2 && aligned(q, 2 * kIn);
+  for (const void* q : f32s) a4 = a4 && aligned(q, 16), a2 = a2 && aligned(q, 8);
+  if (a4)
+    launch_combine<4, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
+  else if (a2)
+    launch_combine<2, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
+  else
+    launch_combine<1, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const float* w = w_out;
+  if (dp != Di) {  // w_out's rows padded alike, so that the core copies 16 bytes at a time
+    const unsigned pad_blocks = (unsigned)(((long long)Dm * dp + kRowThreads - 1) / kRowThreads);
+    pad_weight_kernel<<<pad_blocks, kRowThreads, 0, st>>>(w_out, w_pad, Dm, Di, dp);
+    if ((err = (int)cudaGetLastError())) return err;
+    w = w_pad;
+  }
+  const tc::Args p{gated, 0, dp, w, 0, (int)M, Dm, dp};
+  return tc::launch_tc_gemm<Prec>(
+      p, 1, tc::NoPrologue{}, tc::StoreOut{out, nullptr, Dm, tc::pairs_aligned(out, nullptr, Dm)},
+      st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,33 +278,18 @@ int tpuir_mixer_epilogue_f32(const float* y, const float* gates, const float* z,
                              const float* ln_w, const float* ln_b, const float* w_out,
                              float* gated, float* w_pad, float* out, int B, int HW, int Di,
                              int Dm, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0 || HW <= 0 || Di <= 0 || Di > 1024 || Dm <= 0) return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * HW;
-  if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int dp = (Di + 3) / 4 * 4;
-  const float* ptrs[6] = {y, gates, z, ln_w, ln_b, gated};
-  bool a16 = Di % 4 == 0, a8 = Di % 2 == 0;
-  for (const float* q : ptrs) a16 = a16 && aligned(q, 16), a8 = a8 && aligned(q, 8);
-  if (a16)
-    launch_combine<4>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
-  else if (a8)
-    launch_combine<2>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
-  else
-    launch_combine<1>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const float* w = w_out;
-  if (dp != Di) {  // w_out's rows padded alike, so that the core copies 16 bytes at a time
-    const unsigned pad_blocks = (unsigned)(((long long)Dm * dp + kRowThreads - 1) / kRowThreads);
-    pad_weight_kernel<<<pad_blocks, kRowThreads, 0, st>>>(w_out, w_pad, Dm, Di, dp);
-    if ((err = (int)cudaGetLastError())) return err;
-    w = w_pad;
-  }
-  const tc::Args p{gated, 0, dp, w, 0, (int)M, Dm, dp};
-  return tc::launch_tc_gemm(p, 1, tc::NoPrologue{},
-                            tc::StoreOut{out, nullptr, Dm, tc::pairs_aligned(out, nullptr, Dm)},
-                            st);
+  return epilogue<tc::F32x3, float, false>(y, gates, z, ln_w, ln_b, w_out, gated, w_pad, out, B,
+                                           HW, Di, Dm, (cudaStream_t)stream);
+}
+
+// The serving body: y and z bf16, the rest as tpuir_mixer_epilogue_f32
+// (gated float32 scratch, float32 output).
+int tpuir_mixer_epilogue_bf16(const __nv_bfloat16* y, const float* gates,
+                              const __nv_bfloat16* z, const float* ln_w, const float* ln_b,
+                              const float* w_out, float* gated, float* w_pad, float* out, int B,
+                              int HW, int Di, int Dm, void* stream) {
+  return epilogue<tc::Bf16, __nv_bfloat16, true>(y, gates, z, ln_w, ln_b, w_out, gated, w_pad,
+                                                 out, B, HW, Di, Dm, (cudaStream_t)stream);
 }
 
 }  // extern "C"

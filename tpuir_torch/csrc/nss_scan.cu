@@ -40,6 +40,16 @@
 //     static slices, x^T frames, lane padding and VMEM segments exist to
 //     avoid gathers on the TPU and have no counterpart here.
 //
+// The serving body (tpuir_nss_scan_bf16; the TPU kernel with serving=True)
+// is the same launches on bf16 x and y: x_proj takes x widened and W_xp
+// rounded to bf16 at load (simt_gemm.cuh), so x_dbl is the float32 sum of
+// exact bf16 products and stays float32 in scratch; the scan runs on
+// ImageIdsBf16Path (chunk_scan.cuh), which rounds dt_proj's operands (the
+// dt columns of x_dbl and W_dt) in shared memory, keeps B, C, softplus,
+// the recurrence and D*x in float32, stores y rounded to nearest even and
+// sums pooled from the float32 y. Halving x's and y's bytes moves little:
+// the scan is bound by its exponentials, not its bytes.
+//
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
 // is returned (0 = success).
@@ -59,15 +69,15 @@ long long tpuir_nss_scan_scratch_numel(int B, int L, int D, int N, int R) {
          bk * chunk_count(L) * D;
 }
 
-// x (B, L, D) float32, pixels row-major; ids (4, L) int32, a permutation of
-// 0..L-1 per direction; x_proj_w (4, R + 2N, D); dt_w (4, D, R); A (4, D, N)
-// (= -exp(A_logs)); Dskip, bias (4, D). Outputs y (B, 4, L, D) in image
-// order and pooled (B, 4, D). N <= 32, R <= 64.
-int tpuir_nss_scan_f32(const float* x, const int* ids, const float* x_proj_w, const float* dt_w,
-                       const float* A, const float* Dskip, const float* bias, float* y,
-                       float* pooled, float* scratch, int B, int L, int D, int N, int R,
-                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+}  // extern "C"
+
+namespace {
+
+template <class Path>
+int nss_scan(const typename Path::io_t* x, const int* ids, const float* x_proj_w,
+             const float* dt_w, const float* A, const float* Dskip, const float* bias,
+             typename Path::io_t* y, float* pooled, float* scratch, int B, int L, int D, int N,
+             int R, cudaStream_t st) {
   if (B <= 0 || L <= 0 || D <= 0 || N <= 0 || N > kMaxState || R <= 0 || R > kMaxRank)
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * L;
@@ -87,9 +97,36 @@ int tpuir_nss_scan_f32(const float* x, const int* ids, const float* x_proj_w, co
   // 1-3. the chunked scan through the id table
   const ChunkScanArgs a{x, ids, xdbl, dt_w, A, Dskip, bias, y, hstate, decay, partial,
                         L, D, N, R, nchunk};
-  if ((err = run_chunk_scan<ImageIdsPath>(a, BK, st))) return err;
+  if ((err = run_chunk_scan<Path>(a, BK, st))) return err;
   // 4. pooled sums in chunk order
-  return launch_sum_partials<ImageIdsPath>(partial, pooled, BK, nchunk, D, st);
+  return launch_sum_partials<Path>(partial, pooled, BK, nchunk, D, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (B, L, D) float32, pixels row-major; ids (4, L) int32, a permutation of
+// 0..L-1 per direction; x_proj_w (4, R + 2N, D); dt_w (4, D, R); A (4, D, N)
+// (= -exp(A_logs)); Dskip, bias (4, D). Outputs y (B, 4, L, D) in image
+// order and pooled (B, 4, D). N <= 32, R <= 64.
+int tpuir_nss_scan_f32(const float* x, const int* ids, const float* x_proj_w, const float* dt_w,
+                       const float* A, const float* Dskip, const float* bias, float* y,
+                       float* pooled, float* scratch, int B, int L, int D, int N, int R,
+                       void* stream) {
+  return nss_scan<ImageIdsPath>(x, ids, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch, B,
+                                L, D, N, R, (cudaStream_t)stream);
+}
+
+// The serving body: x and y bf16, the weights float32 as tpuir_nss_scan_f32
+// takes them (rounded to bf16 where they are products' operands), pooled
+// float32; the same scratch.
+int tpuir_nss_scan_bf16(const __nv_bfloat16* x, const int* ids, const float* x_proj_w,
+                        const float* dt_w, const float* A, const float* Dskip, const float* bias,
+                        __nv_bfloat16* y, float* pooled, float* scratch, int B, int L, int D,
+                        int N, int R, void* stream) {
+  return nss_scan<ImageIdsBf16Path>(x, ids, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch,
+                                    B, L, D, N, R, (cudaStream_t)stream);
 }
 
 }  // extern "C"

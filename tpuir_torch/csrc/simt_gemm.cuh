@@ -11,22 +11,73 @@
 // along k where K and the pointers allow, while the current one is
 // multiplied, and stored into the other half of a double-buffered tile.
 // Every load is bounds-checked, so M, N and K may take any value.
+//
+// K2's serving body takes A in bf16 (x, as K6 stores it): each value is
+// widened exactly, and each weight rounded to bf16 (nearest even), on its
+// way into shared memory, so every product of the chain is a product of two
+// bf16 values, exact in float32, as the JAX kernel's bf16 x bf16 products
+// with float32 sums. The next slice is held raw in registers and converted
+// only when it is stored, after the current slice's products: a conversion
+// at load would wait on the load and undo the prefetch. A float32 A leaves
+// the weights as they are.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kGemmBM = 128, kGemmBN = 48, kGemmBK = 32, kGemmThreads = 256;
 
-// A (batch, M, K), W (w_groups, N, K), out (batch, M, N), all row-major;
-// grid (ceil(M / BM), ceil(N / BN), batch).
-template <bool VEC4>
+// A's values as fetched into registers (raw: one value, or four along k),
+// and widened to float32 when they are stored into shared memory.
+template <class TA>
+struct GemmA;
+template <>
+struct GemmA<float> {
+  using raw = float;
+  using raw4 = float4;
+  static __device__ __forceinline__ raw zero() { return 0.f; }
+  static __device__ __forceinline__ raw4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ raw4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float widen(raw v) { return v; }
+  static __device__ __forceinline__ float4 widen4(raw4 v) { return v; }
+};
+template <>
+struct GemmA<__nv_bfloat16> {
+  using raw = __nv_bfloat16;
+  using raw4 = uint2;  // four bf16, 8-byte aligned
+  static __device__ __forceinline__ raw zero() { return __ushort_as_bfloat16(0); }
+  static __device__ __forceinline__ raw4 zero4() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ raw4 load4(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  static __device__ __forceinline__ float widen(raw v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ float4 widen4(raw4 v) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+// v rounded to bf16 (nearest even), as a float
+__device__ __forceinline__ float gemm_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A (batch, M, K) of TA (float or bf16), W (w_groups, N, K), out (batch, M,
+// N), all row-major; grid (ceil(M / BM), ceil(N / BN), batch).
+template <bool VEC4, class TA>
 __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
-    const float* __restrict__ A, const float* __restrict__ W, float* __restrict__ out, int M,
+    const TA* __restrict__ A, const float* __restrict__ W, float* __restrict__ out, int M,
     int N, int K, int w_groups) {
+  constexpr bool kBf16 = std::is_same_v<TA, __nv_bfloat16>;  // W rounded to bf16
+  using GA = GemmA<TA>;
   __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + 4];
   __shared__ __align__(16) float Ws[2][kGemmBK][kGemmBN + 1];
   const int z = blockIdx.z;
@@ -40,8 +91,10 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
   constexpr int kW = VEC4 ? (kGemmBN + 31) / 32 : kGemmBN * kGemmBK / kGemmThreads;
   const int lk4 = (tid & 7) * 4, lr = tid >> 3;
   const int lk = tid & (kGemmBK - 1), lr1 = tid >> 5;
-  float4 ra4[VEC4 ? kA : 1], rw4[VEC4 ? kW : 1];
-  float ra[VEC4 ? 1 : kA], rw[VEC4 ? 1 : kW];
+  typename GA::raw4 ra4[VEC4 ? kA : 1];
+  float4 rw4[VEC4 ? kW : 1];
+  typename GA::raw ra[VEC4 ? 1 : kA];
+  float rw[VEC4 ? 1 : kW];
   float acc[8][3] = {};
 
   auto fetch = [&](int k0) {
@@ -50,8 +103,7 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
 #pragma unroll
       for (int i = 0; i < kA; ++i) {
         const int m = m0 + lr + 32 * i;
-        ra4[i] = (m < M && k < K) ? *reinterpret_cast<const float4*>(A + (long long)m * K + k)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        ra4[i] = (m < M && k < K) ? GA::load4(A + (long long)m * K + k) : GA::zero4();
       }
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
@@ -65,7 +117,7 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
 #pragma unroll
       for (int i = 0; i < kA; ++i) {
         const int m = m0 + lr1 + 8 * i;
-        ra[i] = (m < M && k < K) ? A[(long long)m * K + k] : 0.f;
+        ra[i] = (m < M && k < K) ? A[(long long)m * K + k] : GA::zero();
       }
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
@@ -74,27 +126,30 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
       }
     }
   };
+  // a weight as stored: rounded to bf16 when A is bf16
+  auto wv = [](float v) { return kBf16 ? gemm_round_bf16(v) : v; };
   auto stash = [&](int buf) {
     if constexpr (VEC4) {
 #pragma unroll
       for (int i = 0; i < kA; ++i) {
         const int r = lr + 32 * i;
-        As[buf][lk4][r] = ra4[i].x, As[buf][lk4 + 1][r] = ra4[i].y;
-        As[buf][lk4 + 2][r] = ra4[i].z, As[buf][lk4 + 3][r] = ra4[i].w;
+        const float4 a = GA::widen4(ra4[i]);
+        As[buf][lk4][r] = a.x, As[buf][lk4 + 1][r] = a.y;
+        As[buf][lk4 + 2][r] = a.z, As[buf][lk4 + 3][r] = a.w;
       }
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
         const int r = lr + 32 * i;
         if (r < kGemmBN) {
-          Ws[buf][lk4][r] = rw4[i].x, Ws[buf][lk4 + 1][r] = rw4[i].y;
-          Ws[buf][lk4 + 2][r] = rw4[i].z, Ws[buf][lk4 + 3][r] = rw4[i].w;
+          Ws[buf][lk4][r] = wv(rw4[i].x), Ws[buf][lk4 + 1][r] = wv(rw4[i].y);
+          Ws[buf][lk4 + 2][r] = wv(rw4[i].z), Ws[buf][lk4 + 3][r] = wv(rw4[i].w);
         }
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < kA; ++i) As[buf][lk][lr1 + 8 * i] = ra[i];
+      for (int i = 0; i < kA; ++i) As[buf][lk][lr1 + 8 * i] = GA::widen(ra[i]);
 #pragma unroll
-      for (int i = 0; i < kW; ++i) Ws[buf][lk][lr1 + 8 * i] = rw[i];
+      for (int i = 0; i < kW; ++i) Ws[buf][lk][lr1 + 8 * i] = wv(rw[i]);
     }
   };
 
@@ -135,15 +190,19 @@ __global__ void __launch_bounds__(kGemmThreads) simt_gemm_nt_kernel(
   }
 }
 
-// out[z] = A[z] . W[z % w_groups]^T for z < batch: A (batch, M, K), W
-// (w_groups, N, K) (a torch Linear weight as it is), out (batch, M, N).
-inline int launch_simt_gemm(const float* A, const float* W, float* out, int M, int N, int K,
+// out[z] = A[z] . W[z % w_groups]^T for z < batch: A (batch, M, K) float32,
+// or bf16 with W rounded to bf16 at load; W (w_groups, N, K) (a torch Linear
+// weight as it is), out (batch, M, N).
+template <class TA>
+inline int launch_simt_gemm(const TA* A, const float* W, float* out, int M, int N, int K,
                             cudaStream_t st, int batch = 1, int w_groups = 1) {
   const dim3 grid((M + kGemmBM - 1) / kGemmBM, (N + kGemmBN - 1) / kGemmBN, (unsigned)batch);
-  if (K % 4 == 0 && (((uintptr_t)A | (uintptr_t)W) & 15) == 0)
-    simt_gemm_nt_kernel<true><<<grid, kGemmThreads, 0, st>>>(A, W, out, M, N, K, w_groups);
+  // four A values a load: 16 bytes of float32, 8 of bf16
+  const uintptr_t a_align = sizeof(TA) == 4 ? 15 : 7;
+  if (K % 4 == 0 && ((uintptr_t)A & a_align) == 0 && ((uintptr_t)W & 15) == 0)
+    simt_gemm_nt_kernel<true, TA><<<grid, kGemmThreads, 0, st>>>(A, W, out, M, N, K, w_groups);
   else
-    simt_gemm_nt_kernel<false><<<grid, kGemmThreads, 0, st>>>(A, W, out, M, N, K, w_groups);
+    simt_gemm_nt_kernel<false, TA><<<grid, kGemmThreads, 0, st>>>(A, W, out, M, N, K, w_groups);
   return (int)cudaGetLastError();
 }
 

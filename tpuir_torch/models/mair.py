@@ -33,13 +33,23 @@ CPU tensor; with ``fused=False`` it calls the plain versions on any device.
 The gates are a tiny einsum, sigmoid(sum_i mean_i[b,d] * gw[d,o,i] +
 gb[d,o]) over the directions' means of y, with the ShuffleAttn conv's
 weight as gw (its channel shuffles collapse into the (d, o, i) indexing, as
-in the JAX module). The 3x3 convs outside the mixer, the blocks' LayerNorms
-and the MLP are plain PyTorch in both modes; the body's convs run one image
-at a time on the card (``_body_conv``).
+in the JAX module), taken in true float32 whatever TF32 setting the caller
+has (the JAX module's ``Precision.HIGHEST``). The 3x3 convs outside the
+mixer, the blocks' LayerNorms and the MLP are plain PyTorch in both modes;
+the body's convs run one image at a time on the card (``_body_conv``).
+
+``serving=True`` is MaIR's serving precision, the JAX module's
+``scan_io_dtype="bfloat16"``: the stripe route takes the serving bodies of
+K6, K2 and K7 (bf16 x, z and y between them, bf16 products with float32
+sums; see each wrapper), and every other layer stays float32. Its fused
+and sequence routes wait for K5's and K3's serving bodies and raise. The
+parameters stay float32 in both precisions, so a released ``.pth`` loads
+as it is.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
@@ -48,16 +58,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuir_torch.ops.nss_epilogue import mixer_epilogue, mixer_epilogue_plain
+from tpuir_torch.core.engine import true_float32
+from tpuir_torch.ops.nss_epilogue import (mixer_epilogue, mixer_epilogue_plain,
+                                          mixer_epilogue_serving_plain)
 from tpuir_torch.ops.nss_fused import nss_scan_fused, nss_scan_fused_plain
-from tpuir_torch.ops.nss_prologue import mixer_prologue, mixer_prologue_plain
-from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain
+from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_plain,
+                                          mixer_prologue_serving_plain)
+from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain, nss_scan_serving_plain
 from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
                                              selective_scan_fused_proj_plain)
 from tpuir_torch.ops.scan_ids import scan_index_tensors
 
 K = 4  # scan directions
 NSS_MODES = ("stripe", "fused", "0")  # the JAX module's TPUIR_NSS values
+# the ROADMAP item that ports each route's serving body
+_SERVING_NOT_PORTED = {"fused": "ROADMAP Queue 2 A4, 'K5 serving'",
+                       "sequence": "ROADMAP Queue 2 A3, 'K3 serving'"}
 
 
 def _nchw(h: torch.Tensor) -> torch.Tensor:
@@ -99,10 +115,12 @@ class SSMixer(nn.Module):
     """VMM: the 4-direction NSS selective-scan mixer with the shuffle gate."""
 
     def __init__(self, d_model: int, d_state: int = 16, expand: float = 2.0,
-                 scan_len: int = 4, fused: bool = True, nss: str = "stripe"):
+                 scan_len: int = 4, fused: bool = True, nss: str = "stripe",
+                 serving: bool = False):
         super().__init__()
         if nss not in NSS_MODES:
             raise ValueError(f"nss must be one of {NSS_MODES}, got {nss!r}")
+        self.serving = serving
         self.d_inner = d_inner = int(expand * d_model)
         self.dt_rank = math.ceil(d_model / 16)
         self.d_state = d_state
@@ -137,7 +155,9 @@ class SSMixer(nn.Module):
         conv = self.gating.gating[1]
         gw = conv.weight.reshape(di, K, K)
         gb = conv.bias.reshape(di, K)
-        return torch.sigmoid(torch.einsum("bid,doi->bod", mean, gw) + gb.t()[None]).contiguous()
+        with true_float32():
+            g = torch.einsum("bid,doi->bod", mean, gw)
+        return torch.sigmoid(g + gb.t()[None]).contiguous()
 
     def forward(self, h: torch.Tensor, shift: bool = False) -> torch.Tensor:
         """h: (B, H, W, d_model) -> (B, H, W, d_model)."""
@@ -147,13 +167,23 @@ class SSMixer(nn.Module):
         scan_w = (self.x_proj_weight, self.dt_projs_weight, A, self.Ds.reshape(K, di),
                   self.dt_projs_bias)
         route = self.route(H, W)
+        if self.serving and route != "stripe":
+            raise NotImplementedError(
+                f"MaIR serving on the {route} route ({H}x{W}, nss={self.nss!r}) is not ported "
+                f"yet: {_SERVING_NOT_PORTED[route]}")
         if route == "sequence":
             return self._sequence_route(h, shift, scan_w)
         if route == "fused":
             return self._fused_route(h, shift, scan_w)
-        prologue, scan, epilogue = (
-            (mixer_prologue, nss_scan, mixer_epilogue) if self.fused
-            else (mixer_prologue_plain, nss_scan_plain, mixer_epilogue_plain))
+        if self.fused:
+            prologue, scan, epilogue = (
+                functools.partial(f, serving=self.serving)
+                for f in (mixer_prologue, nss_scan, mixer_epilogue))
+        elif self.serving:
+            prologue, scan, epilogue = (mixer_prologue_serving_plain, nss_scan_serving_plain,
+                                        mixer_epilogue_serving_plain)
+        else:
+            prologue, scan, epilogue = mixer_prologue_plain, nss_scan_plain, mixer_epilogue_plain
         x, z = prologue(h.contiguous(), self.in_proj.weight, self.conv2d.weight,
                         self.conv2d.bias)
         y, pooled = scan(x, *scan_w, self.scan_len, shift)
@@ -213,10 +243,10 @@ class MaIRBlock(nn.Module):
 
     def __init__(self, dim: int, d_state: int, ssm_ratio: float, mlp_ratio: float,
                  scan_len: int = 4, fused: bool = True, mlp_attr: str = "conv_blk",
-                 nss: str = "stripe"):
+                 nss: str = "stripe", serving: bool = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim)
-        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused, nss)
+        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused, nss, serving)
         self.skip_scale = nn.Parameter(torch.ones(dim))
         self.ln_2 = nn.LayerNorm(dim)
         self.mlp_attr = mlp_attr
@@ -241,10 +271,12 @@ class RMG(nn.Module):
     """A residual group: blocks (odd ones on the shifted scan), a 3x3 conv, a skip."""
 
     def __init__(self, dim: int, depth: int, d_state: int, ssm_ratio: float,
-                 mlp_ratio: float, scan_len: int, fused: bool, nss: str = "stripe"):
+                 mlp_ratio: float, scan_len: int, fused: bool, nss: str = "stripe",
+                 serving: bool = False):
         super().__init__()
         self.residual_group = ResidualGroup(
-            [MaIRBlock(dim, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss=nss)
+            [MaIRBlock(dim, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss=nss,
+                       serving=serving)
              for _ in range(depth)])
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
@@ -264,12 +296,14 @@ class PatchEmbed(nn.Module):
 
 
 class MaIR(nn.Module):
-    """Flat MaIR for Gaussian color denoising (upsampler None, 1conv)."""
+    """Flat MaIR for Gaussian color denoising (upsampler None, 1conv);
+    ``serving`` takes the mixers' serving bodies (see the module docstring)."""
 
     def __init__(self, in_chans: int = 3, embed_dim: int = 180,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6), d_state: int = 16,
                  ssm_ratio: float = 1.3, mlp_ratio: float = 2.0, scan_len: int = 4,
-                 img_range: float = 1.0, fused: bool = True, nss: str = "stripe"):
+                 img_range: float = 1.0, fused: bool = True, nss: str = "stripe",
+                 serving: bool = False):
         super().__init__()
         self.img_range = img_range
         mean = [0.4488, 0.4371, 0.4040] if in_chans == 3 else [0.0] * in_chans
@@ -278,7 +312,7 @@ class MaIR(nn.Module):
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, padding=1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
-            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss)
+            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss, serving)
             for depth in depths
         ])
         self.norm = nn.LayerNorm(embed_dim)

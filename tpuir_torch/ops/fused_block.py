@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuir_torch.ops import _kernels
+from tpuir_torch.utils.misc import bf16_rounded
 
 _WEIGHTS = (
     "norm1.body.weight", "norm2.body.weight", "attn.temperature",
@@ -143,11 +144,6 @@ def fused_transformer_block_plain(x: torch.Tensor, p: Mapping[str, torch.Tensor]
     return out.permute(0, 3, 1, 2)
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bf16 (nearest even), in t's dtype: a product operand."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 def fused_transformer_block_serving_plain(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                                           heads: int, ln_bias: bool) -> torch.Tensor:
     """The serving body in plain PyTorch, step for step as the JAX kernel
@@ -168,24 +164,25 @@ def fused_transformer_block_serving_plain(x: torch.Tensor, p: Mapping[str, torch
     xh = x.permute(0, 2, 3, 1).to(p["attn.qkv.weight"].dtype)  # (B, H, W, C)
 
     y = _layer_norm(xh, p["norm1.body.weight"], p.get("norm1.body.bias"), ln_bias, True)
-    qkv = _bf16(y) @ _bf16(p["attn.qkv.weight"].reshape(3 * C, C)).t()
+    qkv = bf16_rounded(y) @ bf16_rounded(p["attn.qkv.weight"].reshape(3 * C, C)).t()
     qkv = F.conv2d(qkv.permute(0, 3, 1, 2), p["attn.qkv_dwconv.weight"],
                    padding=1, groups=3 * C)
     q, k, v = qkv.reshape(B, 3, heads, hc, H * W).unbind(1)  # (B, heads, hc, HW)
     qn = q.square().sum(-1).sqrt().clamp_min(1e-12)
     kn = k.square().sum(-1).sqrt().clamp_min(1e-12)
-    g = _bf16(q) @ _bf16(k).transpose(-1, -2)
+    g = bf16_rounded(q) @ bf16_rounded(k).transpose(-1, -2)
     logits = g / qn[..., :, None] / kn[..., None, :] * p["attn.temperature"].reshape(1, heads, 1, 1)
-    ao = (_bf16(logits.softmax(-1)) @ _bf16(v)).reshape(B, C, H, W).permute(0, 2, 3, 1)
-    x2 = xh + _bf16(ao) @ _bf16(p["attn.project_out.weight"].reshape(C, C)).t()
+    ao = bf16_rounded(logits.softmax(-1)) @ bf16_rounded(v)
+    ao = ao.reshape(B, C, H, W).permute(0, 2, 3, 1)
+    x2 = xh + bf16_rounded(ao) @ bf16_rounded(p["attn.project_out.weight"].reshape(C, C)).t()
 
     y2 = _layer_norm(x2, p["norm2.body.weight"], p.get("norm2.body.bias"), ln_bias, True)
-    h1 = _bf16(y2) @ _bf16(p["ffn.project_in.weight"].reshape(2 * hidden, C)).t()
+    h1 = bf16_rounded(y2) @ bf16_rounded(p["ffn.project_in.weight"].reshape(2 * hidden, C)).t()
     h1 = F.conv2d(h1.permute(0, 3, 1, 2), p["ffn.dwconv.weight"],
                   padding=1, groups=2 * hidden)
     a1, a2 = h1.chunk(2, dim=1)
     gate = (a1 * torch.sigmoid(1.702 * a1) * a2).permute(0, 2, 3, 1)
-    out = x2 + _bf16(gate) @ _bf16(p["ffn.project_out.weight"].reshape(C, hidden)).t()
+    out = x2 + bf16_rounded(gate) @ bf16_rounded(p["ffn.project_out.weight"].reshape(C, hidden)).t()
     return out.to(torch.bfloat16).permute(0, 3, 1, 2)
 
 

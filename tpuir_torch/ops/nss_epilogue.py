@@ -3,29 +3,42 @@
 The counterpart of ``tpuir/ops/nss_epilogue.py:mixer_epilogue``: the gated
 four-direction sum, out_norm (LayerNorm over d_inner), times SiLU(z), then
 out_proj. The kernel is ``tpuir_torch/csrc/nss_epilogue.cu``: the gated
-rows, then out_proj on the tensor-core GEMM core in 3xTF32; its source note
-gives what bounds it on the card and what the design does about that. It
-takes K2's output in image layout, so there is no half-block select. The
-wrapper allocates the kernel's scratch: the gated rows and a copy of
-``w_out``, both ``padded_inner(d_inner)`` floats wide.
+rows, then out_proj on the tensor-core GEMM core, in its two bodies:
+float32 parity (``tpuir_mixer_epilogue_f32``, 3xTF32) and serving
+(``tpuir_mixer_epilogue_bf16``, the TPU kernel with ``serving=True``: bf16
+y and z, the one-pass LayerNorm variance, out_proj of bf16-rounded gated
+rows and W_out summed in float32, a float32 output); its source note gives
+what bounds it on the card and what the design does about that. It takes
+K2's output in image layout, so there is no half-block select. The wrapper
+allocates the kernel's scratch: the gated rows and a copy of ``w_out``,
+both ``padded_inner(d_inner)`` floats wide.
 
 ``mixer_epilogue`` is the wrapper: it checks its inputs and raises on
 anything the kernel does not take. On a CUDA tensor it launches the kernel
-on the current stream and counts the launch; on a CPU tensor, and only
-there, it runs ``mixer_epilogue_plain``, the same math in plain PyTorch,
-which is also what the kernel is held against on the card.
+on the current stream and counts the launch, under ``mixer_epilogue`` or,
+for the serving body, ``mixer_epilogue_serving``; on a CPU tensor, and only
+there, it runs ``mixer_epilogue_plain`` or ``mixer_epilogue_serving_plain``,
+the same math in plain PyTorch, which is also what the kernel is held
+against on the card. ``mixer_epilogue_serving_stages`` returns the serving
+body's gated rows beside its output, for the stage-by-stage check of
+``utils/serving_check.py``.
 
-Shapes: y (B, 4, H, W, d_inner) and z (B, H, W, d_inner) contiguous, gates
-(B, 4, d_inner), ln_w and ln_b (d_inner,), ``w_out`` (d_model, d_inner) (an
-``nn.Linear`` weight). Returns (B, H, W, d_model).
+Shapes: y (B, 4, H, W, d_inner) and z (B, H, W, d_inner) contiguous,
+float32 or, serving, bf16; gates (B, 4, d_inner), ln_w and ln_b
+(d_inner,), ``w_out`` (d_model, d_inner) (an ``nn.Linear`` weight), all
+float32. Returns (B, H, W, d_model) float32. The serving kernel rounds
+W_out on its way to the tensor cores, so no bf16 weight copy is made.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from tpuir_torch.ops import _kernels
+from tpuir_torch.utils.misc import bf16_rounded
 
 MAX_INNER = 1024  # 32 channels a lane at most in the per-pixel warp
 
@@ -36,11 +49,14 @@ def padded_inner(di: int) -> int:
     return -(-di // 4) * 4
 
 
-def _check(y, gates, z, ln_w, ln_b, w_out) -> None:
+def _check(y, gates, z, ln_w, ln_b, w_out, serving: bool) -> None:
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mixer_epilogue: unsupported device {y.device}")
-    if y.dtype != torch.float32:
-        raise TypeError(f"mixer_epilogue: float32 only, got {y.dtype}")
+    io = torch.bfloat16 if serving else torch.float32
+    if y.dtype != io or z.dtype != io:
+        mode = "serving" if serving else "parity"
+        raise TypeError(f"mixer_epilogue: y and z must be {io} in {mode} mode, "
+                        f"got {y.dtype}, {z.dtype}")
     if y.dim() != 5 or y.shape[1] != 4:
         raise ValueError(f"mixer_epilogue: y must be (B, 4, H, W, d), got {tuple(y.shape)}")
     B, _, H, W, di = y.shape
@@ -52,8 +68,9 @@ def _check(y, gates, z, ln_w, ln_b, w_out) -> None:
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"mixer_epilogue: {name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32 or t.device != y.device or not t.is_contiguous():
-            raise ValueError(f"mixer_epilogue: {name} must be contiguous float32 on {y.device}")
+        dtype = io if name in ("y", "z") else torch.float32
+        if t.dtype != dtype or t.device != y.device or not t.is_contiguous():
+            raise ValueError(f"mixer_epilogue: {name} must be contiguous {dtype} on {y.device}")
 
 
 def mixer_epilogue_plain(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
@@ -69,13 +86,44 @@ def mixer_epilogue_plain(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
     return F.linear(sn * F.silu(z), w_out)
 
 
-def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: torch.Tensor,
-                   ln_b: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Forward only, float32 only."""
-    _check(y, gates, z, ln_w, ln_b, w_out)
-    if y.device.type == "cpu":
-        return mixer_epilogue_plain(y, gates, z, ln_w, ln_b, w_out)
+def gated_rows_serving(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
+                       ln_w: torch.Tensor, ln_b: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The serving body's gated rows in ``dtype`` (float32; float64 for a
+    reference), as ``tpuir/ops/nss_epilogue.py:_forward(serving=True)``
+    computes them: s = y0 g0 + y1 g1 + y2 g2 + y3 g3 of the widened y, the
+    one-pass variance max(E[s^2] - mu^2, 0), (s - mu) rsqrt(var + 1e-5)
+    ln_w + ln_b, times z sigmoid(z) of the widened z. (B, H, W, d_inner)."""
+    yw, g = y.to(dtype), gates.to(dtype)[:, :, None, None, :]
+    s = yw[:, 0] * g[:, 0] + yw[:, 1] * g[:, 1] + yw[:, 2] * g[:, 2] + yw[:, 3] * g[:, 3]
+    mu = s.mean(-1, keepdim=True)
+    var = ((s * s).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    sn = (s - mu) * torch.rsqrt(var + 1e-5) * ln_w.to(dtype) + ln_b.to(dtype)
+    return sn * F.silu(z.to(dtype))
+
+
+def epilogue_serving_values(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
+                            ln_w: torch.Tensor, ln_b: torch.Tensor,
+                            w_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The serving body in plain float32 PyTorch, stage by stage: ``gated``
+    (B, H, W, padded_inner(d_inner)), zero-padded as the kernel's scratch,
+    and ``out`` = bf16(gated) . bf16(W_out)^T summed in float32."""
+    gated = gated_rows_serving(y, gates, z, ln_w, ln_b)
+    out = F.linear(bf16_rounded(gated), bf16_rounded(w_out))
+    return {"gated": F.pad(gated, (0, padded_inner(gated.shape[-1]) - gated.shape[-1])),
+            "out": out}
+
+
+def mixer_epilogue_serving_plain(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
+                                 ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                 w_out: torch.Tensor) -> torch.Tensor:
+    """The serving body in plain PyTorch: y and z bf16, a float32 output. On
+    a card, turn TF32 off first for a float32 reference."""
+    return epilogue_serving_values(y, gates, z, ln_w, ln_b, w_out)["out"]
+
+
+def _launch(y, gates, z, ln_w, ln_b, w_out, serving: bool) -> Dict[str, torch.Tensor]:
+    """One launch of a body on y's card: {gated, out}."""
     params = (y, gates, z, ln_w, ln_b, w_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         raise RuntimeError("mixer_epilogue: the CUDA kernel has no backward")
@@ -83,15 +131,40 @@ def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: 
     dm = w_out.shape[0]
     dp = padded_inner(di)
     lib = _kernels.library()
+    fn = lib.tpuir_mixer_epilogue_bf16 if serving else lib.tpuir_mixer_epilogue_f32
     with torch.cuda.device(y.device):
         gated = torch.empty(B, H, W, dp, device=y.device, dtype=torch.float32)
         w_pad = torch.empty(dm, dp, device=y.device, dtype=torch.float32)
         out = torch.empty(B, H, W, dm, device=y.device, dtype=torch.float32)
-        err = lib.tpuir_mixer_epilogue_f32(
-            y.data_ptr(), gates.data_ptr(), z.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-            w_out.data_ptr(), gated.data_ptr(), w_pad.data_ptr(), out.data_ptr(), B, H * W, di,
-            dm, torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    _kernels.check(err, "mixer_epilogue")
-    _kernels.LAUNCHES["mixer_epilogue"] += 1
+        err = fn(y.data_ptr(), gates.data_ptr(), z.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                 w_out.data_ptr(), gated.data_ptr(), w_pad.data_ptr(), out.data_ptr(), B, H * W,
+                 di, dm, torch.cuda.current_stream(y.device).cuda_stream)
+    _kernels.check(err, "mixer_epilogue_serving" if serving else "mixer_epilogue")
+    return {"gated": gated, "out": out}
+
+
+def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: torch.Tensor,
+                   ln_b: torch.Tensor, w_out: torch.Tensor, serving: bool = False) -> torch.Tensor:
+    """The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
+    Forward only; y and z float32 or, with ``serving``, bf16; a float32
+    output."""
+    _check(y, gates, z, ln_w, ln_b, w_out, serving)
+    if y.device.type == "cpu":
+        plain = mixer_epilogue_serving_plain if serving else mixer_epilogue_plain
+        return plain(y, gates, z, ln_w, ln_b, w_out)
+    out = _launch(y, gates, z, ln_w, ln_b, w_out, serving)["out"]
+    _kernels.LAUNCHES["mixer_epilogue_serving" if serving else "mixer_epilogue"] += 1
     return out
+
+
+def mixer_epilogue_serving_stages(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
+                                  ln_w: torch.Tensor, ln_b: torch.Tensor,
+                                  w_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The serving kernel's output and its gated rows from one launch on y's
+    card, for a check (``utils/serving_check.py``); counts no launch:
+    ``gated`` (B, H, W, padded_inner(d_inner)) float32 and ``out``. On a CPU
+    tensor, and only there, the same stages of the plain version."""
+    _check(y, gates, z, ln_w, ln_b, w_out, True)
+    if y.device.type == "cpu":
+        return epilogue_serving_values(y, gates, z, ln_w, ln_b, w_out)
+    return _launch(y, gates, z, ln_w, ln_b, w_out, True)

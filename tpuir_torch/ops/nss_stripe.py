@@ -2,7 +2,11 @@
 
 The counterpart of ``tpuir/ops/nss_stripe.py`` (``nss_scan_stripe_pre`` and
 ``nss_scan_stripe``, square and rectangular tiles). The kernel is
-``tpuir_torch/csrc/nss_scan.cu``; its source note gives the math, what
+``tpuir_torch/csrc/nss_scan.cu``, in its two bodies: float32 parity
+(``tpuir_nss_scan_f32``) and serving (``tpuir_nss_scan_bf16``, the TPU
+kernel with ``serving=True``: bf16 x and y, x_proj and dt_proj of
+bf16-rounded operands summed in float32, B, C and the scan in float32,
+pooled summed from the float32 y); its source note gives the math, what
 bounds it on the card and what the design does about that. It reads x
 through the NSS id table of ``ops/scan_ids.py`` and writes y to each path
 position's image pixel, so it returns y directly in image layout: there are
@@ -10,39 +14,47 @@ no half-block buffers to recombine.
 
 ``nss_scan`` is the wrapper: it checks its inputs and raises on anything
 the kernel does not take. On a CUDA tensor it launches the kernel on the
-current stream and counts the launch; on a CPU tensor, and only there, it
+current stream and counts the launch, under ``nss_scan`` or, for the
+serving body, ``nss_scan_serving``; on a CPU tensor, and only there, it
 runs ``nss_scan_plain``, the port of ``tpuir/ops/nss_stripe.py:_reference``
 (gather by scan ids, the two projections, softplus, the plain chunked scan,
-D*x, pooled sums, inverse gather), which is also what the kernel is held
-against on the card.
+D*x, pooled sums, inverse gather), or ``nss_scan_serving_plain``, which are
+also what the kernel is held against on the card. ``nss_scan_serving_stages``
+returns the serving body's scratch x_dbl beside its outputs, for the
+stage-by-stage check of ``utils/serving_check.py``.
 
-x is (B, H, W, d) contiguous. Weights as the released checkpoints keep
-them: ``x_proj_w`` (4, R + 2N, d), ``dt_w`` (4, d, R), ``D`` and
-``delta_bias`` (4, d); ``A`` (4, d, N) is already -exp(A_logs).
+x is (B, H, W, d) contiguous, float32 or, serving, bf16. Weights are
+float32 as the released checkpoints keep them: ``x_proj_w`` (4, R + 2N, d),
+``dt_w`` (4, d, R), ``D`` and ``delta_bias`` (4, d); ``A`` (4, d, N) is
+already -exp(A_logs). The serving kernel rounds W_xp and W_dt where it
+loads them, so no bf16 weight copy is made.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.scan_ids import mair_scan_ids, scan_ids_tensor
 from tpuir_torch.ops.selective_scan import selective_scan
+from tpuir_torch.utils.misc import bf16_rounded
 
 MAX_STATE = 32  # the kernel keeps a channel's states in registers (8, 16 or 32 of them)
 MAX_RANK = 64   # dt rank R: W_dt is staged in shared memory
 
 
-def check_scan_weights(fn: str, x, x_proj_w, dt_w, A, D, delta_bias) -> Tuple[int, int]:
-    """Validate x's device and dtype and the four directions' scan weights
-    against x's last (channel) dimension, for the wrapper named ``fn`` (K2,
-    K3, K5); return (N, R)."""
+def check_scan_weights(fn: str, x, x_proj_w, dt_w, A, D, delta_bias,
+                       x_dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """Validate x's device and dtype (``x_dtype``: bf16 for K2's serving
+    body) and the four directions' float32 scan weights against x's last
+    (channel) dimension, for the wrapper named ``fn`` (K2, K3, K5); return
+    (N, R)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{fn}: float32 only, got {x.dtype}")
+    if x.dtype != x_dtype:
+        raise TypeError(f"{fn}: x must be {x_dtype}, got {x.dtype}")
     d = x.shape[-1]
     N = A.shape[-1]
     R = x_proj_w.shape[1] - 2 * N
@@ -58,7 +70,8 @@ def check_scan_weights(fn: str, x, x_proj_w, dt_w, A, D, delta_bias) -> Tuple[in
     return N, R
 
 
-def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int) -> Tuple[int, int]:
+def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int,
+           serving: bool) -> Tuple[int, int]:
     """Validate the inputs; return (N, R)."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"nss_scan: x must be contiguous (B, H, W, d), got {tuple(x.shape)}")
@@ -68,7 +81,8 @@ def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int) -> Tuple[int, int
             f"nss_scan: H and W must be multiples of scan_len (a multiple of 4); got "
             f"{H}x{W}, scan_len {scan_len}. Other shapes take K3 "
             f"(ops/scan_fused_proj.py) on gathered sequences")
-    return check_scan_weights("nss_scan", x, x_proj_w, dt_w, A, D, delta_bias)
+    return check_scan_weights("nss_scan", x, x_proj_w, dt_w, A, D, delta_bias,
+                              torch.bfloat16 if serving else torch.float32)
 
 
 def nss_scan_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
@@ -94,33 +108,104 @@ def nss_scan_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
     return yimg.reshape(B, 4, H, W, d), pooled
 
 
-def nss_scan(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor, A: torch.Tensor,
-             D: torch.Tensor, delta_bias: torch.Tensor, scan_len: int = 4,
-             shift: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, pooled): the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor. ``shift`` takes the shifted NSS table (lead stripe of width
-    scan_len / 2). Forward only, float32 only."""
-    N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len)
-    if x.device.type == "cpu":
-        return nss_scan_plain(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
+def scan_from_xdbl(x: torch.Tensor, xdbl: torch.Tensor, dt_w: torch.Tensor, A: torch.Tensor,
+                   D: torch.Tensor, delta_bias: torch.Tensor, H: int, W: int, scan_len: int,
+                   shift: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The serving body's scan from its x_dbl, in xdbl's dtype: dt =
+    softplus(bf16(x_dbl[:R]) . bf16(W_dt)^T + bias), B and C the unrounded
+    columns of x_dbl, then the chunked scan and D*x. x (B, L, d) widened,
+    xdbl (B, L, 4, R + 2N) pixel-major as the kernel's scratch. Returns (y
+    (B, 4, H, W, d) unrounded, in image layout; pooled (B, 4, d), the sum of
+    y over the path)."""
+    B, L, d = x.shape
+    N = A.shape[-1]
+    R = xdbl.shape[-1] - 2 * N
+    ids, inv = (torch.from_numpy(a).long().to(x.device)
+                for a in mair_scan_ids(H, W, scan_len, scan_len // 2 if shift else 0))
+    xs = x[:, ids]  # (B, 4, L, d), sequence order
+    xd = torch.stack([xdbl[:, ids[k], k] for k in range(4)], 1)  # (B, 4, L, C)
+    dts = torch.einsum("bklr,kdr->bkld", bf16_rounded(xd[..., :R]), bf16_rounded(dt_w.to(xd.dtype)))
+    y = selective_scan(xs, dts, A, xd[..., R:R + N], xd[..., R + N:], D, delta_bias,
+                       delta_softplus=True, chunk=256, dtype=xdbl.dtype)
+    yimg = torch.stack([y[:, k, inv[k]] for k in range(4)], 1)
+    return yimg.reshape(B, 4, H, W, d), y.sum(2)
+
+
+def scan_serving_values(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                        A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                        scan_len: int = 4, shift: bool = False) -> Dict[str, torch.Tensor]:
+    """The serving body in plain float32 PyTorch, stage by stage as
+    ``tpuir/ops/nss_stripe.py:_forward_core(serving=True)`` computes it:
+    ``x_dbl`` = bf16(x) . bf16(W_xp)^T summed in float32 (B, L, 4, C), then
+    ``scan_from_xdbl``; ``y`` (B, 4, H, W, d) rounded to bf16, ``pooled``
+    the float32 sum of the unrounded y."""
+    B, H, W, d = x.shape
+    xw = x.reshape(B, H * W, d).float()
+    xdbl = torch.einsum("bld,kcd->blkc", xw, bf16_rounded(x_proj_w)).contiguous()
+    y, pooled = scan_from_xdbl(xw, xdbl, dt_w, A, D, delta_bias, H, W, scan_len, shift)
+    return {"x_dbl": xdbl, "y": y.to(torch.bfloat16), "pooled": pooled}
+
+
+def nss_scan_serving_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                           A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                           scan_len: int = 4, shift: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, 4, H, W, d) bf16 in image layout, pooled (B, 4, d) float32):
+    the serving body in plain PyTorch. On a card, turn TF32 off first for a
+    float32 reference."""
+    st = scan_serving_values(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
+    return st["y"], st["pooled"]
+
+
+def _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R,
+            serving) -> Dict[str, torch.Tensor]:
+    """One launch of a body on x's card: {x_dbl, y, pooled}."""
     params = (x, x_proj_w, dt_w, A, D, delta_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         raise RuntimeError("nss_scan: the CUDA kernel has no backward")
     B, H, W, d = x.shape
     L = H * W
     lib = _kernels.library()
+    fn = lib.tpuir_nss_scan_bf16 if serving else lib.tpuir_nss_scan_f32
     with torch.cuda.device(x.device):
         ids = scan_ids_tensor(H, W, scan_len, scan_len // 2 if shift else 0, x.device)
-        y = torch.empty(B, 4, H, W, d, device=x.device, dtype=torch.float32)
+        y = torch.empty(B, 4, H, W, d, device=x.device, dtype=x.dtype)
         pooled = torch.empty(B, 4, d, device=x.device, dtype=torch.float32)
         scratch = torch.empty(lib.tpuir_nss_scan_scratch_numel(B, L, d, N, R),
                               device=x.device, dtype=torch.float32)
-        err = lib.tpuir_nss_scan_f32(
-            x.data_ptr(), ids.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(), A.data_ptr(),
-            D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(), pooled.data_ptr(),
-            scratch.data_ptr(), B, L, d, N, R,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _kernels.check(err, "nss_scan")
-    _kernels.LAUNCHES["nss_scan"] += 1
-    return y, pooled
+        err = fn(x.data_ptr(), ids.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(), A.data_ptr(),
+                 D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(), pooled.data_ptr(),
+                 scratch.data_ptr(), B, L, d, N, R,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "nss_scan_serving" if serving else "nss_scan")
+    xdbl = scratch[:B * L * 4 * (R + 2 * N)].view(B, L, 4, R + 2 * N)
+    return {"x_dbl": xdbl, "y": y, "pooled": pooled}
+
+
+def nss_scan(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor, A: torch.Tensor,
+             D: torch.Tensor, delta_bias: torch.Tensor, scan_len: int = 4,
+             shift: bool = False, serving: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, pooled): the CUDA kernel on a CUDA tensor, the plain version on a
+    CPU tensor. ``shift`` takes the shifted NSS table (lead stripe of width
+    scan_len / 2). Forward only; x and y float32 or, with ``serving``, bf16;
+    pooled float32."""
+    N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, serving)
+    if x.device.type == "cpu":
+        plain = nss_scan_serving_plain if serving else nss_scan_plain
+        return plain(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
+    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, serving)
+    _kernels.LAUNCHES["nss_scan_serving" if serving else "nss_scan"] += 1
+    return out["y"], out["pooled"]
+
+
+def nss_scan_serving_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                            A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                            scan_len: int = 4, shift: bool = False) -> Dict[str, torch.Tensor]:
+    """The serving kernel's outputs and its scratch from one launch on x's
+    card, for a check (``utils/serving_check.py``); counts no launch:
+    ``x_dbl`` (B, L, 4, R + 2N) float32, ``y`` (bf16) and ``pooled``. On a
+    CPU tensor, and only there, the same stages of the plain version."""
+    N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, True)
+    if x.device.type == "cpu":
+        return scan_serving_values(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
+    return _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, True)

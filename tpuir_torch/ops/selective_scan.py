@@ -11,9 +11,9 @@ The recurrence is first-order linear, so inside a chunk it is an inclusive
 scan under the combine (a2, b2) o (a1, b1) = (a2*a1, a2*b1 + b2), taken
 here in log2(chunk) Hillis-Steele steps; an outer loop over chunks carries
 h. A position-by-position loop would be the same math at L times the
-launches. All math is float32. ``selective_scan`` is the plain version
-that the scan kernels (K2, K3, K5) are held against through their own
-plain versions, and the plain version of K4.
+launches. All math is float32 (float64 for a reference). ``selective_scan``
+is the plain version that the scan kernels (K2, K3, K5) are held against
+through their own plain versions, and the plain version of K4.
 
 ``selective_scan_kernel`` is K4's wrapper, the counterpart of
 ``tpuir/ops/scan_pallas.py:selective_scan_pallas`` (mamba_ssm's
@@ -64,16 +64,18 @@ def selective_scan(
     delta_bias: Optional[torch.Tensor] = None,  # (K, D)
     delta_softplus: bool = True,
     chunk: int = 256,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Batched over (B, K) directions. Returns y: (B, K, L, D) float32."""
-    u = u.float()
-    dt = delta.float()
+    """Batched over (B, K) directions. Returns y: (B, K, L, D) in ``dtype``
+    (float32; float64 for a reference)."""
+    u = u.to(dtype)
+    dt = delta.to(dtype)
     if delta_bias is not None:
-        dt = dt + delta_bias.float()[None, :, None, :]
+        dt = dt + delta_bias.to(dtype)[None, :, None, :]
     if delta_softplus:
         dt = softplus(dt)
-    A = A.float()[None, :, None]  # (1, K, 1, D, N)
-    Bmat, Cmat = Bmat.float(), Cmat.float()
+    A = A.to(dtype)[None, :, None]  # (1, K, 1, D, N)
+    Bmat, Cmat = Bmat.to(dtype), Cmat.to(dtype)
     nb, nk, L, d = u.shape
     h = u.new_zeros(nb, nk, d, A.shape[-1])
     ys = []
@@ -88,7 +90,7 @@ def selective_scan(
         h = hs[:, :, -1]
     y = torch.cat(ys, 2)
     if D is not None:
-        y = y + D.float()[None, :, None, :] * u
+        y = y + D.to(dtype)[None, :, None, :] * u
     return y
 
 

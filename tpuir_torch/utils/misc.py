@@ -16,3 +16,9 @@ def param_count(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
     """
     tensors = params.parameters() if isinstance(params, nn.Module) else params.values()
     return int(sum(t.numel() for t in tensors))
+
+
+def bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest even), in t's dtype: a serving body's
+    product operand, as the JAX kernels' ``astype(bfloat16)`` rounds it."""
+    return t.to(torch.bfloat16).to(t.dtype)

@@ -17,9 +17,10 @@ batch size on the card: full released width and depth, weights drawn from
 a seed, every mixer through its kernels as the zoo builds it on the
 ``--nss`` route (``stripe``, the default: K6, K2 and K7; ``fused``: K5;
 ``0``: K3 everywhere; K3 on levels the others do not take), every
-Restormer block through K1, TF32 off as in the engine (Restormer under
-``--precision serving``: K1's serving body and bf16 convs, TF32 left at
-PyTorch's defaults, as the engine serves it). Per batch it prints
+Restormer block through K1, TF32 off as in the engine (under
+``--precision serving``, TF32 left at PyTorch's defaults, as the engine
+serves it: Restormer on K1's serving body and bf16 convs, MaIR-CDN on the
+serving bodies of K6, K2 and K7). Per batch it prints
 the forward's milliseconds (CUDA events), its device time by stage (for
 Restormer, K1's launches by kernel: the LayerNorm statistics, its four 1x1
 products on the GEMM core, the two depthwise convs, the Gram pass, its
@@ -41,8 +42,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 # Kernel-name fragments of the mixer kernels, by stage. K6's in_proj
-# (SplitXZ) and K7's out_proj (StoreOut) run on the tensor-core core, told
-# apart by their epilogue types; the x_proj of K2, K3 and K5 on the SIMT
+# (SplitXZ) and K7's out_proj (tc::StoreOut, which kernel names spell
+# tc::Store<float, float>) run on the tensor-core core, told apart by their
+# epilogue types; the x_proj of K2, K3 and K5 on the SIMT
 # GEMM (simt_gemm_nt_kernel); the scan passes' path type tells K2's
 # (ImageIdsPath) from K5's (StripePath). K3 packs its x_proj weight and
 # scans in one pass.
@@ -50,12 +52,13 @@ MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
     ("K2 scan passes", ("ImageIdsPath",)),
+    ("K2 serving scan passes", ("ImageIdsBf16Path",)),
     ("K5 scan passes", ("StripePath",)),
     ("K3 one-pass scan", ("seq_scan_kernel",)),
     ("K3 x_proj weight packing", ("pack_xproj_kernel",)),
     ("x_proj GEMMs (K2, K3, K5)", ("simt_gemm_nt_kernel",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
-    ("K7 out_proj GEMM", ("StoreOut",)),
+    ("K7 out_proj GEMM", ("tc::Store<float, float>",)),
     ("K7 out_proj weight padding", ("pad_weight_kernel",)),
 )
 # K1's launches (csrc/fused_block.cu), by kernel-name fragment: the products
@@ -161,7 +164,7 @@ def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe",
         net = restormer.Restormer(**RESTORMER_CONFIG, fused=True, serving=serving)
         net.load_state_dict(restormer.init_state_dict(RESTORMER_CONFIG, seed=seed))
     elif model == "mair":
-        net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss)
+        net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving)
         net.load_state_dict(mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
     else:
         net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, nss=nss)
@@ -214,13 +217,15 @@ def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
     """The forward breakdown described in the module docstring."""
     from tpuir_torch.core.engine import true_float32
 
-    if precision == "serving" and model != "restormer":
-        raise ValueError("serving precision is ported for Restormer only")
+    if precision == "serving" and model == "mairunet":
+        raise ValueError("serving precision is ported for Restormer and MaIR-CDN only")
     dev = torch.device("cuda")
     tile = TILES[model]
     net = _seeded_net(model, seed, dev, nss, serving=precision == "serving")
-    # the convs' shapes come from a parity net's forward (serving calls them as functions)
-    parity_net = net if precision == "parity" else _seeded_net(model, seed, dev, nss)
+    # the convs' shapes come from a parity net's forward (Restormer's serving
+    # forward calls them as functions, in bf16; MaIR's runs them as they are)
+    bf16_convs = precision == "serving" and model == "restormer"
+    parity_net = _seeded_net(model, seed, dev, nss) if bf16_convs else net
     gen = torch.Generator(device=dev).manual_seed(seed)
     res = {"card": torch.cuda.get_device_name(0), "model": model, "nss": nss, "tile": tile,
            "precision": precision, "batches": {}}
@@ -243,8 +248,8 @@ def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
             res["batches"][b] = {
                 "forward_ms": fwd_ms, "device_ms": total, "stages_ms": stages,
                 "top_kernels": [[k[:100], ms, n] for k, (ms, n) in top],
-                "convs": conv_times(parity_net, x, gen, torch.float32 if precision == "parity"
-                                    else torch.bfloat16),
+                "convs": conv_times(parity_net, x, gen,
+                                    torch.bfloat16 if bf16_convs else torch.float32),
             }
             del x, prof
     return res

@@ -1,7 +1,7 @@
 """Time the scan kernels (K2, K5, K3, K4) at the main paths' shapes.
 
     python tpuir_torch/utils/scan_bench.py [--tree DIR] [--iters 5] [--sass FILE]
-                                           [--kernels K2,K5,K3,K4] [--accuracy]
+                                           [--kernels K2,K5,K3,K4,K2s] [--accuracy]
 
 On the card, with CUDA events (one warm-up, then the mean of ``--iters``
 calls) on seeded, fan-in-scaled operands with TF32 off, it times K2
@@ -10,15 +10,18 @@ mean over both shifts) and at the five level shapes of MaIRUNet's 384x384
 tile at batch 8, with their calls a forward; K3
 (``selective_scan_fused_proj``) at the 481x321 request's two K3 levels
 (batch 2) and per forward chunk; K4 (``selective_scan_kernel``) at
-MaIR-CDN's shape and at MaIRUNet's latent. K2, K4 and K5 share their
-scan passes (``csrc/chunk_scan.cuh``). ``--kernels`` keeps only the ones it
-names.
+MaIR-CDN's shape and at MaIRUNet's latent; with ``K2s`` in ``--kernels``,
+K2's serving body (``nss_scan(..., serving=True)``, bf16 x) at
+MaIR-CDN@128, batch 8. K2, K4 and K5 share their scan passes
+(``csrc/chunk_scan.cuh``). ``--kernels`` keeps only the ones it names
+(default: all but K2s).
 
 ``--tree DIR`` imports ``tpuir_torch`` from another checkout (the parent
 commit unpacked under ``build/``, say) instead of this one, so that two
 trees can be timed in turns on one card, one process each. ``--sass FILE``
-prints, for each ``scan_chunk_kernel`` and ``seq_scan_kernel`` instance
-of the tree's kernel library, its SASS instruction count and its count of
+prints, for each ``scan_chunk_kernel``, ``seq_scan_kernel`` and
+``simt_gemm_nt_kernel`` instance of the tree's kernel library (in each
+source that instantiates it), its SASS instruction count and its count of
 each opcode of ``SASS_OPS`` (``cuobjdump -sass``), and writes the SASS of
 K2's two passes at d_state 16 and of K3's one-pass scan to FILE.
 
@@ -156,8 +159,9 @@ SASS_OPS = ("MUFU.EX2", "MUFU.LG2", "SHFL", "LDS", "STS", "BAR")
 
 
 def sass_counts(lib: str, out: str) -> dict:
-    """{scan kernel instance (``scan_chunk_kernel``, ``seq_scan_kernel``):
-    [instructions, then the count of each of SASS_OPS]} from ``cuobjdump
+    """{scan kernel instance (``scan_chunk_kernel``, ``seq_scan_kernel``,
+    and the x_proj GEMM's ``simt_gemm_nt_kernel``): [instructions, then the
+    count of each of SASS_OPS]} from ``cuobjdump
     -sass lib``; the SASS of K2's two passes at d_state 16 and of K3's
     one-pass scan is written to ``out``."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -167,7 +171,8 @@ def sass_counts(lib: str, out: str) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            kept_name = re.search("scan_chunk_kernel|seq_scan_kernel", m.group(1))
+            kept_name = re.search("scan_chunk_kernel|seq_scan_kernel|simt_gemm_nt_kernel",
+                                  m.group(1))
             name = m.group(1) if kept_name else None
             if name:
                 counts[name] = [0] * (1 + len(SASS_OPS))
@@ -188,7 +193,7 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--sass", help="write cuobjdump -sass of the library here")
     ap.add_argument("--kernels", default="K2,K5,K3,K4",
-                    help="comma-separated subset of K2,K5,K3,K4 to time")
+                    help="comma-separated subset of K2,K5,K3,K4,K2s to time")
     ap.add_argument("--accuracy", action="store_true",
                     help="K3 against its plain version and both against float64")
     args = ap.parse_args(argv)
@@ -259,11 +264,18 @@ def main(argv=None) -> int:
               if name in want]
     with torch.inference_mode(), true_float32():
         label, t, di, n, r = CDN
-        ops = scan_ops(8, t, t, di, n, r) if stripe else None
+        ops = scan_ops(8, t, t, di, n, r) if stripe else None  # (K2s makes its own)
         for name, fn in stripe:
             both = [timed(f"{name} {label} shift={s}", lambda s=s: fn(*ops, shift=bool(s)),
                           split=s == 0) for s in (0, 1)]
             res["ms"][f"{name} {label}"] = sum(both) / 2
+        if "K2s" in want:
+            ops = scan_ops(8, t, t, di, n, r)
+            ops = (ops[0].to(torch.bfloat16),) + ops[1:]
+            both = [timed(f"K2s {label} shift={s}",
+                          lambda s=s: nss_scan(*ops, shift=bool(s), serving=True), split=s == 0)
+                    for s in (0, 1)]
+            res["ms"][f"K2s {label}"] = sum(both) / 2
         del ops
         fwd = {name: 0.0 for name, _ in stripe}
         for label, t, di, n, r, calls in UNET_LEVELS if stripe else ():

@@ -1,4 +1,5 @@
-"""K1's serving body held stage by stage, with no cascade.
+"""The serving bodies held stage by stage, with no cascade: K1's, and the
+MaIR mixer's K6, K2 and K7.
 
 At Restormer's widths the serving body cannot be held to its plain version
 end to end: a float32 sum that differs in its last bit from another order's
@@ -25,6 +26,26 @@ kernel's own output of the stage before:
 ``serving_stage_values`` runs the same stage functions in float32, each on
 its own previous stage: the body in plain PyTorch with the kernel's sum
 orders, which the CPU tests hold against tpuir and against the checks.
+
+The mixer's three bodies (``check_prologue_serving``, ``check_scan_serving``,
+``check_epilogue_serving``) are held the same way, on the stages their
+wrappers' ``*_serving_stages`` entries return; none of their float32
+arithmetic decides a bf16 operand that a later stage of the same body
+reads back from the kernel, so nothing is emulated bit for bit:
+
+* K6: ``xpre`` (the x half of in_proj) and the z half against float64 sums
+  of bf16(h) . bf16(W_in); x against silu(dw3x3(xpre) + b) in float64 from
+  the kernel's own xpre; x and z (bf16) each the rounding of a value within
+  the product tolerance of its float64 reference;
+* K2: ``x_dbl`` against float64 sums of bf16(x) . bf16(W_xp); then the scan
+  in float64 from the kernel's own x_dbl (``ops/nss_stripe.scan_from_xdbl``:
+  dt from bf16(x_dbl[:R]) . bf16(W_dt), B and C unrounded), y (bf16) the
+  rounding of a value within the scan tolerance (SCAN_ATOL + SCAN_RTOL |ref|,
+  the JAX package's scan tolerance) of it, pooled within SCAN_ATOL +
+  SCAN_RTOL sum|y| of its float64 sum;
+* K7: the gated rows against float64 from the bf16 y and z (one-pass
+  variance), the output against float64 sums of bf16(gated) . bf16(W_out)
+  from the kernel's own gated rows.
 """
 
 from __future__ import annotations
@@ -35,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 ATOL, RTOL = 5e-5, 1e-4  # the GEMM core's card tolerance against float64
+SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # the JAX package's scan tolerance (tests/test_mair.py)
 GRAM_CHUNK = 256  # pixels a Gram partial (csrc/fused_block.cu kGramChunk)
 EPS = torch.tensor(1e-5, dtype=torch.float32).item()  # 1e-5f, as the kernel adds it
 
@@ -277,3 +299,80 @@ def check_serving_stages(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: 
                      f"{outside} values not the rounding of one within the tolerance; "
                      f"{flips} of {got.numel()} not bf16(float64 reference)"))
     return out
+
+
+# --- the MaIR mixer's serving bodies: K6, K2, K7 ---------------------------
+
+
+def _close(name: str, got: torch.Tensor, ref: torch.Tensor) -> Stage:
+    """A float32 stage within ATOL + RTOL |ref| of its float64 reference."""
+    r = _within(got, ref)
+    finite = bool(torch.isfinite(got).all().item())
+    return Stage(name, r <= 1.0 and finite, f"max {r:.3f} of the tolerance")
+
+
+def _rounded(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> Stage:
+    """A bf16 stage that must be the nearest-even rounding of some value
+    within atol + rtol |ref| of its float64 reference."""
+    tol = atol + rtol * ref.abs()
+    lo, hi = ((ref + s * tol).to(torch.bfloat16).double() for s in (-1, 1))
+    g = got.double()
+    outside = int(((g < lo) | (g > hi) | ~torch.isfinite(g)).sum().item())
+    flips = int((g != ref.to(torch.bfloat16).double()).sum().item())
+    return Stage(name, outside == 0, f"{outside} values not the rounding of one within the "
+                 f"tolerance; {flips} of {g.numel()} not bf16(float64 reference)")
+
+
+def check_prologue_serving(h: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor,
+                           conv_b: torch.Tensor, st: Mapping[str, torch.Tensor]) -> List[Stage]:
+    """K6's serving stages ``st`` (``ops/nss_prologue.mixer_prologue_serving_stages``)
+    against float64: in_proj's halves from bf16(h) . bf16(W_in), x from the
+    kernel's own xpre. h: the block's float32 LayerNorm output."""
+    f64 = torch.float64
+    di = conv_w.shape[0]
+    xz = _product(h, w_in, f64)
+    conv = _dwconv(st["xpre"].double(), conv_w) + conv_b.double()
+    return [_close("in_proj x half", st["xpre"], xz[..., :di]),
+            _rounded("x", st["x"], F.silu(conv), ATOL, RTOL),
+            _rounded("z", st["z"], xz[..., di:], ATOL, RTOL)]
+
+
+def check_scan_serving(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                       A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                       scan_len: int, shift: bool, st: Mapping[str, torch.Tensor]
+                       ) -> List[Stage]:
+    """K2's serving stages ``st`` (``ops/nss_stripe.nss_scan_serving_stages``)
+    against float64: x_dbl from bf16(x) . bf16(W_xp), then y and pooled from
+    the scan of the kernel's own x_dbl. x: the body's bf16 input."""
+    from tpuir_torch.ops.nss_stripe import scan_from_xdbl
+
+    B, H, W, d = x.shape
+    xw = x.reshape(B, H * W, d).double()
+    xdbl = torch.einsum("bld,kcd->blkc", xw, _bf16(x_proj_w, torch.float64))
+    y, pooled = scan_from_xdbl(xw, st["x_dbl"].double(), dt_w, A, D, delta_bias, H, W,
+                               scan_len, shift)
+    bound = SCAN_ATOL + SCAN_RTOL * y.abs().sum((2, 3))
+    err = (st["pooled"].double() - pooled).abs()
+    r = (err / bound).max().item()
+    finite = bool(torch.isfinite(st["pooled"]).all().item())
+    return [_close("x_dbl", st["x_dbl"], xdbl),
+            _rounded("y", st["y"], y, SCAN_ATOL, SCAN_RTOL),
+            Stage("pooled", r <= 1.0 and finite,
+                  f"max {r:.3f} of the tolerance (atol + rtol sum|y|)")]
+
+
+def check_epilogue_serving(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
+                           ln_w: torch.Tensor, ln_b: torch.Tensor, w_out: torch.Tensor,
+                           st: Mapping[str, torch.Tensor]) -> List[Stage]:
+    """K7's serving stages ``st`` (``ops/nss_epilogue.mixer_epilogue_serving_stages``)
+    against float64: the gated rows from the bf16 y and z, the output from
+    bf16 of the kernel's own gated rows. y, z: the body's bf16 inputs."""
+    from tpuir_torch.ops.nss_epilogue import gated_rows_serving
+
+    di = y.shape[-1]
+    gated = st["gated"]
+    pads = int((gated[..., di:] != 0).sum().item())
+    ref = gated_rows_serving(y, gates, z, ln_w, ln_b, torch.float64)
+    g = _close("gated rows", gated[..., :di], ref)
+    return [Stage(g.name, g.ok and pads == 0, f"{g.detail}, {pads} pad values not 0"),
+            _close("out_proj", st["out"], _product(gated[..., :di], w_out, torch.float64))]

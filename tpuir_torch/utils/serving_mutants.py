@@ -1,16 +1,30 @@
-"""Mutation controls for K1's serving check, on the card.
+"""Mutation controls for the serving checks, on the card.
 
-    python -m tpuir_torch.utils.serving_mutants [--dir DIR] [--jobs 4]
+    python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer] [--dir DIR] [--jobs 4]
 
 Copies ``tpuir_torch/`` once per mutant into DIR (default: a temporary
-directory, removed at the end), plants one fault in the copy's serving body (``csrc/``), builds
-the copy's kernels there and runs ``utils/serving_check.check_serving_stages``
-on its ``ops/fused_block.serving_stages`` at Restormer@256's level-3 and
-level-1 block shapes (batch 8, BiasFree), as ``chip_smoke.py`` phase 12
-builds them. The check must reject every mutant and accept the copy with
-no fault ("none"). One line a mutant (the stages that rejected it, with
-their numbers), then the verdict; exits 1 if a mutant is accepted or
-"none" rejected. The source of the checked tree is never changed.
+directory, removed at the end), plants one fault in the copy's serving
+body (``csrc/``), builds the copy's kernels there and runs the stage check
+of ``utils/serving_check.py`` on the copy's kernels:
+
+* ``K1`` (the default): ``check_serving_stages`` on
+  ``ops/fused_block.serving_stages`` at Restormer@256's level-3 and level-1
+  block shapes (batch 8, BiasFree), as ``chip_smoke.py`` phase 12 builds
+  them;
+* ``mixer``: the checks of K6's, K2's and K7's serving bodies
+  (``check_prologue_serving``, ``check_scan_serving``,
+  ``check_epilogue_serving``) on their ``*_serving_stages`` at MaIR-CDN's
+  widths (seeded weights of block 0), 128x128 at batch 2 (K2 shift off and
+  on) and the 96x72 tile at batch 1 (shift on), on inputs the plain
+  serving versions make.
+
+The check must reject every mutant of ``MUTANTS`` (``MIXER_MUTANTS``) and
+accept the copy with no fault ("none"). ``MIXER_REPORTED`` are faults whose
+verdict is printed, not required: rounding differences the stage checks'
+tolerances may not resolve. One line a mutant (the stages that rejected
+it, with their numbers; for a mixer mutant every stage's numbers), then the
+verdict; exits 1 if a required mutant is accepted or "none" rejected. The
+source of the checked tree is never changed.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FB, TC = "fused_block.cu", "tc_gemm.cuh"
+PRO, SCAN, EPI = "nss_prologue.cu", "chunk_scan.cuh", "nss_epilogue.cu"
 
 # mutant -> [(source under csrc/, text, its replacement)]; each text occurs once
 MUTANTS = {
@@ -62,8 +77,35 @@ MUTANTS = {
     ],
 }
 
+# the mixer's serving bodies (K6, K2, K7): faults the check must reject
+MIXER_MUTANTS = {
+    "none": [],
+    "K6 in_proj unrounded (h, W_in)": [(PRO, "return prologue<tc::Bf16>(",
+                                        "return prologue<tc::F32x3>(")],
+    "K2 x_proj W_xp unrounded": [
+        ("simt_gemm.cuh", "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
+    "K2 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
+    "K7 out_proj unrounded (gated rows, W_out)": [
+        (EPI, "epilogue<tc::Bf16, __nv_bfloat16, true>",
+         "epilogue<tc::F32x3, __nv_bfloat16, true>")],
+}
+# faults whose verdict is printed, not required
+MIXER_REPORTED = {
+    "K2 dt operands unrounded": [
+        (SCAN, "wdt_s[r * bw + tid] = kBf16Io<Path> ? scan_round_bf16(w) : w;",
+         "wdt_s[r * bw + tid] = w;"),
+        (SCAN, "xt[p * CS + j] = scan_round_bf16(xt[p * CS + j]);", "(void)xt;")],
+    "K2 pooled from the rounded y": [
+        (SCAN, "if (kImageRows<Path>) pool += out;",
+         "if (kImageRows<Path>) pool += kBf16Io<Path> ? scan_round_bf16(out) : out;")],
+    "K7 two-pass LayerNorm": [(EPI, "epilogue<tc::Bf16, __nv_bfloat16, true>",
+                               "epilogue<tc::Bf16, __nv_bfloat16, false>")],
+}
+
 # (label, H = W, C, heads): Restormer@256's level 3 and level 1, batch 8
 SHAPES = [("level3", 64, 192, 4), ("level1", 256, 48, 1)]
+# (label, B, H, W, K2's shifts): MaIR-CDN's mixer shapes
+MIXER_SHAPES = [("CDN@128 B=2", 2, 128, 128, (False, True)), ("96x72 B=1", 1, 96, 72, (True,))]
 
 _CHECK = r"""
 import json, sys
@@ -86,6 +128,47 @@ print(json.dumps(missed))
 """
 
 
+_MIXER_CHECK = r"""
+import json, sys
+import numpy as np, torch
+from tpuir_torch.ops import _kernels
+_kernels.build(); _kernels.library()
+from tpuir_torch import zoo
+from tpuir_torch.core.engine import true_float32
+from tpuir_torch.models.mair import init_state_dict
+from tpuir_torch.ops import nss_epilogue as ep, nss_prologue as pr, nss_stripe as sc
+from tpuir_torch.utils import serving_check as ck
+dev, res = torch.device("cuda", 0), {}
+cfg = zoo.MAIR_CDN_CONFIG
+pre = "layers.0.residual_group.blocks.0.self_attention."
+w = {k[len(pre):]: v.to(dev) for k, v in init_state_dict(cfg, seed=0).items() if k.startswith(pre)}
+di, n = w["in_proj.weight"].shape[0] // 2, w["A_logs"].shape[1]
+scan_w = dict(x_proj_w=w["x_proj_weight"], dt_w=w["dt_projs_weight"],
+              A=-torch.exp(w["A_logs"]).reshape(4, di, n), D=w["Ds"].reshape(4, di),
+              delta_bias=w["dt_projs_bias"])
+epi_w = dict(ln_w=w["out_norm.weight"], ln_b=w["out_norm.bias"], w_out=w["out_proj.weight"])
+def keep(label, verdicts):
+    res[label] = {v.name: [v.ok, v.detail] for v in verdicts}
+for label, b, hh, ww, shifts in json.loads(sys.argv[1]):
+    h = torch.from_numpy(np.random.RandomState(hh).randn(b, hh, ww, cfg["embed_dim"]).astype(
+        np.float32)).to(dev)
+    pro = (h, w["in_proj.weight"], w["conv2d.weight"], w["conv2d.bias"])
+    with torch.inference_mode(), true_float32():
+        st = pr.mixer_prologue_serving_stages(*pro)
+        keep(f"K6 {label}", ck.check_prologue_serving(*pro, st))
+        x, z = pr.mixer_prologue_serving_plain(*pro)
+        for shift in shifts:
+            st = sc.nss_scan_serving_stages(x, **scan_w, shift=shift)
+            keep(f"K2 {label} shift={int(shift)}",
+                 ck.check_scan_serving(x, **scan_w, scan_len=4, shift=shift, st=st))
+        y, pooled = sc.nss_scan_serving_plain(x, **scan_w, shift=shifts[-1])
+        gates = torch.sigmoid(pooled / (hh * ww)).contiguous()
+        keep(f"K7 {label}", ck.check_epilogue_serving(
+            y, gates, z, **epi_w, st=ep.mixer_epilogue_serving_stages(y, gates, z, **epi_w)))
+print(json.dumps(res))
+"""
+
+
 def plant(src_dir: str, edits) -> None:
     """Apply a mutant's edits to the copy of tpuir_torch at src_dir."""
     for name, old, new in edits:
@@ -98,37 +181,73 @@ def plant(src_dir: str, edits) -> None:
             f.write(text.replace(old, new))
 
 
-def _run(root: str, name: str) -> tuple:
+# bodies -> (required mutants, reported mutants, check script, its shapes)
+BODIES = {"K1": (MUTANTS, {}, _CHECK, SHAPES),
+          "mixer": (MIXER_MUTANTS, MIXER_REPORTED, _MIXER_CHECK, MIXER_SHAPES)}
+
+
+def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
     d = os.path.join(root, "".join(c if c.isalnum() else "_" for c in name))
     shutil.copytree(_PKG, os.path.join(d, "tpuir_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    plant(os.path.join(d, "tpuir_torch"), MUTANTS[name])
-    r = subprocess.run([sys.executable, "-c", _CHECK, json.dumps(SHAPES)], cwd=d,
+    plant(os.path.join(d, "tpuir_torch"), edits)
+    r = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=d,
                        capture_output=True, text=True)
     if r.returncode:
         return name, None, r.stderr[-2000:]
     return name, json.loads(r.stdout.strip().splitlines()[-1]), ""
 
 
+def _rejected(res: dict) -> bool:
+    """Whether a check script's result rejects: K1's lists the stages that
+    missed a shape; the mixer's gives every stage's [ok, detail]."""
+    return any(not v[0] if isinstance(v, list) else True
+               for stages in res.values() for v in stages.values())
+
+
+def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
+    """Build and check every mutant of ``bodies`` (each in its own copy under
+    ``root``, default a temporary directory), printing one line each.
+    Returns {mutant: rejected (bool), or None if its copy did not build or
+    run}."""
+    required, reported, script, shapes = BODIES[bodies]
+    mutants = {**required, **reported}
+    with tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_") as tmp:
+        with ThreadPoolExecutor(jobs) as ex:
+            runs = ex.map(lambda n: _run(root or tmp, n, mutants[n], script, shapes), mutants)
+            verdicts = {}
+            for name, res, err in runs:
+                if res is None:
+                    print(f"{name}: the copy did not build or run:\n{err}", flush=True)
+                    verdicts[name] = None
+                    continue
+                verdicts[name] = _rejected(res)
+                tag = " (reported)" if name in reported else ""
+                print(f"{name}{tag}: {'rejected' if verdicts[name] else 'accepted'} "
+                      f"{json.dumps(res)}", flush=True)
+    return verdicts
+
+
+def failures(bodies: str, verdicts: dict) -> list:
+    """The mutants whose verdict is wrong: a required mutant accepted, "none"
+    rejected, or a copy that did not build or run."""
+    reported = BODIES[bodies][1]
+    return [n for n, rej in verdicts.items()
+            if rej is None or (n not in reported and rej == (n == "none"))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bodies", choices=tuple(BODIES), default="K1",
+                    help="K1's serving body, or the MaIR mixer's (K6, K2, K7)")
     ap.add_argument("--dir", default=None, help="where the copies go (default: a temp dir)")
     ap.add_argument("--jobs", type=int, default=4, help="copies built and checked at once")
     args = ap.parse_args()
-    with tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_") as tmp:
-        root = args.dir or tmp
-        bad = []
-        with ThreadPoolExecutor(args.jobs) as ex:
-            for name, missed, err in ex.map(lambda n: _run(root, n), MUTANTS):
-                if missed is None:
-                    print(f"{name}: the copy did not build or run:\n{err}", flush=True)
-                    bad.append(name)
-                    continue
-                print(f"{name}: {json.dumps(missed)}", flush=True)
-                if any(missed.values()) == (name == "none"):
-                    bad.append(name)
+    verdicts = run_mutants(args.bodies, args.dir, args.jobs)
+    bad = failures(args.bodies, verdicts)
+    n = len(BODIES[args.bodies][0]) - 1
     print("serving mutants: " + (f"FAILED {bad}" if bad else
-                                 f"the check rejects all {len(MUTANTS) - 1} mutants and "
+                                 f"the check rejects all {n} mutants and "
                                  f"accepts the unmutated copy"))
     return 1 if bad else 0
 

@@ -2,10 +2,11 @@
 
 The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
 (all 12 released configs, in parity and serving precision), MaIR-CDN
-(Gaussian color denoising, sigma 15, 25 and 50) and MaIRUNet (MaIR's real
-denoising and motion deblurring); the other families and MaIR's serving
-precision raise ``NotImplementedError`` naming the ROADMAP item that ports
-them. Checkpoints are the released
+(Gaussian color denoising, sigma 15, 25 and 50, in parity and serving
+precision) and MaIRUNet (MaIR's real denoising and motion deblurring); the
+other families, MaIRUNet's serving precision and MaIR serving off the
+stripe route raise ``NotImplementedError`` naming the ROADMAP item that
+ports them. Checkpoints are the released
 files, read with ``torch.load(..., weights_only=True)``; a missing file
 raises ``FileNotFoundError``, which the harness treats as "skip this cell".
 Models are built on the card unless the caller asks for another device.
@@ -25,7 +26,7 @@ from tpuir_torch.utils.misc import param_count
 
 def resolve_precision(precision: Optional[str] = None) -> str:
     """'parity' (default: true float32) or 'serving' (bf16 products and
-    activations where the JAX zoo takes them; Restormer only so far).
+    activations where the JAX zoo takes them; Restormer and MaIR-CDN so far).
     Defaults to the TPUIR_PRECISION environment variable."""
     p = precision or os.environ.get("TPUIR_PRECISION", "parity")
     if p not in ("parity", "serving"):
@@ -127,7 +128,13 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
     """The released MaIR-CDN for this sigma (Gaussian denoising) or MaIRUNet
     (real denoising, motion deblurring); every mixer through K6, K2 and K7
     (``nss`` "stripe", the default) or K5 ("fused"), or K3 on levels those
-    do not take (every level under "0"); see ``resolve_nss``."""
+    do not take (every level under "0"); see ``resolve_nss``.
+
+    ``precision="serving"`` builds MaIR-CDN with the serving bodies of K6,
+    K2 and K7 (``MaIR(serving=True)``, bf16 activations inside the mixers)
+    and ``compute_dtype="float32"``, as ``tpuir/zoo.py`` builds
+    ``MaIR(scan_io_dtype="bfloat16")``. It needs the stripe route: MaIRUNet's
+    serving waits for K3's serving body, the fused route for K5's."""
     from tpuir_torch.models import mair as m
     from tpuir_torch.models import mair_unet as mu
 
@@ -136,17 +143,22 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
         raise ValueError(f"no MaIR-CDN config for sigma={sigma}")
     if not gaussian and (task, subtask) not in MAIR_UNET_WEIGHTS:
         raise ValueError(f"no MaIR config for {task}/{subtask}")
-    if precision != "parity":
+    serving = resolve_precision(precision) == "serving"
+    nss = resolve_nss(nss)
+    if serving and not gaussian:
         raise NotImplementedError(
-            "MaIR's precision='serving' is not ported yet: ROADMAP Queue 2 A2, "
-            "'K6, K2 and K7 serving'"
-        )
+            "MaIRUNet's precision='serving' is not ported yet: ROADMAP Queue 2 A3, "
+            "'K3 serving' (its odd pyramid levels take K3)")
+    if serving and nss != "stripe":
+        item = "A4, 'K5 serving'" if nss == "fused" else "A3, 'K3 serving'"
+        raise NotImplementedError(
+            f"MaIR's precision='serving' with nss={nss!r} is not ported yet: ROADMAP "
+            f"Queue 2 {item}")
     rel = (os.path.join("denoising", f"MaIR_CDN_s{sigma}.pth") if gaussian
            else MAIR_UNET_WEIGHTS[(task, subtask)])
     sd = _load_sd(os.path.join(weights_dir, "MaIR", rel), key="params")
     device = torch.device(device)
-    nss = resolve_nss(nss)
-    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss) if gaussian
+    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving) if gaussian
            else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss))
     # keys the model does not hold (if a checkpoint carries any) are ignored,
     # as the JAX converter ignores them; a missing or misshapen one raises
@@ -158,6 +170,8 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
         name="MaIR", net=net, device=device,
         patch_size=pc["patch_size"], patch_overlap=pc["patch_overlap"],
         pad_factor=8, param_count=param_count(net),
+        # float32 at the engine boundary, no TF32 pin; bf16 lives inside the mixers
+        compute_dtype="float32" if serving else None,
     )
 
 
