@@ -118,6 +118,29 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     parity K6, K2 or K7, repeatable, within 2 uint8 LSB of the same path
     with plain serving mixers, PSNR within 0.05 dB of phase 5's parity
     outputs.
+14. MaIRUNet's serving precision and MaIR serving off the stripe route.
+    The serving bodies of K6, K2 and K7 at MaIRUNet's five level shapes of
+    a 384x384 tile (batch 8) and K2's at the 384x328 tile (batch 2), K3's
+    (``selective_scan_fused_proj`` with ``serving=True``) at the 481x321
+    request's 96x82 and 48x41 levels (batch 2), and K5's
+    (``nss_scan_fused`` with ``serving=True``) at MaIR-CDN@128 (batch 8,
+    shift off and on), the 96x72 tile and the 384x328 tile (batch 2), on
+    phase 6's and phase 8's seeded weights and activations (bf16 where a
+    body takes bf16): each held stage by stage (``utils/serving_check.py``:
+    K3's x_dbl and float32 y, K5's x_dbl, bf16 y01 and y23 and pooled), bit
+    for bit on repeat, timed beside its plain version; their mutation
+    controls (``utils/serving_mutants.py --bodies seq``); then, through the
+    zoo with ``precision="serving"`` on the seeded weights of phases 5 and
+    7, three rounds each: MaIRUNet on phase 7's 256x256, 481x321 and 120x90
+    inputs (44 launches a chunk each of the K6, K2 and K7 serving bodies
+    where every level is on K2; 24 of those and 20 of K3's otherwise; none
+    of a parity body), MaIR-CDN with ``nss="fused"`` on phase 5's requests
+    (36 K5 serving launches a chunk), MaIRUNet with ``nss="fused"`` on
+    481x321 (24 K5 and 20 K3 serving launches a chunk) and MaIR-CDN with
+    ``nss="0"`` on 96x72 (36 K3 serving launches a chunk): each repeatable,
+    within 2 uint8 LSB of the same path with plain serving mixers, PSNR
+    within 0.05 dB of the parity outputs of phase 5 or 7, engine Mpix/s
+    beside parity's.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -147,7 +170,9 @@ rest at 67 TFLOP/s. The MaIR mixer's serving bodies (K6, K2, K7 serving:
 per call at MaIR-CDN@128, batch 8; K2 the mean over both shifts) take the
 same ``bound_ms``: bf16 where the body moves bf16, their products at the
 bf16 rate, and for K2 also its exponentials, one a state update, at the
-special-function lanes' rate. The last line is ``{"ok": true, "device":
+special-function lanes' rate; so do K3 serving (per forward chunk of the
+481x321 request, as K3) and K5 serving (per call at MaIR-CDN@128, batch 8,
+the mean over both shifts). The last line is ``{"ok": true, "device":
 {...}}``. Any failed phase raises,
 exits non-zero and prints no last line; so does a machine without a CUDA
 card.
@@ -231,7 +256,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nss_scan_fused": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
     "selective_scan": ("tpuir_torch/csrc/selective_scan.cu", "tpuir/ops/scan_pallas.py:117"),
     "rate_probe": ("tpuir_torch/csrc/rate_probe.cu", "benchmarks/micro_vpu.py:60"),
-    # the same TPU kernels' serving bodies (K1: mm_bf16, fast_gelu; K6, K2, K7: serving=True)
+    # the same TPU kernels' serving bodies (K1: mm_bf16, fast_gelu; the others: serving=True)
     "fused_transformer_block_serving": ("tpuir_torch/csrc/fused_block.cu",
                                         "tpuir/ops/fused_block.py:338"),
     "mixer_prologue_serving": ("tpuir_torch/csrc/nss_prologue.cu",
@@ -239,6 +264,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nss_scan_serving": ("tpuir_torch/csrc/nss_scan.cu", "tpuir/ops/nss_stripe.py:484"),
     "mixer_epilogue_serving": ("tpuir_torch/csrc/nss_epilogue.cu",
                                "tpuir/ops/nss_epilogue.py:140"),
+    "selective_scan_fused_proj_serving": ("tpuir_torch/csrc/scan_fused_proj.cu",
+                                          "tpuir/ops/scan_pallas.py:340"),
+    "nss_scan_fused_serving": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
 }
 MIXER_SERVING = ("mixer_prologue_serving", "nss_scan_serving", "mixer_epilogue_serving")
 
@@ -985,11 +1013,12 @@ def phase_unet_kernels(device):
     return worst, rows, k3_row, k3_updates
 
 
-def unet_per_chunk(model, fused=False):
+def unet_per_chunk(model, fused=False, serving=False):
     """{kernel: launches a forward chunk} of MaIRUNet for an h x w request:
     each stage's blocks on K6, K2 and K7 (with ``fused``: on K5) where its
     level's H and W are multiples of scan_len 4 (so even), else on K3, as
-    the JAX module routes them (``tpuir/models/mair.py:196-213``)."""
+    the JAX module routes them (``tpuir/models/mair.py:196-213``); with
+    ``serving``, their serving bodies."""
     from tpuir_torch.core.tiling import tile_indices
 
     def per_chunk(h, w):
@@ -997,14 +1026,15 @@ def unet_per_chunk(model, fused=False):
         ph, pw = (-(-min(ps, s) // model.pad_factor) * model.pad_factor for s in (h, w))
         on_level = ("nss_scan_fused",) if fused else ("mixer_prologue", "nss_scan",
                                                       "mixer_epilogue")
-        out = dict.fromkeys(on_level + ("selective_scan_fused_proj",), 0)
+        suffix = "_serving" if serving else ""
+        out = {k + suffix: 0 for k in on_level + ("selective_scan_fused_proj",)}
         for stage, lvl in UNET_STAGES:
             n = len(getattr(model.net, stage))
             if (ph >> lvl) % 4 == 0 and (pw >> lvl) % 4 == 0:
                 for k in on_level:
-                    out[k] += n
+                    out[k + suffix] += n
             else:
-                out["selective_scan_fused_proj"] += n
+                out["selective_scan_fused_proj" + suffix] += n
         return out
 
     return per_chunk
@@ -1536,18 +1566,17 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
     return (worst, fwd_ms, fwd_plain_ms) + bound_bf16(fwd_bytes, fwd_gemm, fwd_other)
 
 
-def phase_serving_path(device, parity_rate, parity_outs, requests=REQUESTS):
+def phase_serving_path(device, parity_outs, requests=REQUESTS):
     """Serve Restormer through the zoo with ``precision="serving"`` on phase
     3's seeded weights and requests (host AWGN sigma 25), ROUNDS rounds: 44
     serving-body launches a chunk and no parity K1 launch, bit for bit on
     repeat, within SERVING_LSB of the same path with plain serving blocks,
     and within SERVING_PSNR_DB of phase 3's parity outputs ``parity_outs``
     ({(h, w): (output, ms)}) on every request; engine Mpix/s beside phase
-    3's ``parity_rate``. Returns {kernel: launches}."""
+    3's (``check_serving_path``). Returns {kernel: launches}."""
     import torch
 
     from tpuir_torch import zoo
-    from tpuir_torch.core.metrics import calculate_metrics
     from tpuir_torch.models.restormer import Restormer, init_state_dict
 
     with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
@@ -1560,28 +1589,49 @@ def phase_serving_path(device, parity_rate, parity_outs, requests=REQUESTS):
     print(f"serving path: Restormer color sigma={SIGMA}, precision=serving, compute_dtype "
           f"{model.compute_dtype}, patch {model.patch_size} batch {model.batch_size}", flush=True)
     clean = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
-    launches, outs = serve_kernel_rounds(
-        "Restormer serving", model, clean, requests,
-        lambda h, w: {"fused_transformer_block_serving": 44}, SIGMA)
-    plain = serve(plain_twin(model, Restormer(**CONFIG, fused=False, serving=True)), clean)
-    for (h, w), img, (pred, ms), (ppred, _, _, _) in zip(requests, clean, outs, plain):
-        psnr, ssim = calculate_metrics(pred, img)
+    return check_serving_path(
+        "Restormer serving", model, plain_twin(model, Restormer(**CONFIG, fused=False,
+                                                                serving=True)),
+        clean, requests, lambda h, w: {"fused_transformer_block_serving": 44}, SIGMA,
+        parity_outs)
+
+
+def check_serving_path(label, model, plain, images, sizes, per_chunk, sigma, parity_outs,
+                       refs=None):
+    """Serve ``images`` (of ``sizes``) through the serving ``model`` ROUNDS
+    times (``serve_kernel_rounds``: launches against ``per_chunk``, bit for
+    bit on repeat) and once through its plain twin ``plain``; with ``sigma``
+    the engine adds host AWGN, with None the images are served as they are,
+    scored against ``refs`` (default: the images). On every request the
+    serving output must lie within SERVING_LSB of the plain twin's, and its
+    PSNR within SERVING_PSNR_DB of the parity outputs ``parity_outs`` ({(h,
+    w): (output, ms)}); engine Mpix/s is printed beside parity's. Returns
+    {kernel: launches}."""
+    from tpuir_torch.core.metrics import calculate_metrics
+
+    refs = refs or images
+    launches, outs = serve_kernel_rounds(label, model, images, sizes, per_chunk, sigma, refs)
+    plain_outs = serve(plain, images, sigma, refs)
+    for (h, w), ref, (pred, ms), (ppred, _, _, _) in zip(sizes, refs, outs, plain_outs):
+        psnr, ssim = calculate_metrics(pred, ref)
         par_pred, par_ms = parity_outs[(h, w)]
-        par_psnr, par_ssim = calculate_metrics(par_pred, img)
+        par_psnr, par_ssim = calculate_metrics(par_pred, ref)
         diff = lsb(pred, ppred)
-        print(f"Restormer serving request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f} "
+        print(f"{label} request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f} "
               f"(parity {par_psnr:.4f} dB {par_ssim:.5f}, delta {psnr - par_psnr:+.4f} dB, "
               f"max|serving-parity| {lsb(pred, par_pred)} LSB)  serving {ms:.1f} ms "
               f"{h * w / 1e3 / ms:.3f} Mpix/s (parity {par_ms:.1f} ms)  max|kernel-plain| "
               f"{diff} LSB", flush=True)
         if diff > SERVING_LSB:
-            fail(f"the serving path and its plain-block twin differ by {diff} LSB on {h}x{w}")
+            fail(f"the {label} path and its plain twin differ by {diff} LSB on {h}x{w}")
         if abs(psnr - par_psnr) > SERVING_PSNR_DB:
-            fail(f"serving PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity on {h}x{w}")
-    mpix = sum(h * w for h, w in requests) / 1e6
+            fail(f"{label} PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity on "
+                 f"{h}x{w}")
+    mpix = sum(h * w for h, w in sizes) / 1e6
     rate = mpix / (sum(ms for _, ms in outs) / 1e3)
-    print(f"Restormer engine over the {len(requests)} requests ({mpix:.4f} Mpix): serving "
-          f"{rate:.3f} Mpix/s, parity {parity_rate['kernel']:.3f} Mpix/s", flush=True)
+    par_rate = mpix / (sum(parity_outs[hw][1] for hw in sizes) / 1e3)
+    print(f"{label} engine over the {len(sizes)} requests ({mpix:.4f} Mpix): serving "
+          f"{rate:.3f} Mpix/s, parity {par_rate:.3f} Mpix/s", flush=True)
     return launches
 
 
@@ -1614,6 +1664,106 @@ def serving_epilogue_work(px, di, dm, images):
             px * 2 * di * dm, px * (8 * di + 8 * di + 6 * di))
 
 
+def mixer_serving_bodies(pro, scan, epi, px, images, shifts=(False, True)):
+    """The serving bodies of K6, K2 (at each of ``shifts``) and K7 on the
+    operands ``mixer_operands`` makes (bf16 where a body takes bf16), for
+    ``check_serving_body``: (kernel name, short label, shift, stages, their
+    check, kernel, plain, the kernel's outputs among its stages, iterations
+    timed, plain's, work) each, ``px`` pixels over ``images`` images."""
+    import torch
+
+    from tpuir_torch.ops.nss_epilogue import (mixer_epilogue, mixer_epilogue_serving_plain,
+                                              mixer_epilogue_serving_stages)
+    from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_serving_plain,
+                                              mixer_prologue_serving_stages)
+    from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
+                                            nss_scan_serving_stages)
+    from tpuir_torch.utils import serving_check as ck
+
+    bf = torch.bfloat16
+    x = scan["x"].to(bf)
+    sw = {k: v for k, v in scan.items() if k != "x"}
+    y, z = epi["y"].to(bf), epi["z"].to(bf)
+    ew = {k: v for k, v in epi.items() if k not in ("y", "z")}
+    dm, di = pro[1].shape[1], pro[1].shape[0] // 2
+    n, r = sw["A"].shape[-1], sw["dt_w"].shape[-1]
+    bodies = [("mixer_prologue_serving", "K6s", None,
+               lambda: mixer_prologue_serving_stages(*pro),
+               lambda st: ck.check_prologue_serving(*pro, st),
+               lambda: mixer_prologue(*pro, serving=True),
+               lambda: mixer_prologue_serving_plain(*pro),
+               lambda st: (st["x"], st["z"]), ITERS, ITERS, serving_prologue_work(px, dm, di))]
+    for shift in shifts:
+        bodies.append((
+            "nss_scan_serving", "K2s", shift,
+            lambda shift=shift: nss_scan_serving_stages(x, **sw, shift=shift),
+            lambda st, shift=shift: ck.check_scan_serving(x, **sw, scan_len=4, shift=shift,
+                                                          st=st),
+            lambda shift=shift: nss_scan(x, **sw, shift=shift, serving=True),
+            lambda shift=shift: nss_scan_serving_plain(x, **sw, shift=shift),
+            lambda st: (st["y"], st["pooled"]), 3, 1, serving_scan_work(px, di, n, r)))
+    bodies.append(("mixer_epilogue_serving", "K7s", None,
+                   lambda: mixer_epilogue_serving_stages(y, z=z, **ew),
+                   lambda st: ck.check_epilogue_serving(y, z=z, **ew, st=st),
+                   lambda: mixer_epilogue(y, z=z, **ew, serving=True),
+                   lambda: mixer_epilogue_serving_plain(y, z=z, **ew),
+                   lambda st: st["out"], ITERS, ITERS, serving_epilogue_work(px, di, dm, images)))
+    return bodies
+
+
+def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITERS,
+                       plain_iters=ITERS, timing="turns"):
+    """One serving body held stage by stage: its stage entry ``stages()``
+    twice, bit for bit, the wrapper ``kern()``'s output the stages' ``outs``,
+    each stage within ``check`` (``utils/serving_check.py``); its output
+    against ``plain()`` (max|d|, and tpuir's criterion of two bf16 ulps)
+    printed for the record. ``timing``: "turns" (CUDA events, plain,
+    kernel, kernel, plain), "once" (the plain version timed once, the
+    kernel over ``iters``) or None. Prints one line and the stages, fails on
+    a miss. Returns (max |kernel - plain|, ms, plain ms, bound ms, bound by)
+    from ``work``'s ``bound_bf16``."""
+    import torch
+
+    st = {k: v.clone() for k, v in stages().items()}
+    again = stages()
+    got = kern()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(st[k], again[k]) for k in st) and all(
+        torch.equal(g, s) for g, s in zip(as_tuple(got), as_tuple(outs(st))))
+    del again
+    verdicts = check(st)
+    del st
+    want = []
+    t_plain = cuda_ms(lambda: want.append(plain()), 1)
+    max_err, ulps = 0.0, 0.0
+    for g, w in zip(as_tuple(got), as_tuple(want[0])):
+        max_err = max(max_err, (g.float() - w.float()).abs().max().item())
+        if g.dtype == torch.bfloat16:
+            ulps = max(ulps, ulp2_ratio(g.float(), w.float()))
+    del got, want
+    t_kern = None
+    if timing == "turns":
+        t_kern, t_plain = timed_pair(kern, plain, iters, plain_iters)
+    elif timing == "once":
+        t_kern = cuda_ms(kern, iters)
+    else:
+        t_plain = None
+    b_ms, b_by = bound_bf16(*work)
+    missed = [v.name for v in verdicts if not v.ok]
+    times = (f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms ({b_by})"
+             if timing else "(not timed)")
+    print(f"{label:30s} stages {'ok' if not missed else 'MISS'}; against plain max|d| "
+          f"{max_err:.3e}" + (f" ({ulps:.2f} x 2 bf16 ulps)" if ulps else "")
+          + f"; repeat {'bit for bit' if repeat else 'DIFFERS'}  {times}", flush=True)
+    for v in verdicts:
+        print(f"    {v.name:16s} {'ok  ' if v.ok else 'MISS'} {v.detail}", flush=True)
+    if missed:
+        fail(f"{label} misses its stage checks: {', '.join(missed)}")
+    if not repeat:
+        fail(f"{label} is not repeatable")
+    return max_err, t_kern, t_plain, b_ms, b_by
+
+
 def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72),
                                mutants=True):
     """The serving bodies of K6, K2 and K7 stage by stage, timed, and their
@@ -1636,19 +1786,10 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
 
     from tpuir_torch import zoo
     from tpuir_torch.core.engine import true_float32
-    from tpuir_torch.ops.nss_epilogue import (mixer_epilogue, mixer_epilogue_serving_plain,
-                                              mixer_epilogue_serving_stages)
-    from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_serving_plain,
-                                              mixer_prologue_serving_stages)
-    from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
-                                            nss_scan_serving_stages)
-    from tpuir_torch.utils import serving_check as ck
 
     cfg = zoo.MAIR_CDN_CONFIG
     dm = cfg["embed_dim"]
     di = int(cfg["ssm_ratio"] * dm)
-    n, r = cfg["d_state"], -(-dm // 16)
-    bf = torch.bfloat16
     res = {}
     with torch.inference_mode(), true_float32():
         px = batch * tile * tile
@@ -1659,108 +1800,57 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
         for b, hw, timed in ((batch, (tile, tile), True), (1, rect, False)):
             pro, scan, epi = mixer_inputs(device, b, hw)
             px = b * hw[0] * hw[1]
-            x = scan.pop("x").to(bf)
-            y, z = epi.pop("y").to(bf), epi.pop("z").to(bf)
-            # (name, label, shift, stages, their check, kernel, plain, the kernel's
-            # outputs among its stages, iterations timed, plain's, work)
-            bodies = [("mixer_prologue_serving", "K6s", None,
-                       lambda: mixer_prologue_serving_stages(*pro),
-                       lambda st: ck.check_prologue_serving(*pro, st),
-                       lambda: mixer_prologue(*pro, serving=True),
-                       lambda: mixer_prologue_serving_plain(*pro),
-                       lambda st: (st["x"], st["z"]), ITERS, ITERS,
-                       serving_prologue_work(px, dm, di))]
-            for shift in (False, True):
-                bodies.append((
-                    "nss_scan_serving", "K2s", shift,
-                    lambda shift=shift: nss_scan_serving_stages(x, **scan, shift=shift),
-                    lambda st, shift=shift: ck.check_scan_serving(x, **scan, scan_len=4,
-                                                                  shift=shift, st=st),
-                    lambda shift=shift: nss_scan(x, **scan, shift=shift, serving=True),
-                    lambda shift=shift: nss_scan_serving_plain(x, **scan, shift=shift),
-                    lambda st: (st["y"], st["pooled"]), 3, 1, serving_scan_work(px, di, n, r)))
-            bodies.append(("mixer_epilogue_serving", "K7s", None,
-                           lambda: mixer_epilogue_serving_stages(y, z=z, **epi),
-                           lambda st: ck.check_epilogue_serving(y, z=z, **epi, st=st),
-                           lambda: mixer_epilogue(y, z=z, **epi, serving=True),
-                           lambda: mixer_epilogue_serving_plain(y, z=z, **epi),
-                           lambda st: st["out"], ITERS, ITERS,
-                           serving_epilogue_work(px, di, dm, b)))
             for (name, short, shift, stages, check, kern, plain, outs, iters, plain_iters,
-                 work) in bodies:
-                st = {k: v.clone() for k, v in stages().items()}
-                again = stages()
-                got = kern()
-                torch.cuda.synchronize()
-                repeat = all(torch.equal(st[k], again[k]) for k in st) and all(
-                    torch.equal(g, s) for g, s in zip(as_tuple(got), as_tuple(outs(st))))
-                del again
-                verdicts = check(st)
-                del st
-                want = plain()
-                max_err, ulps = 0.0, 0.0
-                for g, w in zip(as_tuple(got), as_tuple(want)):
-                    max_err = max(max_err, (g.float() - w.float()).abs().max().item())
-                    if g.dtype == bf:
-                        ulps = max(ulps, ulp2_ratio(g.float(), w.float()))
-                del got, want
+                 work) in mixer_serving_bodies(pro, scan, epi, px, b):
                 label = (f"{short} B={b} {hw[0]}x{hw[1]}"
                          + (f" shift={int(shift)}" if shift is not None else ""))
-                missed = [v.name for v in verdicts if not v.ok]
-                t_kern = t_plain = None
-                b_ms, b_by = bound_bf16(*work)
-                if timed:
-                    t_kern, t_plain = timed_pair(kern, plain, iters, plain_iters)
-                times = (f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms "
-                         f"({b_by})" if timed else "(not timed)")
-                print(f"{label:26s} stages {'ok' if not missed else 'MISS'}; against plain "
-                      f"max|d| {max_err:.3e}" + (f" ({ulps:.2f} x 2 bf16 ulps)" if ulps else "")
-                      + f"; repeat {'bit for bit' if repeat else 'DIFFERS'}  {times}",
-                      flush=True)
-                for v in verdicts:
-                    print(f"    {v.name:16s} {'ok  ' if v.ok else 'MISS'} {v.detail}", flush=True)
-                if missed:
-                    fail(f"{label} misses its stage checks: {', '.join(missed)}")
-                if not repeat:
-                    fail(f"{label} is not repeatable")
+                row = check_serving_body(label, stages, check, kern, plain, outs, work, iters,
+                                         plain_iters, "turns" if timed else None)
                 prev = res.get(name)
                 if timed:
-                    row = (max_err, t_kern, t_plain, b_ms, b_by)
                     if prev and prev[1] is not None:  # K2: the mean over both shifts
-                        row = (max(prev[0], max_err), (prev[1] + t_kern) / 2,
-                               (prev[2] + t_plain) / 2, b_ms, b_by)
+                        row = (max(prev[0], row[0]), (prev[1] + row[1]) / 2,
+                               (prev[2] + row[2]) / 2) + row[3:]
                 else:
-                    row = (max(prev[0], max_err),) + prev[1:]
+                    row = (max(prev[0], row[0]),) + prev[1:]
                 res[name] = row
-            del pro, scan, epi, x, y, z, bodies
+            del pro, scan, epi
             torch.cuda.empty_cache()
     if mutants:
-        from tpuir_torch.utils.serving_mutants import failures, run_mutants
-
-        t0 = time.time()
-        verdicts = run_mutants("mixer")
-        bad = failures("mixer", verdicts)
-        print(f"mixer serving mutants ({time.time() - t0:.0f} s): "
-              + (f"FAILED {bad}" if bad else "every required mutant rejected, the unmutated "
-                 "copy accepted"), flush=True)
-        if bad:
-            fail(f"the mixer serving check's mutation controls failed: {bad}")
+        mutant_controls("mixer", jobs=8)
     return res
 
 
-def phase_mair_serving_path(device, parity_rate, parity_outs, requests=MAIR_REQUESTS):
+def mutant_controls(bodies, jobs):
+    """``utils/serving_mutants.run_mutants(bodies)``: each fault in its own
+    copy of ``tpuir_torch/``, built there from this tree's objects (only
+    the sources the fault reaches are recompiled), ``jobs`` copies at once;
+    fails if the check accepts a required mutant or rejects the unmutated
+    copy."""
+    from tpuir_torch.utils.serving_mutants import failures, run_mutants
+
+    t0 = time.time()
+    verdicts = run_mutants(bodies, jobs=jobs)
+    bad = failures(bodies, verdicts)
+    print(f"{bodies} serving mutants ({time.time() - t0:.0f} s): "
+          + (f"FAILED {bad}" if bad else "every required mutant rejected, the unmutated "
+             "copy accepted"), flush=True)
+    if bad:
+        fail(f"the {bodies} serving check's mutation controls failed: {bad}")
+
+
+def phase_mair_serving_path(device, parity_outs, requests=MAIR_REQUESTS):
     """Serve MaIR-CDN through the zoo with ``precision="serving"`` on phase
     5's seeded weights and requests (host AWGN sigma 25), ROUNDS rounds: 36
     launches a chunk of each serving body and none of the parity K6, K2 and
     K7, bit for bit on repeat, within SERVING_LSB of the same path with
     plain serving mixers, and within SERVING_PSNR_DB of phase 5's parity
     outputs ``parity_outs`` ({(h, w): (output, ms)}) on every request;
-    engine Mpix/s beside phase 5's ``parity_rate``. Returns {kernel:
-    launches}."""
+    engine Mpix/s beside phase 5's (``check_serving_path``). Returns
+    {kernel: launches}."""
     import torch
 
     from tpuir_torch import zoo
-    from tpuir_torch.core.metrics import calculate_metrics
     from tpuir_torch.models.mair import MaIR, init_state_dict
 
     with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
@@ -1772,30 +1862,223 @@ def phase_mair_serving_path(device, parity_rate, parity_outs, requests=MAIR_REQU
     print(f"serving path: MaIR-CDN sigma={SIGMA}, precision=serving, compute_dtype "
           f"{model.compute_dtype}, patch {model.patch_size} batch {model.batch_size}", flush=True)
     clean = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
-    launches, outs = serve_kernel_rounds(
-        "MaIR-CDN serving", model, clean, requests,
-        lambda h, w: dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS), SIGMA)
-    plain = serve(plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, serving=True)),
-                  clean)
-    for (h, w), img, (pred, ms), (ppred, _, _, _) in zip(requests, clean, outs, plain):
-        psnr, ssim = calculate_metrics(pred, img)
-        par_pred, par_ms = parity_outs[(h, w)]
-        par_psnr, par_ssim = calculate_metrics(par_pred, img)
-        diff = lsb(pred, ppred)
-        print(f"MaIR-CDN serving request {h}x{w}x3: PSNR {psnr:.4f} dB SSIM {ssim:.5f} "
-              f"(parity {par_psnr:.4f} dB {par_ssim:.5f}, delta {psnr - par_psnr:+.4f} dB, "
-              f"max|serving-parity| {lsb(pred, par_pred)} LSB)  serving {ms:.1f} ms "
-              f"{h * w / 1e3 / ms:.3f} Mpix/s (parity {par_ms:.1f} ms)  max|kernel-plain| "
-              f"{diff} LSB", flush=True)
-        if diff > SERVING_LSB:
-            fail(f"the MaIR-CDN serving path and its plain twin differ by {diff} LSB on {h}x{w}")
-        if abs(psnr - par_psnr) > SERVING_PSNR_DB:
-            fail(f"MaIR-CDN serving PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity "
-                 f"on {h}x{w}")
-    mpix = sum(h * w for h, w in requests) / 1e6
-    rate = mpix / (sum(ms for _, ms in outs) / 1e3)
-    print(f"MaIR-CDN engine over the {len(requests)} requests ({mpix:.4f} Mpix): serving "
-          f"{rate:.3f} Mpix/s, parity {parity_rate['kernel']:.3f} Mpix/s", flush=True)
+    return check_serving_path(
+        "MaIR-CDN serving", model,
+        plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, serving=True)), clean,
+        requests, lambda h, w: dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS), SIGMA, parity_outs)
+
+
+def serving_k3_work(seqs, L, di, n, r):
+    """K3 serving: (bytes, products, other operations, exponentials): bf16 xs
+    in, float32 y out, float32 weights; x_proj and dt_proj at the bf16
+    rate, the rest of ``k3_work`` at the float32 rate, one exp2 a state
+    update."""
+    c, pos = r + 2 * n, seqs * L
+    nbytes = 2 * pos * di + 4 * pos * di + 4 * 4 * (c * di + di * r + di * n + 2 * di)
+    return (nbytes, pos * (2 * c * di + 2 * r * di), pos * (4 * di + 7 * di * n + 2 * di),
+            pos * di * n)
+
+
+def serving_k5_work(px, di, n, r):
+    """K5 serving: ``serving_scan_work`` less the id table, which K5 does not read."""
+    nbytes, gemm, other, exps = serving_scan_work(px, di, n, r)
+    return nbytes - 4 * 4 * px, gemm, other, exps
+
+
+def phase_seq_serving_kernels(device, mutants=True, levels=UNET_LEVELS, rect=UNET_RECT,
+                              k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH):
+    """Phase 14's kernels: the serving bodies at MaIRUNet's widths and K3's
+    and K5's serving bodies, each stage by stage (``check_serving_body``),
+    bit for bit on repeat, timed beside its plain version; then their
+    mutation controls (``utils/serving_mutants.py --bodies seq``).
+
+    K6, K2 and K7 serving at MaIRUNet's five level shapes of a 384x384 tile
+    (batch 8) and K2 serving at the 384x328 tile (batch 2), on phase 6's
+    seeded weights and activations (bf16 where a body takes bf16), the plain
+    version timed once; K3 serving at the 481x321 request's two K3 levels
+    (batch 2), its plain version timed once; K5 serving at MaIR-CDN@128
+    (batch 8, shift off and on, timed in turns), the 96x72 tile (batch 1,
+    not timed) and the 384x328 tile (batch 2, MaIRUNet's level-0 weights,
+    the plain version timed once). Returns ({kernel: (max |kernel - plain|,
+    ms, plain ms, bound ms, bound by)} of K3 serving per forward chunk of
+    the 481x321 request and K5 serving per call at MaIR-CDN@128 (the mean
+    over both shifts), {kernel: max |kernel - plain|} of K6, K2 and K7
+    serving here)."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.mair_unet import init_state_dict
+    from tpuir_torch.ops.nss_fused import (nss_scan_fused, nss_scan_fused_serving_plain,
+                                           nss_scan_fused_serving_stages)
+    from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
+                                                 selective_scan_fused_proj_serving_plain,
+                                                 selective_scan_fused_proj_serving_stages)
+    from tpuir_torch.ops.scan_ids import scan_index_tensors
+    from tpuir_torch.utils import serving_check as ck
+
+    bf = torch.bfloat16
+    sd = init_state_dict(zoo.MAIR_UNET_CONFIG, seed=SEED)
+    worst, rows = {}, {}
+    fwd = {}  # per MaIRUNet@384 forward: [ms, plain ms, bytes, products, other, exps]
+
+    def keep(name, row):
+        worst[name] = max(worst.get(name, 0.0), row[0])
+
+    with torch.inference_mode(), true_float32():
+        cases = [(label, t, t, stage, BATCH, count) for label, t, stage, count in levels]
+        cases.append(("rect", rect[0], rect[1], rect[2], 2, 0))
+        for label, hh, ww, stage, b, count in cases:
+            w, dm, di, n = mixer_weights(sd, f"{stage}.0.self_attention.", device)
+            pro, scan, epi, _, _ = mixer_operands(w, b, (hh, ww), SEED)
+            for (name, short, _, stages, check, kern, plain, outs, iters, _,
+                 work) in mixer_serving_bodies(pro, scan, epi, b * hh * ww, b, (False,)):
+                if label == "rect" and name != "nss_scan_serving":
+                    continue  # the rectangular tile is K2a's case
+                row = check_serving_body(f"{short} B={b} {hh}x{ww} Di={di} N={n}", stages,
+                                         check, kern, plain, outs, work, 3, timing="once")
+                keep(name, row)
+                acc = fwd.setdefault(short, [0.0] * 6)
+                for i, v in enumerate(row[1:3] + work):
+                    acc[i] += count * v
+            del pro, scan, epi
+            torch.cuda.empty_cache()
+        for short, (ms, plain_ms, *work) in fwd.items():
+            b_ms, b_by = bound_bf16(*work)
+            print(f"{short} per MaIRUNet@384 forward (batch {BATCH}, "
+                  f"{sum(c for *_, c in levels)} calls): kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+        # K3 serving at the 481x321 request's two K3 levels, per forward chunk
+        k3 = [0.0] * 6
+        for label, hh, ww, stage, count in k3_levels:
+            w, dm, di, n = mixer_weights(sd, f"{stage}.0.self_attention.", device)
+            r = w["dt_projs_weight"].shape[-1]
+            _, scan, _, _, _ = mixer_operands(w, 2, (hh, ww), SEED)
+            ids, _ = scan_index_tensors(hh, ww, 4, 0, device)
+            L = hh * ww
+            xs = scan.pop("x").reshape(2, L, di)[:, ids].to(bf)
+            work = serving_k3_work(2 * 4, L, di, n, r)
+            row = check_serving_body(
+                f"K3s B=2 {hh}x{ww} Di={di} N={n}",
+                lambda: selective_scan_fused_proj_serving_stages(xs, **scan),
+                lambda st: ck.check_seq_scan_serving(xs, **scan, st=st),
+                lambda: selective_scan_fused_proj(xs, **scan, serving=True),
+                lambda: selective_scan_fused_proj_serving_plain(xs, **scan),
+                lambda st: st["y"], work, 10, timing="once")
+            keep("selective_scan_fused_proj_serving", row)
+            for i, v in enumerate(row[1:3] + work):
+                k3[i] += count * v
+            del scan, xs
+        k3_row = ((worst["selective_scan_fused_proj_serving"], k3[0], k3[1])
+                  + bound_bf16(*k3[2:]))
+        print(f"K3 serving per forward chunk of the 481x321 request (12 calls at 96x82, 8 at "
+              f"48x41, batch 2): kernel {k3[0]:.3f} ms, plain {k3[1]:.3f} ms, bound "
+              f"{k3_row[3]:.3f} ms ({k3_row[4]})", flush=True)
+
+        # K5 serving: MaIR-CDN@128 (timed in turns), 96x72, and the 384x328 tile
+        cdn = []
+        unet_w = mixer_weights(sd, f"{rect[2]}.0.self_attention.", device)[0]
+        k5_cases = [(cdn_batch, (tile, tile), None, (False, True), "turns"),
+                    (1, (96, 72), None, (False, True), None),
+                    (2, rect[:2], unet_w, (False,), "once")]
+        for b, (hh, ww), w, shifts, timing in k5_cases:
+            scan = (mixer_inputs(device, b, (hh, ww))[1] if w is None
+                    else scan_operands(w, b, (hh, ww), SEED))
+            x = scan.pop("x").to(bf)
+            di, n, r = x.shape[-1], scan["A"].shape[-1], scan["dt_w"].shape[-1]
+            for shift in shifts:
+                row = check_serving_body(
+                    f"K5s B={b} {hh}x{ww} Di={di} N={n} shift={int(shift)}",
+                    lambda: nss_scan_fused_serving_stages(x, **scan, shift=shift),
+                    lambda st: ck.check_fused_scan_serving(x, **scan, scan_len=4, shift=shift,
+                                                           st=st),
+                    lambda: nss_scan_fused(x, **scan, shift=shift, serving=True),
+                    lambda: nss_scan_fused_serving_plain(x, **scan, shift=shift),
+                    lambda st: (st["y01"], st["y23"], st["pooled"]),
+                    serving_k5_work(b * hh * ww, di, n, r), 3, 1, timing)
+                keep("nss_scan_fused_serving", row)
+                if hh == tile and ww == tile:
+                    cdn.append(row)
+            del scan, x
+            torch.cuda.empty_cache()
+    mean = lambda i: sum(c[i] for c in cdn) / len(cdn)  # noqa: E731
+    rows["nss_scan_fused_serving"] = (worst.pop("nss_scan_fused_serving"), mean(1), mean(2),
+                                      cdn[0][3], cdn[0][4])
+    rows["selective_scan_fused_proj_serving"] = k3_row
+    worst.pop("selective_scan_fused_proj_serving")
+    if mutants:
+        mutant_controls("seq", jobs=8)
+    return rows, worst
+
+
+def phase_seq_serving_path(device, unet_outs, mair_outs, unet_requests=UNET_REQUESTS,
+                           mair_requests=MAIR_REQUESTS, seq_request=MAIR_REQUESTS[-1]):
+    """Phase 14's paths, built through the zoo with ``precision="serving"``
+    on the seeded weights of phases 5 and 7, each checked by
+    ``check_serving_path`` (ROUNDS rounds, launches a chunk by route, bit
+    for bit on repeat, within SERVING_LSB of its plain serving twin,
+    PSNR within SERVING_PSNR_DB of parity, engine Mpix/s beside parity's):
+    MaIRUNet on phase 7's noisy ``unet_requests`` against phase 7's parity
+    outputs ``unet_outs``; MaIR-CDN with ``nss="fused"`` on phase 5's
+    ``mair_requests`` and MaIRUNet with ``nss="fused"`` on the 481x321
+    request; MaIR-CDN with ``nss="0"`` on ``seq_request`` only (each mixer
+    on K3), against phase 5's ``mair_outs``. Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.models.mair import MaIR
+    from tpuir_torch.models.mair import init_state_dict as mair_state_dict
+    from tpuir_torch.models.mair_unet import MaIRUNet
+    from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
+
+    sizes = UNET_KERNEL_ONLY + UNET_REQUESTS  # phase 7's images, by index
+    unet_images = {}
+    for hw in set(unet_requests) | {UNET_FUSED_REQUEST}:
+        i = sizes.index(hw)
+        clean = synthetic_image(*hw, SEED + i)
+        unet_images[hw] = (noisy_image(clean, SEED + 100 + i), clean)
+    mair_clean = {hw: synthetic_image(*hw, SEED + i) for i, hw in enumerate(MAIR_REQUESTS)}
+    cfg_unet, cfg_cdn = zoo.MAIR_UNET_CONFIG, zoo.MAIR_CDN_CONFIG
+    # (label, MaIRUNet or not, nss, the K5 or K3 kernel of MaIR-CDN's every mixer, requests)
+    runs = [("MaIRUNet serving", True, "stripe", None, unet_requests),
+            ("MaIR-CDN fused serving", False, "fused", "nss_scan_fused_serving", mair_requests),
+            ("MaIRUNet fused serving", True, "fused", None, [UNET_FUSED_REQUEST]),
+            ("MaIR-CDN nss=0 serving", False, "0", "selective_scan_fused_proj_serving",
+             [seq_request])]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        os.makedirs(os.path.join(wdir, "MaIR", "denoising"))
+        torch.save({"params": mair_state_dict(cfg_cdn, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", f"MaIR_CDN_s{SIGMA}.pth"))
+        torch.save({"params": unet_state_dict(cfg_unet, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", "MaIR_RealDN.pth"))
+        for label, unet, nss, kernel, reqs in runs:
+            if unet:
+                model = zoo.get_model_instance("denoising", "real", "MaIR", weights_dir=wdir,
+                                               precision="serving", device=device, nss=nss)
+                plain = MaIRUNet(**cfg_unet, fused=False, nss=nss, serving=True)
+                per_chunk = unet_per_chunk(model, fused=nss == "fused", serving=True)
+                images = [unet_images[hw][0] for hw in reqs]
+                refs, sigma, parity = [unet_images[hw][1] for hw in reqs], None, unet_outs
+            else:
+                model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
+                                               weights_dir=wdir, precision="serving",
+                                               device=device, nss=nss)
+                plain = MaIR(**cfg_cdn, fused=False, nss=nss, serving=True)
+                per_chunk = lambda h, w, k=kernel: {k: MAIR_BLOCKS}  # noqa: E731
+                images = refs = [mair_clean[hw] for hw in reqs]
+                sigma, parity = SIGMA, mair_outs
+            print(f"{label}: nss={nss}, compute_dtype {model.compute_dtype}, patch "
+                  f"{model.patch_size} batch {model.batch_size}; per chunk "
+                  + ", ".join(f"{h}x{w}: {chunks_for(model, h, w)} x {per_chunk(h, w)}"
+                              for h, w in reqs), flush=True)
+            got = check_serving_path(label, model, plain_twin(model, plain), images, reqs,
+                                     per_chunk, sigma, parity, refs)
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            del model, plain
+            torch.cuda.empty_cache()
     return launches
 
 
@@ -1832,7 +2115,7 @@ def main() -> int:
           f"plain {k1_plain_ms:.2f} ms, bound {k1_bound:.2f} ms ({k1_by}), 3xTF32 bound "
           f"{k1_tc:.2f} ms; max|d| {k1_err:.3e}  [{time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    launches, restormer_rate, restormer_outs = phase_main_path(device)
+    launches, _, restormer_outs = phase_main_path(device)
     print(f"[Restormer path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     rows = {"fused_transformer_block": (k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by)}
@@ -1846,7 +2129,7 @@ def main() -> int:
                  "mixer_epilogue": bound_tc(ebytes, px * 2 * di * dm, eflops)}
     print(f"[MaIR kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    mair_launches, mair_rate, mair_outs = phase_mair_path(device)
+    mair_launches, _, mair_outs = phase_mair_path(device)
     launches.update(mair_launches)
     print(f"[MaIR path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
@@ -1885,14 +2168,24 @@ def main() -> int:
     print(f"K1 serving per forward (44 BiasFree blocks, batch {BATCH}): kernel {row[1]:.2f} ms, "
           f"plain {row[2]:.2f} ms, bound {row[3]:.2f} ms ({row[4]}); max|d| {row[0]:.3e}",
           flush=True)
-    launches.update(phase_serving_path(device, restormer_rate, restormer_outs))
+    launches.update(phase_serving_path(device, restormer_outs))
     print(f"[serving {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     rows.update(phase_mair_serving_kernels(device))
     print(f"[MaIR serving kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    launches.update(phase_mair_serving_path(device, mair_rate, mair_outs))
+    launches.update(phase_mair_serving_path(device, mair_outs))
     print(f"[MaIR serving path {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    seq_rows, mixer_worst = phase_seq_serving_kernels(device)
+    rows.update(seq_rows)
+    for name, err in mixer_worst.items():
+        rows[name] = (max(rows[name][0], err),) + rows[name][1:]
+    print(f"[MaIRUNet and off-stripe serving kernels {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_seq_serving_path(device, unet_outs, mair_outs).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[MaIRUNet and off-stripe serving paths {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

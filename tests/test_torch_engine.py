@@ -69,7 +69,8 @@ def test_zoo_missing_checkpoint_raises(tmp_path):
     [
         # Restormer's serving precision is ported: an absent checkpoint is what stops it
         ("Restormer", dict(precision="serving"), FileNotFoundError),
-        ("MaIR", dict(subtask="real", sigma=None, precision="serving"), NotImplementedError),
+        # so is MaIRUNet's: an absent checkpoint is what stops it
+        ("MaIR", dict(subtask="real", sigma=None, precision="serving"), FileNotFoundError),
         ("DnCNN", {}, NotImplementedError),
         ("Restormer", dict(sigma=35), ValueError),
     ],

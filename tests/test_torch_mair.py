@@ -227,7 +227,7 @@ def test_zoo_engine_matches_tpuir(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("sub,sigma,precision,err", [
-    ("real", None, "serving", NotImplementedError),  # MaIRUNet serving waits for K3's body
+    ("real", None, "serving", FileNotFoundError),  # MaIRUNet serving is ported: no checkpoint
     ("gaussian", 35, "parity", ValueError),
 ])
 def test_zoo_refuses_unported_mair(tmp_path, sub, sigma, precision, err):

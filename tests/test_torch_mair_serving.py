@@ -20,6 +20,8 @@ from tpuir_torch import zoo
 from tpuir_torch.core.engine import InferenceModel, run_model_inference
 from tpuir_torch.core.metrics import calculate_metrics
 from tpuir_torch.models.mair import MaIR, SSMixer, init_state_dict
+from tpuir_torch.models.mair_unet import MaIRUNet
+from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
 from tpuir_torch.ops import _kernels
 
 TINY = dict(embed_dim=32, depths=(2, 2), d_state=4, ssm_ratio=1.5, mlp_ratio=2.0, scan_len=4)
@@ -158,24 +160,77 @@ def test_zoo_serving_on_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("sub,sigma,nss,item", [
     ("real", None, None, "A3"), ("gaussian", 25, "fused", "A4"), ("gaussian", 25, "0", "A3")])
-def test_zoo_refuses_unported_serving(tmp_path, sub, sigma, nss, item):
-    """MaIRUNet's serving waits for K3's serving body (its odd pyramid levels
-    take K3), and serving off the stripe route for K5's or K3's: the zoo
-    refuses, naming the ROADMAP item, before it reads any weights."""
-    with pytest.raises(NotImplementedError, match=f"Queue 2 {item}"):
-        zoo.get_model_instance("denoising", sub, "MaIR", sigma=sigma, weights_dir=str(tmp_path),
-                               precision="serving", device="cpu", nss=nss)
+def test_zoo_refuses_unported_serving(monkeypatch, tmp_path, sub, sigma, nss, item):
+    """The requests the zoo refused until ROADMAP Queue 2 ``item`` (K3's or
+    K5's serving body) was ported: MaIRUNet's serving (its odd pyramid
+    levels take K3) and MaIR-CDN's serving off the stripe route. Each now
+    builds (depth cut to one block a stage or group on the CPU) with serving
+    mixers on its route and a float32 engine boundary, and serves, on the
+    CPU, the plain serving path's output bit for bit with no launch."""
+    unet = sub == "real"
+    key = "MAIR_UNET_CONFIG" if unet else "MAIR_CDN_CONFIG"
+    cut = (dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1) if unet
+           else dict(depths=(2,)))
+    config = dict(getattr(zoo, key), **cut)
+    monkeypatch.setattr(zoo, key, config)
+    path = tmp_path / "MaIR" / "denoising" / ("MaIR_RealDN.pth" if unet else "MaIR_CDN_s25.pth")
+    path.parent.mkdir(parents=True)
+    sd = (unet_state_dict if unet else init_state_dict)(config, seed=0)
+    torch.save({"params": sd}, path)
+    model = zoo.get_model_instance("denoising", sub, "MaIR", sigma=sigma,
+                                   weights_dir=str(tmp_path), precision="serving",
+                                   device="cpu", nss=nss)
+    mixers = [m for m in model.net.modules() if isinstance(m, SSMixer)]
+    assert model.compute_dtype == "float32"
+    assert mixers and all(m.fused and m.serving and m.nss == (nss or "stripe") for m in mixers)
+    net = (MaIRUNet if unet else MaIR)(**config, fused=False, nss=nss or "stripe", serving=True)
+    net.load_state_dict(sd)
+    plain = InferenceModel(name="MaIR", net=net.eval(), device=torch.device("cpu"),
+                           patch_size=model.patch_size, patch_overlap=model.patch_overlap,
+                           pad_factor=8, compute_dtype="float32")
+    clean = _clean_image(40, 24, seed=4) if unet else _clean_image(16, 16, seed=4)
+    run = dict(need_degradation=True, noise_level=15 if unet else 25)
+    before = dict(_kernels.LAUNCHES)
+    got, _ = run_model_inference(model, clean, **run)
+    assert _kernels.LAUNCHES == before
+    np.testing.assert_array_equal(got, run_model_inference(plain, clean, **run)[0])
 
 
 @pytest.mark.parametrize("nss,hw,item", [("stripe", (10, 14), "A3"), ("fused", (16, 16), "A4"),
                                          ("0", (16, 16), "A3")])
-def test_serving_mixer_has_no_parity_fallback(nss, hw, item):
-    """A serving mixer on a level its route sends to K3 or K5 raises: it
-    never runs the parity body instead."""
-    mixer = SSMixer(32, 4, 1.5, 4, nss=nss, serving=True).eval()
-    with pytest.raises(NotImplementedError, match=f"Queue 2 {item}"):
-        with torch.inference_mode():
-            mixer(torch.rand(1, *hw, 32))
+def test_serving_mixer_has_no_parity_fallback(monkeypatch, nss, hw, item):
+    """A serving mixer on a level its route sends to K3 or K5 (the serving
+    bodies of ROADMAP Queue 2 ``item``) calls that kernel's wrapper in its
+    serving mode, never the parity body: on the CPU its output is the plain
+    serving mixer's, bit for bit, with no launch, and not the parity
+    mixer's."""
+    from tpuir_torch.models import mair as pm
+
+    name = "nss_scan_fused" if nss == "fused" else "selective_scan_fused_proj"
+    modes = []
+    fn = getattr(pm, name)
+
+    def spy(*a, serving=False, **k):
+        modes.append(serving)
+        return fn(*a, serving=serving, **k)
+
+    monkeypatch.setattr(pm, name, spy)
+    mixers = {}
+    for key, fused, serving in (("kernel", True, True), ("plain", False, True),
+                                ("parity", True, False)):
+        torch.manual_seed(0)
+        mixers[key] = SSMixer(32, 4, 1.5, 4, fused=fused, nss=nss, serving=serving).eval()
+        with torch.no_grad():  # scan weights as a trained mixer has them, not zeros
+            for p in (mixers[key].x_proj_weight, mixers[key].dt_projs_weight):
+                p.normal_(0, 0.2)
+    h = torch.rand(1, *hw, 32)
+    before = dict(_kernels.LAUNCHES)
+    with torch.inference_mode():
+        out = {k: m(h) for k, m in mixers.items()}
+    assert _kernels.LAUNCHES == before
+    assert modes == [True, False]  # the serving mixer, then the parity one
+    assert torch.equal(out["kernel"], out["plain"])
+    assert not torch.equal(out["kernel"], out["parity"])
 
 
 @pytest.mark.cuda

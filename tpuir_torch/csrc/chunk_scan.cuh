@@ -1,7 +1,8 @@
 // The chunked selective scan of MaIR's mixer in float32 on Hopper (sm_90a),
 // shared by K2 (nss_scan.cu), K5 (nss_fused.cu) and K4 (selective_scan.cu);
-// K3 (scan_fused_proj.cu) takes its helpers (exp2_mufu, softplus) and scans
-// its short gathered sequences in one pass of its own.
+// K3 (scan_fused_proj.cu) takes its helpers (exp2_mufu, softplus, and
+// scan_widen and scan_round_bf16 for its serving body) and scans its short
+// gathered sequences in one pass of its own.
 //
 // Per sequence bk = (b, k) and channel d, over the L positions t of the
 // sequence, with u the position's input:
@@ -75,6 +76,8 @@
 //   StripePath (K5): as ImageIdsPath, but the pixel is computed from t
 //     (nss_pixel below) instead of read from a table, and directions 2 and
 //     3 write y in the transposed (W, H) image layout.
+//   StripeBf16Path (K5's serving body): StripePath with ImageIdsBf16Path's
+//     bf16 x and y, rounded dt_proj operands and pooled from the float32 y.
 //   DeltaPath (K4): x (the u of mamba's selective_scan_fn), delta and y
 //     (B, K, L, D) in sequence order for any K; B and C (B, K, L, N) are
 //     staged in place of the x_dbl row (R = 0) and dt comes from delta.
@@ -111,6 +114,10 @@ struct ImageIdsBf16Path {
 struct StripePath {
   static constexpr PathKind kKind = PathKind::kStripe;
   using io_t = float;
+};
+struct StripeBf16Path {
+  static constexpr PathKind kKind = PathKind::kStripe;
+  using io_t = __nv_bfloat16;
 };
 struct DeltaPath {
   static constexpr PathKind kKind = PathKind::kDelta;
@@ -494,10 +501,11 @@ __global__ void __launch_bounds__(kMaxScanThreads,
         }
         if (FINAL) {
           const float out = fmaf(D_d, ug[g], yv[0] + yv[1]);
+          // bf16: rounded to nearest even
           if constexpr (kind == PathKind::kStripe)
-            yb[outs_s[p0 + p + g] * D] = out;
+            scan_store(yb + outs_s[p0 + p + g] * D, out);
           else
-            scan_store(yb + rows_s[p0 + p + g] * D, out);  // bf16: rounded to nearest even
+            scan_store(yb + rows_s[p0 + p + g] * D, out);
           if (kImageRows<Path>) pool += out;  // the float32 y, before any rounding
         }
       }

@@ -42,6 +42,14 @@
 //     to 128 lanes, L padded to the chunk, its (S, P) vertical schedule and
 //     the 8-sublane pooled buffer are TPU layouts with no counterpart here.
 //
+// The serving body (tpuir_nss_scan_fused_bf16; the TPU kernel with
+// serving=True) is the same launches on bf16 x and y, as K2's serving body
+// (nss_scan.cu): x_proj on x widened and W_xp rounded to bf16 at load, x_dbl
+// float32 in scratch; the scan on StripeBf16Path (chunk_scan.cuh): dt_proj's
+// operands rounded in shared memory, B, C, softplus, the recurrence and D*x
+// float32, y stored rounded to nearest even, pooled summed from the float32
+// y.
+//
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
 // is returned (0 = success).
@@ -51,19 +59,13 @@
 #include "chunk_scan.cuh"
 #include "simt_gemm.cuh"
 
-extern "C" {
+namespace {
 
-// x (B, H, W, D) float32; x_proj_w (4, R + 2N, D); dt_w (4, D, R); A (4, D, N)
-// (= -exp(A_logs)); Dskip, bias (4, D). Outputs y (B, 4, H*W, D), directions
-// 0 and 1 as (H, W) images and 2 and 3 as (W, H) images, and pooled
-// (B, 4, D). H and W multiples of scan_len (even); N <= 32, R <= 64. The
-// scratch is laid out as K2's, tpuir_nss_scan_scratch_numel(B, H*W, D, N, R)
-// floats: x_dbl, the chunk states and decay products, the chunk partials.
-int tpuir_nss_scan_fused_f32(const float* x, const float* x_proj_w, const float* dt_w,
-                             const float* A, const float* Dskip, const float* bias, float* y,
-                             float* pooled, float* scratch, int B, int H, int W, int D, int N,
-                             int R, int scan_len, int shift, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <class Path>
+int nss_scan_fused(const typename Path::io_t* x, const float* x_proj_w, const float* dt_w,
+                   const float* A, const float* Dskip, const float* bias,
+                   typename Path::io_t* y, float* pooled, float* scratch, int B, int H, int W,
+                   int D, int N, int R, int scan_len, int shift, cudaStream_t st) {
   if (B <= 0 || H <= 0 || W <= 0 || D <= 0 || N <= 0 || N > kMaxState || R <= 0 ||
       R > kMaxRank || scan_len < 2 || scan_len % 2 || H % scan_len || W % scan_len)
     return (int)cudaErrorInvalidValue;
@@ -89,9 +91,39 @@ int tpuir_nss_scan_fused_f32(const float* x, const float* x_proj_w, const float*
   a.W = W;
   a.scan_len = scan_len;
   a.shift = shift;
-  if ((err = run_chunk_scan<StripePath>(a, BK, st))) return err;
+  if ((err = run_chunk_scan<Path>(a, BK, st))) return err;
   // 4. pooled sums in chunk order
-  return launch_sum_partials<StripePath>(partial, pooled, BK, nchunk, D, st);
+  return launch_sum_partials<Path>(partial, pooled, BK, nchunk, D, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (B, H, W, D) float32; x_proj_w (4, R + 2N, D); dt_w (4, D, R); A (4, D, N)
+// (= -exp(A_logs)); Dskip, bias (4, D). Outputs y (B, 4, H*W, D), directions
+// 0 and 1 as (H, W) images and 2 and 3 as (W, H) images, and pooled
+// (B, 4, D). H and W multiples of scan_len (even); N <= 32, R <= 64. The
+// scratch is laid out as K2's, tpuir_nss_scan_scratch_numel(B, H*W, D, N, R)
+// floats: x_dbl, the chunk states and decay products, the chunk partials.
+int tpuir_nss_scan_fused_f32(const float* x, const float* x_proj_w, const float* dt_w,
+                             const float* A, const float* Dskip, const float* bias, float* y,
+                             float* pooled, float* scratch, int B, int H, int W, int D, int N,
+                             int R, int scan_len, int shift, void* stream) {
+  return nss_scan_fused<StripePath>(x, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch, B,
+                                    H, W, D, N, R, scan_len, shift, (cudaStream_t)stream);
+}
+
+// The serving body: x and y bf16, the weights float32 as
+// tpuir_nss_scan_fused_f32 takes them (rounded to bf16 where they are
+// products' operands), pooled float32 (summed from the float32 y); the same
+// scratch.
+int tpuir_nss_scan_fused_bf16(const __nv_bfloat16* x, const float* x_proj_w, const float* dt_w,
+                              const float* A, const float* Dskip, const float* bias,
+                              __nv_bfloat16* y, float* pooled, float* scratch, int B, int H,
+                              int W, int D, int N, int R, int scan_len, int shift, void* stream) {
+  return nss_scan_fused<StripeBf16Path>(x, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch,
+                                        B, H, W, D, N, R, scan_len, shift, (cudaStream_t)stream);
 }
 
 }  // extern "C"

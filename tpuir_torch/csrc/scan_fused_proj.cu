@@ -80,6 +80,19 @@
 // The TPU kernel's padding of D to 128 lanes and L to the chunk, and its
 // (S, P) vertical schedule, are TPU layouts with no counterpart here.
 //
+// The serving body (tpuir_scan_fused_proj_bf16; the TPU kernel with
+// serving=True) is the same launches on bf16 xs: x_proj takes xs widened and
+// the packed W_xp rounded to bf16 at load (simt_gemm.cuh), so x_dbl is the
+// float32 sum of exact bf16 products and stays float32 in scratch; the scan
+// stages u as bf16 (one 4-byte cp.async a pair of channels, so D must be
+// even) and widens it where it is used, rounds W_dt to bf16 where it is
+// staged and each dt column of a position's x_dbl row where the R-term dot
+// reads it, so that each dt product is exact in float32 (the JAX kernel's
+// bf16 x bf16 dt_proj); B, C, softplus, the states, D*u and y stay float32,
+// and y is stored float32, as the TPU kernel stores it. u's bytes do not
+// bound the scan: the serving body measured within 4% of the float32 one
+// (PERF.md §6).
+//
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
 // is returned (0 = success).
@@ -132,7 +145,7 @@ inline int seq_row_floats(int R, int maxn) {
 }
 
 struct SeqScanArgs {
-  const float* x;      // xs (B*4, L, D)
+  const void* x;       // xs (B*4, L, D), float or bf16
   const float* xdbl;   // (B*4, L, CS), packed rows
   const float* dt_w;   // (4, D, R)
   const float* A;      // (4, D, N)
@@ -144,16 +157,17 @@ struct SeqScanArgs {
 
 // Shared memory of a block of CB channels, in floats: the x_dbl ring
 // [stages][T][CS], W_dt [CB][R4], the (dt, dt*u) table [CB][T] of float2,
-// the y tile [T][CB + 1], then the u ring [stages][T][CB + 1].
+// the y tile [T][CB + 1], then the u ring [stages][T][CB + 1] (bf16 u:
+// [stages][T][CB + 2] bf16 values, rows of an odd count of 4-byte words).
 struct SeqSmem {
   int xring, wdt, dtdu, ytile, uring, total;
-  __host__ __device__ SeqSmem(int CS, int R4, int CB) {
+  __host__ __device__ SeqSmem(int CS, int R4, int CB, bool bf16_u = false) {
     xring = 0;
     wdt = xring + kSeqStages * kSeqT * CS;
     dtdu = wdt + CB * R4;
     ytile = dtdu + 2 * CB * kSeqT;
     uring = ytile + kSeqT * (CB + 1);
-    total = uring + kSeqStages * kSeqT * (CB + 1);
+    total = uring + kSeqStages * kSeqT * (bf16_u ? (CB + 2) / 2 : CB + 1);
   }
 };
 
@@ -193,9 +207,12 @@ __device__ __forceinline__ void sum_over_lanes(float (&p)[kSeqT], int lane) {
 }
 
 // Grid (ceil(D / CB), B*4) of blocks of 32 * warps threads, CB = warps *
-// 32 / G channels; dynamic shared memory SeqSmem(CS, R4, CB).total floats.
-template <int MAXN>
+// 32 / G channels; dynamic shared memory SeqSmem(CS, R4, CB, TX is bf16)
+// .total floats. TX: the type of xs, float or (the serving body, D even)
+// bf16.
+template <int MAXN, class TX>
 __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a) {
+  constexpr bool kBf16 = std::is_same_v<TX, __nv_bfloat16>;
   constexpr int S = SeqLanes<MAXN>::S, G = SeqLanes<MAXN>::G;
   constexpr int CW = 32 / G;       // channels a warp
   constexpr int V = kSeqT / G;     // positions whose sums a lane ends with
@@ -204,13 +221,14 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
   const int L = a.L, D = a.D, N = a.N, R = a.R, R4 = a.R4, CS = a.CS;
   const int nthreads = blockDim.x;
   const int CB = (nthreads / 32) * CW, CBP = CB + 1;
+  const int UP = kBf16 ? CB + 2 : CBP;  // u row pitch: bf16 rows of an odd count of words
   const int rows_a_pass = nthreads / CB;  // rows of CB channels the block covers at once
-  const SeqSmem lay(CS, R4, CB);
+  const SeqSmem lay(CS, R4, CB, kBf16);
   float* xring = smem + lay.xring;
   float* wdt = smem + lay.wdt;
   float2* dtdu = reinterpret_cast<float2*>(smem + lay.dtdu);
   float* ytile = smem + lay.ytile;
-  float* uring = smem + lay.uring;
+  TX* uring = reinterpret_cast<TX*>(smem + lay.uring);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane & (G - 1);            // this lane's states g*S .. g*S + S - 1
@@ -221,13 +239,14 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
   // one 64-bit base a block; offsets inside a sequence are 32-bit (the
   // caller checks L * max(D, CS) < 2^31)
   const float* xdbl_b = a.xdbl + (long long)bk * L * CS;
-  const float* x_b = a.x + (long long)bk * L * D;
+  const TX* x_b = static_cast<const TX*>(a.x) + (long long)bk * L * D;
   float* y_b = a.y + (long long)bk * L * D;
   const long long kD = (long long)k * D;
 
   for (int e = tid; e < CB * R4; e += nthreads) {
     const int c = e / R4, r = e - c * R4;
-    wdt[e] = (d0 + c < D && r < R) ? a.dt_w[(kD + d0 + c) * R + r] : 0.f;
+    const float w = (d0 + c < D && r < R) ? a.dt_w[(kD + d0 + c) * R + r] : 0.f;
+    wdt[e] = kBf16 ? scan_round_bf16(w) : w;
   }
   // A in base 2, so that a decay is exp2 of one product
   float A2[S], h[S];
@@ -259,10 +278,21 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
       const bool ok = e < nf;
       cp_async16_zf(xd + e, ok ? xdbl_b + t0 * CS + e : xdbl_b, ok);
     }
-    float* ud = uring + (i % kSeqStages) * kSeqT * CBP;
-    for (int row = srow; row < kSeqT; row += rows_a_pass) {
-      const bool ok = t0 + row < L && d0 + sc < D;
-      cp_async4_zf(ud + row * CBP + sc, ok ? x_b + (t0 + row) * D + d0 + sc : x_b, ok);
+    TX* ud = uring + (i % kSeqStages) * kSeqT * UP;
+    if constexpr (kBf16) {
+      // two channels (2 * pc, 2 * pc + 1) a copy, rows prow + 2 * rows_a_pass * i
+      const int pc = tid % (CB / 2), prow = tid / (CB / 2);
+      for (int row = prow; row < kSeqT; row += 2 * rows_a_pass) {
+        const bool ok = t0 + row < L && d0 + 2 * pc < D;
+        const TX* src = ok ? x_b + (t0 + row) * D + d0 + 2 * pc : x_b;
+        cp_async4_zf(reinterpret_cast<float*>(ud + row * UP + 2 * pc),
+                     reinterpret_cast<const float*>(src), ok);
+      }
+    } else {
+      for (int row = srow; row < kSeqT; row += rows_a_pass) {
+        const bool ok = t0 + row < L && d0 + sc < D;
+        cp_async4_zf(ud + row * UP + sc, ok ? x_b + (t0 + row) * D + d0 + sc : x_b, ok);
+      }
     }
   };
 
@@ -278,7 +308,7 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
     cp_async_commit();                 // (empty at the tail: keeps one group a tile)
     const int t0 = i * kSeqT;
     const float* xd = xring + (i % kSeqStages) * kSeqT * CS;
-    const float* ud = uring + (i % kSeqStages) * kSeqT * CBP;
+    const TX* ud = uring + (i % kSeqStages) * kSeqT * UP;
 
     // (a) dt and dt*u of position t0 + lane, for each of the warp's channels
     {
@@ -288,7 +318,11 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
 #pragma unroll
       for (int c = 0; c < CW; ++c) dr[c] = bias_w[c];
       for (int r = 0; r < R4; r += 4) {
-        const float4 x4 = *reinterpret_cast<const float4*>(xr + r);
+        float4 x4 = *reinterpret_cast<const float4*>(xr + r);
+        if constexpr (kBf16) {  // dt_proj's operand: this lane's dt columns
+          x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);
+          x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);
+        }
 #pragma unroll
         for (int c = 0; c < CW; ++c) {
           const float4 w4 = *reinterpret_cast<const float4*>(wr + c * R4 + r);
@@ -299,7 +333,8 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const float dt = live ? softplus(dr[c]) : 0.f;
-        dtdu[(warp * CW + c) * kSeqT + lane] = make_float2(dt, dt * ud[lane * CBP + warp * CW + c]);
+        dtdu[(warp * CW + c) * kSeqT + lane] =
+            make_float2(dt, dt * scan_widen(ud[lane * UP + warp * CW + c]));
       }
     }
     __syncwarp();
@@ -337,7 +372,8 @@ __global__ void __launch_bounds__(kSeqWarps * 32) seq_scan_kernel(SeqScanArgs a)
     // (d) y = sum + D*u, rows of the block's channels
     if (d0 + sc < D) {
       for (int row = srow; row < kSeqT && t0 + row < L; row += rows_a_pass)
-        y_b[(t0 + row) * D + d0 + sc] = fmaf(D_s, ud[row * CBP + sc], ytile[row * CBP + sc]);
+        y_b[(t0 + row) * D + d0 + sc] =
+            fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]);
     }
   }
 }
@@ -361,40 +397,30 @@ __global__ void __launch_bounds__(256) pack_xproj_kernel(const float* __restrict
   for (int d = threadIdx.x; d < D; d += blockDim.x) wd[d] = src >= 0 ? ws[d] : 0.f;
 }
 
-template <int MAXN>
+template <int MAXN, class TX>
 int launch_seq_scan(const SeqScanArgs& a, long long BK, cudaStream_t st) {
   constexpr int CB = kSeqWarps * 32 / SeqLanes<MAXN>::G;
-  const size_t smem = sizeof(float) * SeqSmem(a.CS, a.R4, CB).total;
+  const size_t smem =
+      sizeof(float) * SeqSmem(a.CS, a.R4, CB, std::is_same_v<TX, __nv_bfloat16>).total;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seq_scan_kernel<MAXN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        seq_scan_kernel<MAXN, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((a.D + CB - 1) / CB, (unsigned)BK);
-  seq_scan_kernel<MAXN><<<grid, kSeqWarps * 32, smem, st>>>(a);
+  seq_scan_kernel<MAXN, TX><<<grid, kSeqWarps * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of scratch tpuir_scan_fused_proj_f32 needs: the packed x_dbl rows
-// and the packed x_proj weight.
-long long tpuir_scan_fused_proj_scratch_numel(int B, int L, int D, int N, int R) {
-  const long long CS = seq_row_floats(R, seq_maxn(N));
-  return (long long)B * kK * L * CS + kK * CS * D;
-}
-
-// xs (B, 4, L, D) float32 in sequence order; x_proj_w (4, R + 2N, D);
-// dt_w (4, D, R); A (4, D, N) (= -exp(A_logs)); Dskip, bias (4, D). Output
-// y (B, 4, L, D). N <= 32, R <= 64.
-int tpuir_scan_fused_proj_f32(const float* xs, const float* x_proj_w, const float* dt_w,
-                              const float* A, const float* Dskip, const float* bias, float* y,
-                              float* scratch, int B, int L, int D, int N, int R, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// Both bodies: the packed weight, x_dbl on the SIMT GEMM (a bf16 xs rounds
+// W_xp at load), then the scan.
+template <class TX>
+int scan_fused_proj(const TX* xs, const float* x_proj_w, const float* dt_w, const float* A,
+                    const float* Dskip, const float* bias, float* y, float* scratch, int B, int L,
+                    int D, int N, int R, cudaStream_t st) {
   if (B <= 0 || L <= 0 || D <= 0 || N <= 0 || N > kMaxState || R <= 0 || R > kMaxRank)
     return (int)cudaErrorInvalidValue;
+  if (std::is_same_v<TX, __nv_bfloat16> && D % 2) return (int)cudaErrorInvalidValue;
   const long long BK = (long long)B * kK;
   const int maxn = seq_maxn(N);
   const int R4 = (R + 3) & ~3;
@@ -415,11 +441,43 @@ int tpuir_scan_fused_proj_f32(const float* xs, const float* x_proj_w, const floa
   // 1. the scan, one pass over each sequence
   const SeqScanArgs a{xs, xdbl, dt_w, A, Dskip, bias, y, L, D, N, R, R4, CS};
   switch (maxn) {
-    case 4: return launch_seq_scan<4>(a, BK, st);
-    case 8: return launch_seq_scan<8>(a, BK, st);
-    case 16: return launch_seq_scan<16>(a, BK, st);
-    default: return launch_seq_scan<32>(a, BK, st);
+    case 4: return launch_seq_scan<4, TX>(a, BK, st);
+    case 8: return launch_seq_scan<8, TX>(a, BK, st);
+    case 16: return launch_seq_scan<16, TX>(a, BK, st);
+    default: return launch_seq_scan<32, TX>(a, BK, st);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch tpuir_scan_fused_proj_f32 and _bf16 need: the packed
+// x_dbl rows and the packed x_proj weight.
+long long tpuir_scan_fused_proj_scratch_numel(int B, int L, int D, int N, int R) {
+  const long long CS = seq_row_floats(R, seq_maxn(N));
+  return (long long)B * kK * L * CS + kK * CS * D;
+}
+
+// xs (B, 4, L, D) float32 in sequence order; x_proj_w (4, R + 2N, D);
+// dt_w (4, D, R); A (4, D, N) (= -exp(A_logs)); Dskip, bias (4, D). Output
+// y (B, 4, L, D). N <= 32, R <= 64.
+int tpuir_scan_fused_proj_f32(const float* xs, const float* x_proj_w, const float* dt_w,
+                              const float* A, const float* Dskip, const float* bias, float* y,
+                              float* scratch, int B, int L, int D, int N, int R, void* stream) {
+  return scan_fused_proj(xs, x_proj_w, dt_w, A, Dskip, bias, y, scratch, B, L, D, N, R,
+                         (cudaStream_t)stream);
+}
+
+// The serving body: xs bf16 (D even), the weights float32 as
+// tpuir_scan_fused_proj_f32 takes them (rounded to bf16 where they are
+// products' operands), y float32; the same scratch.
+int tpuir_scan_fused_proj_bf16(const __nv_bfloat16* xs, const float* x_proj_w,
+                               const float* dt_w, const float* A, const float* Dskip,
+                               const float* bias, float* y, float* scratch, int B, int L, int D,
+                               int N, int R, void* stream) {
+  return scan_fused_proj(xs, x_proj_w, dt_w, A, Dskip, bias, y, scratch, B, L, D, N, R,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -39,12 +39,18 @@ mixer, the blocks' LayerNorms and the MLP are plain PyTorch in both modes;
 the body's convs run one image at a time on the card (``_body_conv``).
 
 ``serving=True`` is MaIR's serving precision, the JAX module's
-``scan_io_dtype="bfloat16"``: the stripe route takes the serving bodies of
-K6, K2 and K7 (bf16 x, z and y between them, bf16 products with float32
-sums; see each wrapper), and every other layer stays float32. Its fused
-and sequence routes wait for K5's and K3's serving bodies and raise. The
-parameters stay float32 in both precisions, so a released ``.pth`` loads
-as it is.
+``scan_io_dtype="bfloat16"``, on every route: the stripe route takes the
+serving bodies of K6, K2 and K7 (bf16 x, z and y between them, bf16
+products with float32 sums; see each wrapper); the fused route K5's (bf16
+x in, bf16 y out, float32 pooled) and the sequence route K3's (bf16 xs in,
+float32 y out) between plain float32 layers, with the JAX module's bf16
+roundings around them (``tpuir/models/mair.py:304-396``): on the sequence
+route y * gates rounded to bf16 before the inverse gather, and the sum
+over the directions rounded once; on both, the serving tail (``_tail``:
+out_norm's output and z rounded to bf16, ``silu_bf16``, their product
+rounded, out_proj in float32 on the float32 weight). Every other layer
+stays float32. The parameters stay float32 in both precisions, so a
+released ``.pth`` loads as it is.
 """
 
 from __future__ import annotations
@@ -61,19 +67,18 @@ from torch import nn
 from tpuir_torch.core.engine import true_float32
 from tpuir_torch.ops.nss_epilogue import (mixer_epilogue, mixer_epilogue_plain,
                                           mixer_epilogue_serving_plain)
-from tpuir_torch.ops.nss_fused import nss_scan_fused, nss_scan_fused_plain
+from tpuir_torch.ops.nss_fused import (nss_scan_fused, nss_scan_fused_plain,
+                                       nss_scan_fused_serving_plain)
 from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_plain,
                                           mixer_prologue_serving_plain)
 from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain, nss_scan_serving_plain
 from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
-                                             selective_scan_fused_proj_plain)
+                                             selective_scan_fused_proj_plain,
+                                             selective_scan_fused_proj_serving_plain)
 from tpuir_torch.ops.scan_ids import scan_index_tensors
 
 K = 4  # scan directions
 NSS_MODES = ("stripe", "fused", "0")  # the JAX module's TPUIR_NSS values
-# the ROADMAP item that ports each route's serving body
-_SERVING_NOT_PORTED = {"fused": "ROADMAP Queue 2 A4, 'K5 serving'",
-                       "sequence": "ROADMAP Queue 2 A3, 'K3 serving'"}
 
 
 def _nchw(h: torch.Tensor) -> torch.Tensor:
@@ -82,6 +87,17 @@ def _nchw(h: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def silu_bf16(z: torch.Tensor) -> torch.Tensor:
+    """SiLU of a bf16 z, bf16 out, as XLA lowers ``jax.nn.silu`` on bf16 on
+    the CPU: the sigmoid as 1 / (1 + exp(-z)) with every operation rounded
+    to bf16, then z times it, rounded. PyTorch's bf16 arithmetic computes
+    each operation in float32 and rounds it once, so each step below is
+    that rounding. (``torch.sigmoid`` and ``F.silu`` on bf16 round the
+    float32 result once: another function, a bf16 ulp away on many
+    elements.)"""
+    return z * torch.reciprocal(1 + torch.exp(-z))
 
 
 def _body_conv(conv: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
@@ -167,10 +183,6 @@ class SSMixer(nn.Module):
         scan_w = (self.x_proj_weight, self.dt_projs_weight, A, self.Ds.reshape(K, di),
                   self.dt_projs_bias)
         route = self.route(H, W)
-        if self.serving and route != "stripe":
-            raise NotImplementedError(
-                f"MaIR serving on the {route} route ({H}x{W}, nss={self.nss!r}) is not ported "
-                f"yet: {_SERVING_NOT_PORTED[route]}")
         if route == "sequence":
             return self._sequence_route(h, shift, scan_w)
         if route == "fused":
@@ -191,25 +203,46 @@ class SSMixer(nn.Module):
         return epilogue(y, gates, z, self.out_norm.weight, self.out_norm.bias,
                         self.out_proj.weight)
 
+    def _tail(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """out_norm, the SiLU(z) gate and out_proj of the fused and sequence
+        routes (``tpuir/models/mair.py:389-396``) on y, z (B, L, d_inner)
+        float32. In serving: bf16(out_norm(y)) * silu_bf16(bf16(z)), rounded
+        to bf16, then out_proj in float32 on the widened values and the
+        float32 weight (flax ``Dense``'s promotion, with no weight rounding)."""
+        if not self.serving:
+            return self.out_proj(self.out_norm(y) * F.silu(z))
+        g = silu_bf16(z.to(torch.bfloat16))
+        return self.out_proj((self.out_norm(y).to(torch.bfloat16) * g).float())
+
     def _fused_route(self, h: torch.Tensor, shift: bool, scan_w) -> torch.Tensor:
-        """Plain layers around K5 (``tpuir/models/mair.py:304-341``, ``:389-397``)."""
+        """Plain layers around K5 (``tpuir/models/mair.py:304-341``, ``:389-397``);
+        in serving, K5's serving body on x rounded to bf16 and the gated sum
+        in float32 over its widened bf16 y."""
         B, H, W, _ = h.shape
         L, di = H * W, self.d_inner
         x, z = self.in_proj(h).split(di, -1)
         # batched, unlike the body convs: cuDNN's float32 depthwise conv is
         # faster on the batch than one image at a time at every level (PERF.md)
         x = _nhwc(F.silu(self.conv2d(_nchw(x)))).contiguous()
-        scan = nss_scan_fused if self.fused else nss_scan_fused_plain
+        if self.serving:
+            x = x.to(torch.bfloat16)
+            scan = (functools.partial(nss_scan_fused, serving=True) if self.fused
+                    else nss_scan_fused_serving_plain)
+        else:
+            scan = nss_scan_fused if self.fused else nss_scan_fused_plain
         y01, y23, pooled = scan(x, *scan_w, self.scan_len, shift)
         g = self._gates(pooled / L)[:, :, None, None]  # (B, K, 1, 1, d_inner)
-        # the four directions back in image layout, gated and summed
+        # the four directions back in image layout, gated and summed (in
+        # float32: a bf16 y widens where it meets the float32 gates)
         y = (y01[:, 0] * g[:, 0] + y01[:, 1] * g[:, 1]
              + y23[:, 0].transpose(1, 2) * g[:, 2] + y23[:, 1].transpose(1, 2) * g[:, 3])
-        y = self.out_norm(y.reshape(B, L, di)) * F.silu(z.reshape(B, L, di))
-        return self.out_proj(y).reshape(B, H, W, -1)
+        return self._tail(y.reshape(B, L, di), z.reshape(B, L, di)).reshape(B, H, W, -1)
 
     def _sequence_route(self, h: torch.Tensor, shift: bool, scan_w) -> torch.Tensor:
-        """Plain layers around K3 on gathered sequences (``tpuir/models/mair.py:342-396``)."""
+        """Plain layers around K3 on gathered sequences (``tpuir/models/mair.py:342-396``);
+        in serving, K3's serving body on xs rounded to bf16, y * gates rounded
+        to bf16 before the inverse gather and the float32 sum over the
+        directions rounded once."""
         B, H, W, _ = h.shape
         L, di = H * W, self.d_inner
         x, z = self.in_proj(h).split(di, -1)
@@ -217,13 +250,20 @@ class SSMixer(nn.Module):
         ids, inv = scan_index_tensors(H, W, self.scan_len, self.scan_len // 2 if shift else 0,
                                       h.device)
         xs = _nhwc(x).reshape(B, L, di)[:, ids]  # (B, K, L, d_inner), sequence order
-        scan = selective_scan_fused_proj if self.fused else selective_scan_fused_proj_plain
+        if self.serving:
+            xs = xs.to(torch.bfloat16)
+            scan = (functools.partial(selective_scan_fused_proj, serving=True) if self.fused
+                    else selective_scan_fused_proj_serving_plain)
+        else:
+            scan = selective_scan_fused_proj if self.fused else selective_scan_fused_proj_plain
         y = scan(xs, *scan_w)
         y = y * self._gates(y.mean(2))[:, :, None]
-        # back to pixel order per direction, then the sum over directions
+        if self.serving:
+            y = y.to(torch.bfloat16)
+        # back to pixel order per direction, then the sum over directions (of
+        # bf16 values: summed in float32, rounded once)
         y = torch.gather(y, 2, inv[None, :, :, None].expand(B, K, L, di)).sum(1)
-        y = self.out_norm(y) * F.silu(z.reshape(B, L, di))
-        return self.out_proj(y).reshape(B, H, W, -1)
+        return self._tail(y.float(), z.reshape(B, L, di)).reshape(B, H, W, -1)
 
 
 class Mlp(nn.Module):

@@ -15,7 +15,9 @@ level's (H, W) and its ``nss`` ("stripe", the default: K6 -> K2 -> K7
 where H and W are even multiples of ``scan_len``; "fused": K5 where they
 are multiples of it; "0": none of those), K3 on gathered sequences
 elsewhere. ``fused`` picks the kernel wrappers or their plain versions, as
-in ``MaIR``. Modules take NCHW
+in ``MaIR``, and ``serving`` every mixer's serving precision (the JAX
+module's ``scan_io_dtype="bfloat16"``: the serving bodies of K6, K2 and K7,
+K5 or K3 on each level's route; see ``models/mair.py``). Modules take NCHW
 outside; the blocks run on contiguous NHWC (B, H, W, C) tensors, and the
 convs see them as channels_last views. Parameter names are the released
 checkpoints' (upstream MaIRUNet), so ``load_state_dict`` reads a released
@@ -52,13 +54,15 @@ class MaIRUNet(nn.Module):
                  num_blocks: Sequence[int] = (4, 6, 6, 8), num_refinement_blocks: int = 4,
                  ssm_ratio: float = 2.0, flp_ratio: float = 4.0, mlp_ratio: float = 1.5,
                  bias: bool = False, dual_pixel_task: bool = False, scan_len: int = 4,
-                 base_d_state: int = 4, fused: bool = True, nss: str = "stripe"):
+                 base_d_state: int = 4, fused: bool = True, nss: str = "stripe",
+                 serving: bool = False):
         super().__init__()
         nb, ds = num_blocks, base_d_state
 
         def stage(n, width, d_state, ratio):
             return nn.ModuleList([MaIRBlock(width, d_state, ssm_ratio, ratio, scan_len, fused,
-                                            mlp_attr="mlp", nss=nss) for _ in range(n)])
+                                            mlp_attr="mlp", nss=nss, serving=serving)
+                                  for _ in range(n)])
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, dim, bias)
         self.encoder_level1 = stage(nb[0], dim, ds, flp_ratio)

@@ -5,8 +5,13 @@ One shared library with a plain C interface, compiled for Hopper
 by a hash of the sources (``*.cu`` and the ``*.cuh`` they include) and
 flags, so an edited source is rebuilt and an unchanged one is loaded as it
 is. Each ``.cu`` is compiled by its own nvcc process, all started together,
-and the objects are linked into the library. No PyTorch headers are
-compiled, which keeps a cold build to seconds.
+into an object under ``build/tpuir_torch/obj/`` keyed by a hash of that
+``.cu``, the headers it includes and the flags, and the objects are linked
+into the library; an object whose hash is there already is reused, so a
+copy of the package with one edited header (the serving checks' mutation
+controls, ``utils/serving_mutants.py``) recompiles only the sources that
+include it. No PyTorch headers are compiled, which keeps a cold build to
+seconds.
 
 There is no fallback: a missing nvcc, a failed build or a failed load
 raises. Wrappers take their kernel's plain PyTorch version only for a
@@ -22,16 +27,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "tpuir_torch"
+OBJ_DIR = BUILD_DIR / "obj"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,7 +47,8 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "fused_transformer_block": 0, "fused_transformer_block_serving": 0, "mixer_prologue": 0,
     "nss_scan": 0, "mixer_epilogue": 0, "mixer_prologue_serving": 0, "nss_scan_serving": 0,
-    "mixer_epilogue_serving": 0, "selective_scan_fused_proj": 0, "nss_scan_fused": 0,
+    "mixer_epilogue_serving": 0, "selective_scan_fused_proj": 0,
+    "selective_scan_fused_proj_serving": 0, "nss_scan_fused": 0, "nss_scan_fused_serving": 0,
     "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0, "tc_gemm_bf16": 0,
 }
 
@@ -75,6 +83,28 @@ def _sources():
     return sources
 
 
+def includes(src: Path) -> List[Path]:
+    """The local headers (``#include "name"``) that src includes, directly
+    or through another header, sorted."""
+    seen, todo = set(), [src]
+    while todo:
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', todo.pop().read_text(), re.M):
+            dep = CSRC_DIR / name
+            if dep not in seen:
+                seen.add(dep)
+                todo.append(dep)
+    return sorted(seen)
+
+
+def object_path(src: Path) -> Path:
+    """Where src's object goes: keyed by the flags, src and its headers."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [src, *includes(src)]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return OBJ_DIR / f"{src.stem}_{h.hexdigest()[:16]}.o"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
@@ -84,25 +114,30 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if this hash has no library yet; return its path."""
+    """Compile the sources whose objects are missing and link them, if this
+    hash has no library yet; return its path."""
     global build_log
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    OBJ_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(prefix=f"{so.stem}_", dir=BUILD_DIR) as tmpdir:
-        objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        objs = [object_path(src) for src in _sources()]
+        todo = [(src, obj, Path(tmpdir) / obj.name) for src, obj in zip(_sources(), objs)
+                if not obj.exists()]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp), str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(_sources(), objs)
+            for src, _, tmp in todo
         ]
         logs = [p.communicate()[0] for p in procs]
         build_log = "".join(logs)
-        failed = [src.name for src, p in zip(_sources(), procs) if p.returncode != 0]
+        failed = [src.name for (src, _, _), p in zip(todo, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        for _, obj, tmp in todo:
+            os.replace(tmp, obj)
         tmp = Path(tmpdir) / so.name
         res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                              capture_output=True, text=True)
@@ -145,8 +180,12 @@ def library() -> ctypes.CDLL:
         lib.tpuir_scan_fused_proj_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_scan_fused_proj_f32.argtypes = [vp] * 8 + [ci] * 5 + [vp]
         lib.tpuir_scan_fused_proj_f32.restype = ci
+        lib.tpuir_scan_fused_proj_bf16.argtypes = lib.tpuir_scan_fused_proj_f32.argtypes
+        lib.tpuir_scan_fused_proj_bf16.restype = ci
         lib.tpuir_nss_scan_fused_f32.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.tpuir_nss_scan_fused_f32.restype = ci
+        lib.tpuir_nss_scan_fused_bf16.argtypes = lib.tpuir_nss_scan_fused_f32.argtypes
+        lib.tpuir_nss_scan_fused_bf16.restype = ci
         lib.tpuir_selective_scan_scratch_numel.argtypes = [ci] * 5
         lib.tpuir_selective_scan_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_selective_scan_f32.argtypes = [vp] * 9 + [ci] * 5 + [vp]

@@ -108,25 +108,36 @@ def nss_scan_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
     return yimg.reshape(B, 4, H, W, d), pooled
 
 
+def seq_scan_from_xdbl(xs: torch.Tensor, xdbl: torch.Tensor, dt_w: torch.Tensor,
+                       A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor
+                       ) -> torch.Tensor:
+    """The serving bodies' scan on sequences from their x_dbl, in xdbl's
+    dtype (K3's, and K2's and K5's once gathered): dt =
+    softplus(bf16(x_dbl[:R]) . bf16(W_dt)^T + bias), B and C the unrounded
+    columns of x_dbl, then the chunked scan and D*xs. xs (B, 4, L, d)
+    widened, xdbl (B, 4, L, R + 2N). Returns y (B, 4, L, d)."""
+    N = A.shape[-1]
+    R = xdbl.shape[-1] - 2 * N
+    dts = torch.einsum("bklr,kdr->bkld", bf16_rounded(xdbl[..., :R]),
+                       bf16_rounded(dt_w.to(xdbl.dtype)))
+    return selective_scan(xs, dts, A, xdbl[..., R:R + N], xdbl[..., R + N:], D, delta_bias,
+                          delta_softplus=True, chunk=256, dtype=xdbl.dtype)
+
+
 def scan_from_xdbl(x: torch.Tensor, xdbl: torch.Tensor, dt_w: torch.Tensor, A: torch.Tensor,
                    D: torch.Tensor, delta_bias: torch.Tensor, H: int, W: int, scan_len: int,
                    shift: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The serving body's scan from its x_dbl, in xdbl's dtype: dt =
-    softplus(bf16(x_dbl[:R]) . bf16(W_dt)^T + bias), B and C the unrounded
-    columns of x_dbl, then the chunked scan and D*x. x (B, L, d) widened,
+    """The serving body's scan from its x_dbl, in xdbl's dtype: the path's
+    sequences gathered, then ``seq_scan_from_xdbl``. x (B, L, d) widened,
     xdbl (B, L, 4, R + 2N) pixel-major as the kernel's scratch. Returns (y
     (B, 4, H, W, d) unrounded, in image layout; pooled (B, 4, d), the sum of
     y over the path)."""
     B, L, d = x.shape
-    N = A.shape[-1]
-    R = xdbl.shape[-1] - 2 * N
     ids, inv = (torch.from_numpy(a).long().to(x.device)
                 for a in mair_scan_ids(H, W, scan_len, scan_len // 2 if shift else 0))
     xs = x[:, ids]  # (B, 4, L, d), sequence order
     xd = torch.stack([xdbl[:, ids[k], k] for k in range(4)], 1)  # (B, 4, L, C)
-    dts = torch.einsum("bklr,kdr->bkld", bf16_rounded(xd[..., :R]), bf16_rounded(dt_w.to(xd.dtype)))
-    y = selective_scan(xs, dts, A, xd[..., R:R + N], xd[..., R + N:], D, delta_bias,
-                       delta_softplus=True, chunk=256, dtype=xdbl.dtype)
+    y = seq_scan_from_xdbl(xs, xd, dt_w, A, D, delta_bias)
     yimg = torch.stack([y[:, k, inv[k]] for k in range(4)], 1)
     return yimg.reshape(B, 4, H, W, d), y.sum(2)
 

@@ -19,8 +19,8 @@ a seed, every mixer through its kernels as the zoo builds it on the
 ``0``: K3 everywhere; K3 on levels the others do not take), every
 Restormer block through K1, TF32 off as in the engine (under
 ``--precision serving``, TF32 left at PyTorch's defaults, as the engine
-serves it: Restormer on K1's serving body and bf16 convs, MaIR-CDN on the
-serving bodies of K6, K2 and K7). Per batch it prints
+serves it: Restormer on K1's serving body and bf16 convs, MaIR-CDN and
+MaIRUNet on their route's serving bodies). Per batch it prints
 the forward's milliseconds (CUDA events), its device time by stage (for
 Restormer, K1's launches by kernel: the LayerNorm statistics, its four 1x1
 products on the GEMM core, the two depthwise convs, the Gram pass, its
@@ -46,14 +46,15 @@ import torch
 # tc::Store<float, float>) run on the tensor-core core, told apart by their
 # epilogue types; the x_proj of K2, K3 and K5 on the SIMT
 # GEMM (simt_gemm_nt_kernel); the scan passes' path type tells K2's
-# (ImageIdsPath) from K5's (StripePath). K3 packs its x_proj weight and
-# scans in one pass.
+# (ImageIdsPath) from K5's (StripePath), and the serving bodies' (the
+# Bf16 paths). K3 packs its x_proj weight and scans in one pass.
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
     ("K2 scan passes", ("ImageIdsPath",)),
     ("K2 serving scan passes", ("ImageIdsBf16Path",)),
     ("K5 scan passes", ("StripePath",)),
+    ("K5 serving scan passes", ("StripeBf16Path",)),
     ("K3 one-pass scan", ("seq_scan_kernel",)),
     ("K3 x_proj weight packing", ("pack_xproj_kernel",)),
     ("x_proj GEMMs (K2, K3, K5)", ("simt_gemm_nt_kernel",)),
@@ -167,7 +168,7 @@ def _seeded_net(model: str, seed: int, dev: torch.device, nss: str = "stripe",
         net = mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving)
         net.load_state_dict(mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=seed))
     else:
-        net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, nss=nss)
+        net = mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, nss=nss, serving=serving)
         net.load_state_dict(mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=seed))
     return net.to(dev).eval().requires_grad_(False)
 
@@ -217,8 +218,6 @@ def profile_model(model: str = "mair", batches=(1, 2, 3, 4, 8), seed: int = 0,
     """The forward breakdown described in the module docstring."""
     from tpuir_torch.core.engine import true_float32
 
-    if precision == "serving" and model == "mairunet":
-        raise ValueError("serving precision is ported for Restormer and MaIR-CDN only")
     dev = torch.device("cuda")
     tile = TILES[model]
     net = _seeded_net(model, seed, dev, nss, serving=precision == "serving")

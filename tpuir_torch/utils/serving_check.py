@@ -1,5 +1,5 @@
-"""The serving bodies held stage by stage, with no cascade: K1's, and the
-MaIR mixer's K6, K2 and K7.
+"""The serving bodies held stage by stage, with no cascade: K1's, the MaIR
+mixer's K6, K2 and K7, and its scans off the stripe route, K3 and K5.
 
 At Restormer's widths the serving body cannot be held to its plain version
 end to end: a float32 sum that differs in its last bit from another order's
@@ -46,6 +46,15 @@ reads back from the kernel, so nothing is emulated bit for bit:
 * K7: the gated rows against float64 from the bf16 y and z (one-pass
   variance), the output against float64 sums of bf16(gated) . bf16(W_out)
   from the kernel's own gated rows.
+
+The sequence route's K3 (``check_seq_scan_serving``) and the fused route's
+K5 (``check_fused_scan_serving``) are held as K2: x_dbl against float64
+sums of bf16(x) . bf16(W_xp), then the scan in float64 from the kernel's
+own x_dbl (dt from bf16(x_dbl[:R]) . bf16(W_dt), B and C unrounded). K3's y
+is float32 and must lie within the scan tolerance of it (a y rounded to
+bf16 moves by up to 2^-9 of itself, about twice SCAN_RTOL); K5's y (bf16) must be
+the rounding of a value within the scan tolerance, and its pooled within
+SCAN_ATOL + SCAN_RTOL sum|y| of the float64 sum, as K2's.
 """
 
 from __future__ import annotations
@@ -376,3 +385,41 @@ def check_epilogue_serving(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor
     g = _close("gated rows", gated[..., :di], ref)
     return [Stage(g.name, g.ok and pads == 0, f"{g.detail}, {pads} pad values not 0"),
             _close("out_proj", st["out"], _product(gated[..., :di], w_out, torch.float64))]
+
+
+# --- the scans off the stripe route: K3 (sequence route), K5 (fused route) --
+
+
+def check_seq_scan_serving(xs: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                           A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                           st: Mapping[str, torch.Tensor]) -> List[Stage]:
+    """K3's serving stages ``st`` (``ops/scan_fused_proj.
+    selective_scan_fused_proj_serving_stages``) against float64: x_dbl from
+    bf16(xs) . bf16(W_xp), then the float32 y within the scan tolerance of
+    the float64 scan of the kernel's own x_dbl. xs: the body's bf16 input
+    (B, 4, L, d) in sequence order."""
+    from tpuir_torch.ops.nss_stripe import seq_scan_from_xdbl
+
+    xw = xs.double()
+    xdbl = torch.einsum("bkld,kcd->bklc", xw, _bf16(x_proj_w, torch.float64))
+    y = seq_scan_from_xdbl(xw, st["x_dbl"].double(), dt_w, A, D, delta_bias)
+    got = st["y"]
+    r = ((got.double() - y).abs() / (SCAN_ATOL + SCAN_RTOL * y.abs())).max().item()
+    ok = r <= 1.0 and got.dtype == torch.float32 and bool(torch.isfinite(got).all().item())
+    flips = int((got.double() != y.float().double()).sum().item())
+    return [_close("x_dbl", st["x_dbl"], xdbl),
+            Stage("y", ok, f"max {r:.3f} of the scan tolerance; {flips} of {got.numel()} "
+                  f"not float32(float64 reference); {got.dtype}")]
+
+
+def check_fused_scan_serving(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                             A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                             scan_len: int, shift: bool, st: Mapping[str, torch.Tensor]
+                             ) -> List[Stage]:
+    """K5's serving stages ``st`` (``ops/nss_fused.nss_scan_fused_serving_stages``)
+    against float64, as ``check_scan_serving`` holds K2's (the same path and
+    x_dbl layout): y01 and y23 together as y in image layout. x: the body's
+    bf16 input."""
+    y = torch.cat([st["y01"], st["y23"].transpose(2, 3)], 1)
+    return check_scan_serving(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift,
+                              {"x_dbl": st["x_dbl"], "y": y, "pooled": st["pooled"]})

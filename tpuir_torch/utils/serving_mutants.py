@@ -1,11 +1,14 @@
 """Mutation controls for the serving checks, on the card.
 
-    python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer] [--dir DIR] [--jobs 4]
+    python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer|seq] [--dir DIR] [--jobs 4]
 
 Copies ``tpuir_torch/`` once per mutant into DIR (default: a temporary
 directory, removed at the end), plants one fault in the copy's serving
 body (``csrc/``), builds the copy's kernels there and runs the stage check
-of ``utils/serving_check.py`` on the copy's kernels:
+of ``utils/serving_check.py`` on the copy's kernels. Each copy starts from
+the checked tree's compiled objects (``ops/_kernels.py`` keys an object by
+its source and the headers it includes), so it recompiles only the
+sources its fault reaches:
 
 * ``K1`` (the default): ``check_serving_stages`` on
   ``ops/fused_block.serving_stages`` at Restormer@256's level-3 and level-1
@@ -16,15 +19,23 @@ of ``utils/serving_check.py`` on the copy's kernels:
   ``check_epilogue_serving``) on their ``*_serving_stages`` at MaIR-CDN's
   widths (seeded weights of block 0), 128x128 at batch 2 (K2 shift off and
   on) and the 96x72 tile at batch 1 (shift on), on inputs the plain
-  serving versions make.
+  serving versions make;
+* ``seq``: the checks of the serving bodies off the stripe route,
+  ``check_seq_scan_serving`` (K3) at MaIRUNet's two K3 levels of a 481x321
+  request (96x82 and 48x41, batch 1, seeded weights of that level's block
+  0, on xs gathered from the plain serving prologue's x) and
+  ``check_fused_scan_serving`` (K5) at MaIR-CDN's widths, 128x128 at batch
+  2 (shift on) and the 96x72 tile at batch 1 (shift off).
 
-The check must reject every mutant of ``MUTANTS`` (``MIXER_MUTANTS``) and
-accept the copy with no fault ("none"). ``MIXER_REPORTED`` are faults whose
+The check must reject every mutant of ``MUTANTS`` (``MIXER_MUTANTS``,
+``SEQ_MUTANTS``) and accept the copy with no fault ("none"); a mutant named
+for its kernels ("K3+K5 ...") is rejected when the check of each of those
+kernels rejects it. ``MIXER_REPORTED`` and ``SEQ_REPORTED`` are faults whose
 verdict is printed, not required: rounding differences the stage checks'
 tolerances may not resolve. One line a mutant (the stages that rejected
-it, with their numbers; for a mixer mutant every stage's numbers), then the
-verdict; exits 1 if a required mutant is accepted or "none" rejected. The
-source of the checked tree is never changed.
+it, with their numbers; for a mixer or seq mutant every stage's numbers),
+then the verdict; exits 1 if a required mutant is accepted or "none"
+rejected. The source of the checked tree is never changed.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FB, TC = "fused_block.cu", "tc_gemm.cuh"
 PRO, SCAN, EPI = "nss_prologue.cu", "chunk_scan.cuh", "nss_epilogue.cu"
+K3S, GEMM = "scan_fused_proj.cu", "simt_gemm.cuh"
 
 # mutant -> [(source under csrc/, text, its replacement)]; each text occurs once
 MUTANTS = {
@@ -82,8 +94,7 @@ MIXER_MUTANTS = {
     "none": [],
     "K6 in_proj unrounded (h, W_in)": [(PRO, "return prologue<tc::Bf16>(",
                                         "return prologue<tc::F32x3>(")],
-    "K2 x_proj W_xp unrounded": [
-        ("simt_gemm.cuh", "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
+    "K2 x_proj W_xp unrounded": [(GEMM, "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
     "K2 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
     "K7 out_proj unrounded (gated rows, W_out)": [
         (EPI, "epilogue<tc::Bf16, __nv_bfloat16, true>",
@@ -102,10 +113,38 @@ MIXER_REPORTED = {
                                "epilogue<tc::Bf16, __nv_bfloat16, false>")],
 }
 
+# the serving bodies off the stripe route (K3, K5): faults the check must reject
+SEQ_MUTANTS = {
+    "none": [],
+    "K3+K5 x_proj W_xp unrounded": MIXER_MUTANTS["K2 x_proj W_xp unrounded"],
+    "K3 B and C rounded": [
+        (K3S, "          load_vec<S>(bq + (j + jj) * CS + MAXN, cv);\n",
+         "          load_vec<S>(bq + (j + jj) * CS + MAXN, cv);\n"
+         "          if constexpr (kBf16)\n"
+         "            for (int s = 0; s < S; ++s)\n"
+         "              bv[s] = scan_round_bf16(bv[s]), cv[s] = scan_round_bf16(cv[s]);\n")],
+    "K3 y through bf16": [
+        (K3S, "fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]);",
+         "scan_round_bf16(fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]));")],
+    "K5 y truncated": MIXER_MUTANTS["K2 y truncated"],
+}
+# faults whose verdict is printed, not required
+SEQ_REPORTED = {
+    "K3+K5 dt operands unrounded": [
+        (K3S, "wdt[e] = kBf16 ? scan_round_bf16(w) : w;", "wdt[e] = w;"),
+        (K3S, "x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);", ""),
+        (K3S, "x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);", ""),
+        *MIXER_REPORTED["K2 dt operands unrounded"]],
+    "K5 pooled from the rounded y": MIXER_REPORTED["K2 pooled from the rounded y"],
+}
+
 # (label, H = W, C, heads): Restormer@256's level 3 and level 1, batch 8
 SHAPES = [("level3", 64, 192, 4), ("level1", 256, 48, 1)]
 # (label, B, H, W, K2's shifts): MaIR-CDN's mixer shapes
 MIXER_SHAPES = [("CDN@128 B=2", 2, 128, 128, (False, True)), ("96x72 B=1", 1, 96, 72, (True,))]
+# (kernel, B, H, W, MaIRUNet's stage whose block 0 gives K3's weights, or K5's shift)
+SEQ_SHAPES = [("K3", 1, 96, 82, "encoder_level3"), ("K3", 1, 48, 41, "latent"),
+              ("K5", 2, 128, 128, True), ("K5", 1, 96, 72, False)]
 
 _CHECK = r"""
 import json, sys
@@ -169,6 +208,47 @@ print(json.dumps(res))
 """
 
 
+_SEQ_CHECK = r"""
+import json, sys
+import numpy as np, torch
+from tpuir_torch.ops import _kernels
+_kernels.build(); _kernels.library()
+from tpuir_torch import zoo
+from tpuir_torch.core.engine import true_float32
+from tpuir_torch.models import mair, mair_unet
+from tpuir_torch.ops import nss_fused as k5, nss_prologue as pr, scan_fused_proj as k3
+from tpuir_torch.ops.scan_ids import scan_index_tensors
+from tpuir_torch.utils import serving_check as ck
+dev, res = torch.device("cuda", 0), {}
+sds = {"K3": mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0),
+       "K5": mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=0)}
+for kern, b, hh, ww, arg in json.loads(sys.argv[1]):
+    pre = (f"{arg}.0.self_attention." if kern == "K3"
+           else "layers.0.residual_group.blocks.0.self_attention.")
+    w = {k[len(pre):]: v.to(dev) for k, v in sds[kern].items() if k.startswith(pre)}
+    (two_di, dm), n = w["in_proj.weight"].shape, w["A_logs"].shape[1]
+    di = two_di // 2
+    scan_w = dict(x_proj_w=w["x_proj_weight"], dt_w=w["dt_projs_weight"],
+                  A=-torch.exp(w["A_logs"]).reshape(4, di, n), D=w["Ds"].reshape(4, di),
+                  delta_bias=w["dt_projs_bias"])
+    h = torch.from_numpy(np.random.RandomState(hh).randn(b, hh, ww, dm).astype(np.float32)).to(dev)
+    with torch.inference_mode(), true_float32():
+        x, _ = pr.mixer_prologue_serving_plain(h, w["in_proj.weight"], w["conv2d.weight"],
+                                               w["conv2d.bias"])
+        if kern == "K3":
+            ids, _ = scan_index_tensors(hh, ww, 4, 0, dev)
+            xs = x.reshape(b, hh * ww, di)[:, ids]
+            v = ck.check_seq_scan_serving(
+                xs, **scan_w, st=k3.selective_scan_fused_proj_serving_stages(xs, **scan_w))
+        else:
+            v = ck.check_fused_scan_serving(
+                x, **scan_w, scan_len=4, shift=arg,
+                st=k5.nss_scan_fused_serving_stages(x, **scan_w, shift=arg))
+    res[f"{kern} B={b} {hh}x{ww}"] = {s.name: [s.ok, s.detail] for s in v}
+print(json.dumps(res))
+"""
+
+
 def plant(src_dir: str, edits) -> None:
     """Apply a mutant's edits to the copy of tpuir_torch at src_dir."""
     for name, old, new in edits:
@@ -183,13 +263,18 @@ def plant(src_dir: str, edits) -> None:
 
 # bodies -> (required mutants, reported mutants, check script, its shapes)
 BODIES = {"K1": (MUTANTS, {}, _CHECK, SHAPES),
-          "mixer": (MIXER_MUTANTS, MIXER_REPORTED, _MIXER_CHECK, MIXER_SHAPES)}
+          "mixer": (MIXER_MUTANTS, MIXER_REPORTED, _MIXER_CHECK, MIXER_SHAPES),
+          "seq": (SEQ_MUTANTS, SEQ_REPORTED, _SEQ_CHECK, SEQ_SHAPES)}
 
 
 def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
+    from tpuir_torch.ops import _kernels
+
     d = os.path.join(root, "".join(c if c.isalnum() else "_" for c in name))
     shutil.copytree(_PKG, os.path.join(d, "tpuir_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
+    # the copy's build directory, as its ops/_kernels.py places it
+    shutil.copytree(_kernels.OBJ_DIR, os.path.join(d, "build", "tpuir_torch", "obj"))
     plant(os.path.join(d, "tpuir_torch"), edits)
     r = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=d,
                        capture_output=True, text=True)
@@ -198,11 +283,20 @@ def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
     return name, json.loads(r.stdout.strip().splitlines()[-1]), ""
 
 
-def _rejected(res: dict) -> bool:
-    """Whether a check script's result rejects: K1's lists the stages that
-    missed a shape; the mixer's gives every stage's [ok, detail]."""
-    return any(not v[0] if isinstance(v, list) else True
-               for stages in res.values() for v in stages.values())
+def _rejected(res: dict, name: str = "none") -> bool:
+    """Whether a check script's result rejects mutant ``name``: K1's lists
+    the stages that missed a shape; the mixer's and seq's give every stage's
+    [ok, detail] under labels that start with the kernel ("K2 ..."). A
+    mutant named for its kernels ("K3+K5 ...") is rejected when each of
+    their checks rejects it; any other, when any check does."""
+    def rejects(stages):
+        return any(not v[0] if isinstance(v, list) else True for v in stages.values())
+
+    named = [[st for label, st in res.items() if label.split()[0] == k]
+             for k in name.split()[0].split("+")]
+    if not all(named):
+        return any(rejects(st) for st in res.values())
+    return all(any(map(rejects, sts)) for sts in named)
 
 
 def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
@@ -210,8 +304,11 @@ def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
     ``root``, default a temporary directory), printing one line each.
     Returns {mutant: rejected (bool), or None if its copy did not build or
     run}."""
+    from tpuir_torch.ops import _kernels
+
     required, reported, script, shapes = BODIES[bodies]
     mutants = {**required, **reported}
+    _kernels.build()  # the checked tree's objects, which each copy starts from
     with tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_") as tmp:
         with ThreadPoolExecutor(jobs) as ex:
             runs = ex.map(lambda n: _run(root or tmp, n, mutants[n], script, shapes), mutants)
@@ -221,7 +318,7 @@ def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
                     print(f"{name}: the copy did not build or run:\n{err}", flush=True)
                     verdicts[name] = None
                     continue
-                verdicts[name] = _rejected(res)
+                verdicts[name] = _rejected(res, name)
                 tag = " (reported)" if name in reported else ""
                 print(f"{name}{tag}: {'rejected' if verdicts[name] else 'accepted'} "
                       f"{json.dumps(res)}", flush=True)
@@ -239,7 +336,8 @@ def failures(bodies: str, verdicts: dict) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bodies", choices=tuple(BODIES), default="K1",
-                    help="K1's serving body, or the MaIR mixer's (K6, K2, K7)")
+                    help="K1's serving body, the MaIR mixer's (K6, K2, K7), or MaIR's "
+                         "scans off the stripe route (K3, K5)")
     ap.add_argument("--dir", default=None, help="where the copies go (default: a temp dir)")
     ap.add_argument("--jobs", type=int, default=4, help="copies built and checked at once")
     args = ap.parse_args()

@@ -1,12 +1,11 @@
 """Model zoo of the PyTorch port: (task, subtask, model, gray, sigma) -> InferenceModel.
 
 The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
-(all 12 released configs, in parity and serving precision), MaIR-CDN
-(Gaussian color denoising, sigma 15, 25 and 50, in parity and serving
-precision) and MaIRUNet (MaIR's real denoising and motion deblurring); the
-other families, MaIRUNet's serving precision and MaIR serving off the
-stripe route raise ``NotImplementedError`` naming the ROADMAP item that
-ports them. Checkpoints are the released
+(all 12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15, 25
+and 50) and MaIRUNet (MaIR's real denoising and motion deblurring), each in
+parity and serving precision, MaIR on every NSS route; the other families
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Checkpoints are the released
 files, read with ``torch.load(..., weights_only=True)``; a missing file
 raises ``FileNotFoundError``, which the harness treats as "skip this cell".
 Models are built on the card unless the caller asks for another device.
@@ -26,7 +25,7 @@ from tpuir_torch.utils.misc import param_count
 
 def resolve_precision(precision: Optional[str] = None) -> str:
     """'parity' (default: true float32) or 'serving' (bf16 products and
-    activations where the JAX zoo takes them; Restormer and MaIR-CDN so far).
+    activations where the JAX zoo takes them: Restormer, MaIR-CDN, MaIRUNet).
     Defaults to the TPUIR_PRECISION environment variable."""
     p = precision or os.environ.get("TPUIR_PRECISION", "parity")
     if p not in ("parity", "serving"):
@@ -130,11 +129,12 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
     (``nss`` "stripe", the default) or K5 ("fused"), or K3 on levels those
     do not take (every level under "0"); see ``resolve_nss``.
 
-    ``precision="serving"`` builds MaIR-CDN with the serving bodies of K6,
-    K2 and K7 (``MaIR(serving=True)``, bf16 activations inside the mixers)
-    and ``compute_dtype="float32"``, as ``tpuir/zoo.py`` builds
-    ``MaIR(scan_io_dtype="bfloat16")``. It needs the stripe route: MaIRUNet's
-    serving waits for K3's serving body, the fused route for K5's."""
+    ``precision="serving"`` builds either model with its mixers' serving
+    bodies on the ``nss`` route (``MaIR(serving=True)``,
+    ``MaIRUNet(serving=True)``: K6, K2 and K7's, K5's or K3's, with bf16
+    activations inside the mixers) and ``compute_dtype="float32"``, as
+    ``tpuir/zoo.py`` builds ``MaIR(scan_io_dtype="bfloat16")`` and
+    ``MaIRUNet(scan_io_dtype="bfloat16")``."""
     from tpuir_torch.models import mair as m
     from tpuir_torch.models import mair_unet as mu
 
@@ -145,21 +145,12 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
         raise ValueError(f"no MaIR config for {task}/{subtask}")
     serving = resolve_precision(precision) == "serving"
     nss = resolve_nss(nss)
-    if serving and not gaussian:
-        raise NotImplementedError(
-            "MaIRUNet's precision='serving' is not ported yet: ROADMAP Queue 2 A3, "
-            "'K3 serving' (its odd pyramid levels take K3)")
-    if serving and nss != "stripe":
-        item = "A4, 'K5 serving'" if nss == "fused" else "A3, 'K3 serving'"
-        raise NotImplementedError(
-            f"MaIR's precision='serving' with nss={nss!r} is not ported yet: ROADMAP "
-            f"Queue 2 {item}")
     rel = (os.path.join("denoising", f"MaIR_CDN_s{sigma}.pth") if gaussian
            else MAIR_UNET_WEIGHTS[(task, subtask)])
     sd = _load_sd(os.path.join(weights_dir, "MaIR", rel), key="params")
     device = torch.device(device)
     net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving) if gaussian
-           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss))
+           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss, serving=serving))
     # keys the model does not hold (if a checkpoint carries any) are ignored,
     # as the JAX converter ignores them; a missing or misshapen one raises
     keys = net.state_dict().keys()
