@@ -141,6 +141,37 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     within 2 uint8 LSB of the same path with plain serving mixers, PSNR
     within 0.05 dB of the parity outputs of phase 5 or 7, engine Mpix/s
     beside parity's.
+15. K2's bf16-recurrence serving body (``nss_scan`` with ``serving=True,
+    recur_bf16=True``) at MaIR-CDN@128, batch 8 (shift off and on, timed
+    beside its plain version) and at the 96x72 tile, batch 1 (shift on), on
+    phase 4's seeded activations rounded to bf16: held stage by stage
+    (``utils/serving_check.check_nss_scan_recur_serving``: x_dbl against
+    float64, the level-2 carries bit for bit against their emulation from
+    the kernel's own x_dbl, y and pooled against float64 sums), bit for bit
+    on repeat; its mutation controls (``utils/serving_mutants.py --bodies
+    recur``: 5 required faults); then the seeded sigma=15 MaIR-CDN (phase
+    5's weights) on phase 5's 200x150 and 96x72 requests and the seeded
+    real-denoising MaIRUNet (phase 7's) on its 256x256 and 120x90 inputs,
+    each built through the zoo in parity, in serving and in serving with
+    ``recur_bf16=True``: the recur path three rounds (36 launches a chunk
+    of the recur body and none of ``nss_scan_serving``; MaIRUNet: one a
+    stripe-route level's block, K3's serving body elsewhere), repeatable,
+    within 2 uint8 LSB of the same path with plain mixers
+    (``nss_scan_recur_plain``), PSNR within 0.25 dB of parity (the mode is
+    opt-in and not held to serving's 0.05 dB: ``RECUR_PSNR_DB``); each request
+    prints PSNR(recur) - PSNR(serving), PSNR(recur) - PSNR(parity), the LSB
+    to the plain recur path and engine Mpix/s beside serving's.
+16. The evaluation harness on the card: seeded ``{'params': sd}``
+    checkpoints of the sigma=15 color Restormer and MaIR-CDN and two
+    synthetic CBSD68 images in a temporary tree;
+    ``tpuir_torch.harness.Harness(device="cuda")`` runs
+    ``gaussian_color_nonblind`` for both models in parity, in serving and
+    in serving with ``recur_bf16``, and ``save_results`` writes each run's
+    ``results_summary.csv``, whose columns must be tpuir's. Each run's
+    launches are counted (K1 or its serving body 44 a chunk; K6, K2 and K7,
+    their serving bodies, or the recur body in K2's place, 36 a chunk);
+    every row's PSNR must lie within 0.01 dB and its SSIM within 1e-3 of
+    the same run with the models' plain twins, the text columns equal.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -172,7 +203,9 @@ same ``bound_ms``: bf16 where the body moves bf16, their products at the
 bf16 rate, and for K2 also its exponentials, one a state update, at the
 special-function lanes' rate; so do K3 serving (per forward chunk of the
 481x321 request, as K3) and K5 serving (per call at MaIR-CDN@128, batch 8,
-the mean over both shifts). The last line is ``{"ok": true, "device":
+the mean over both shifts); so does K2's recur body (per call at
+MaIR-CDN@128, batch 8, the mean over both shifts: the serving body's work).
+The last line is ``{"ok": true, "device":
 {...}}``. Any failed phase raises,
 exits non-zero and prints no last line; so does a machine without a CUDA
 card.
@@ -241,6 +274,11 @@ F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
 SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
 SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
+# The bf16 recurrence (recur_bf16) is an opt-in mode that the JAX package keeps
+# off every default and never held to that contract: on the card it costs
+# MaIRUNet 0.08 dB at 256x256 (PERF.md), so its gate against parity is only a
+# bound that a broken body would cross; its correctness gate is its plain twin.
+RECUR_PSNR_DB = 0.25
 # P1's ops a second: a float32 mul or FMA is one instruction of the 128
 # float32 lanes an SM (67 TFLOP/s counts an FMA as two flops), an exp2 one
 # of the 16 special-function lanes (the Hopper architecture white paper)
@@ -267,8 +305,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "selective_scan_fused_proj_serving": ("tpuir_torch/csrc/scan_fused_proj.cu",
                                           "tpuir/ops/scan_pallas.py:340"),
     "nss_scan_fused_serving": ("tpuir_torch/csrc/nss_fused.cu", "tpuir/ops/nss_fused.py:247"),
+    # K2's serving body with the bf16 level-1 recurrence (recur_bf16=True)
+    "nss_scan_recur_serving": ("tpuir_torch/csrc/nss_scan.cu", "tpuir/ops/nss_stripe.py:218"),
 }
 MIXER_SERVING = ("mixer_prologue_serving", "nss_scan_serving", "mixer_epilogue_serving")
+RECUR_SIGMA = 15  # the recur path's MaIR-CDN (the harness's sigma=15 row)
+RECUR_MAIR_REQUESTS = [(200, 150), (96, 72)]
+RECUR_UNET_REQUESTS = [(256, 256), (120, 90)]
+HARNESS_IMAGES = [(96, 72), (64, 80)]  # one tile each for both models
+HARNESS_PSNR_DB, HARNESS_SSIM = 0.01, 1e-3  # a harness row against its plain-path twin
 
 
 def fail(msg: str) -> None:
@@ -1597,14 +1642,14 @@ def phase_serving_path(device, parity_outs, requests=REQUESTS):
 
 
 def check_serving_path(label, model, plain, images, sizes, per_chunk, sigma, parity_outs,
-                       refs=None):
+                       refs=None, psnr_db=SERVING_PSNR_DB):
     """Serve ``images`` (of ``sizes``) through the serving ``model`` ROUNDS
     times (``serve_kernel_rounds``: launches against ``per_chunk``, bit for
     bit on repeat) and once through its plain twin ``plain``; with ``sigma``
     the engine adds host AWGN, with None the images are served as they are,
     scored against ``refs`` (default: the images). On every request the
     serving output must lie within SERVING_LSB of the plain twin's, and its
-    PSNR within SERVING_PSNR_DB of the parity outputs ``parity_outs`` ({(h,
+    PSNR within ``psnr_db`` of the parity outputs ``parity_outs`` ({(h,
     w): (output, ms)}); engine Mpix/s is printed beside parity's. Returns
     {kernel: launches}."""
     from tpuir_torch.core.metrics import calculate_metrics
@@ -1624,7 +1669,7 @@ def check_serving_path(label, model, plain, images, sizes, per_chunk, sigma, par
               f"{diff} LSB", flush=True)
         if diff > SERVING_LSB:
             fail(f"the {label} path and its plain twin differ by {diff} LSB on {h}x{w}")
-        if abs(psnr - par_psnr) > SERVING_PSNR_DB:
+        if abs(psnr - par_psnr) > psnr_db:
             fail(f"{label} PSNR {psnr:.4f} dB is {psnr - par_psnr:+.4f} dB from parity on "
                  f"{h}x{w}")
     mpix = sum(h * w for h, w in sizes) / 1e6
@@ -2082,6 +2127,248 @@ def phase_seq_serving_path(device, unet_outs, mair_outs, unet_requests=UNET_REQU
     return launches
 
 
+def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), mutants=True):
+    """K2's bf16-recurrence body stage by stage (``check_serving_body`` with
+    ``check_nss_scan_recur_serving``) at MaIR-CDN@``tile``, batch ``batch``,
+    shift off and on (timed: plain, kernel, kernel, plain), and at the
+    ``rect`` tile, batch 1, shift on, on phase 4's seeded activations
+    rounded to bf16; then, with ``mutants``, its mutation controls. Returns
+    (max |kernel - plain|, ms, plain ms, bound ms, bound by) per call at
+    ``tile``, the mean over both shifts."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_recur_plain, nss_scan_recur_stages
+    from tpuir_torch.utils import serving_check as ck
+
+    cfg = zoo.MAIR_CDN_CONFIG
+    di = int(cfg["ssm_ratio"] * cfg["embed_dim"])
+    rows = []
+    with torch.inference_mode(), true_float32():
+        for b, hw, shifts, timed in ((batch, (tile, tile), (False, True), True),
+                                     (1, rect, (True,), False)):
+            _, scan, _ = mixer_inputs(device, b, hw)
+            x = scan.pop("x").to(torch.bfloat16)
+            n, r = scan["A"].shape[-1], scan["dt_w"].shape[-1]
+            for shift in shifts:
+                rows.append(check_serving_body(
+                    f"K2r B={b} {hw[0]}x{hw[1]} shift={int(shift)}",
+                    lambda: nss_scan_recur_stages(x, **scan, shift=shift),
+                    lambda st: ck.check_nss_scan_recur_serving(x, **scan, scan_len=4,
+                                                               shift=shift, st=st),
+                    lambda: nss_scan(x, **scan, shift=shift, serving=True, recur_bf16=True),
+                    lambda: nss_scan_recur_plain(x, **scan, shift=shift),
+                    lambda st: (st["y"], st["pooled"]),
+                    serving_scan_work(b * hw[0] * hw[1], di, n, r), 3, 1,
+                    "turns" if timed else None))
+            del x, scan
+            torch.cuda.empty_cache()
+    if mutants:
+        mutant_controls("recur", jobs=6)
+    timed_rows = rows[:2]
+    return (max(row[0] for row in rows), sum(row[1] for row in timed_rows) / 2,
+            sum(row[2] for row in timed_rows) / 2, timed_rows[0][3], timed_rows[0][4])
+
+
+def recur_per_chunk(per_chunk):
+    """A serving path's {kernel: launches a chunk} with K2's recur body in
+    place of K2's serving body, which must not launch."""
+    def recur(h, w):
+        out = dict(per_chunk(h, w))
+        out["nss_scan_recur_serving"] = out.pop("nss_scan_serving")
+        out["nss_scan_serving"] = 0
+        return out
+
+    return recur
+
+
+def phase_recur_path(device):
+    """MaIR-CDN sigma=15 and the real-denoising MaIRUNet built through the zoo
+    in parity, serving and serving with ``recur_bf16=True`` on the seeded
+    weights of phases 5 and 7: each request served once in parity and in
+    serving, then the recur path checked by ``check_serving_path`` against
+    parity and its plain twin (``MaIR(fused=False, serving=True,
+    recur_bf16=True)``); per request PSNR(recur) - PSNR(serving) and the
+    recur path's Mpix/s beside serving's are printed. Returns {kernel:
+    launches} of the recur paths."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.metrics import calculate_metrics
+    from tpuir_torch.models.mair import MaIR
+    from tpuir_torch.models.mair import init_state_dict as mair_state_dict
+    from tpuir_torch.models.mair_unet import MaIRUNet
+    from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
+
+    cfg_cdn, cfg_unet = zoo.MAIR_CDN_CONFIG, zoo.MAIR_UNET_CONFIG
+    sizes = UNET_KERNEL_ONLY + UNET_REQUESTS  # phase 7's images, by index
+    unet = {}
+    for hw in RECUR_UNET_REQUESTS:
+        i = sizes.index(hw)
+        clean = synthetic_image(*hw, SEED + i)
+        unet[hw] = (noisy_image(clean, SEED + 100 + i), clean)
+    cdn = {hw: synthetic_image(*hw, SEED + i) for i, hw in enumerate(RECUR_MAIR_REQUESTS)}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
+        os.makedirs(os.path.join(wdir, "MaIR", "denoising"))
+        torch.save({"params": mair_state_dict(cfg_cdn, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", f"MaIR_CDN_s{RECUR_SIGMA}.pth"))
+        torch.save({"params": unet_state_dict(cfg_unet, seed=SEED)},
+                   os.path.join(wdir, "MaIR", "denoising", "MaIR_RealDN.pth"))
+        for label, is_unet in (("MaIR-CDN recur", False), ("MaIRUNet recur", True)):
+            subtask, sigma = ("real", None) if is_unet else ("gaussian", RECUR_SIGMA)
+            reqs = RECUR_UNET_REQUESTS if is_unet else RECUR_MAIR_REQUESTS
+            images = [unet[hw][0] for hw in reqs] if is_unet else [cdn[hw] for hw in reqs]
+            refs = [unet[hw][1] for hw in reqs] if is_unet else images
+
+            def build(precision, recur=None):
+                return zoo.get_model_instance("denoising", subtask, "MaIR", sigma=sigma,
+                                              weights_dir=wdir, precision=precision,
+                                              device=device, recur_bf16=recur)
+
+            outs = {}
+            for mode in ("parity", "serving"):
+                model = build(mode, False)
+                serve(model, images[-1:], sigma, refs[-1:])  # warm-up
+                outs[mode] = {hw: (pred, ms) for hw, (pred, ms, _, _) in
+                              zip(reqs, serve(model, images, sigma, refs))}
+                del model
+            model = build("serving", True)
+            net = (MaIRUNet(**cfg_unet, fused=False, serving=True, recur_bf16=True) if is_unet
+                   else MaIR(**cfg_cdn, fused=False, serving=True, recur_bf16=True))
+            per_chunk = (unet_per_chunk(model, serving=True) if is_unet else
+                         lambda h, w: dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS))
+            print(f"{label}: recur_bf16 on, patch {model.patch_size} batch {model.batch_size}; "
+                  "per chunk " + ", ".join(f"{h}x{w}: {chunks_for(model, h, w)} x "
+                                           f"{recur_per_chunk(per_chunk)(h, w)}"
+                                           for h, w in reqs), flush=True)
+            got = check_serving_path(label, model, plain_twin(model, net), images, reqs,
+                                     recur_per_chunk(per_chunk), sigma, outs["parity"], refs,
+                                     RECUR_PSNR_DB)
+            rec = {hw: (pred, ms) for hw, (pred, ms, _, _) in
+                   zip(reqs, serve(model, images, sigma, refs))}
+            for hw, ref in zip(reqs, refs):
+                p_rec = calculate_metrics(rec[hw][0], ref)[0]
+                p_srv, p_par = (calculate_metrics(outs[m][hw][0], ref)[0]
+                                for m in ("serving", "parity"))
+                px = hw[0] * hw[1] / 1e3
+                print(f"{label} request {hw[0]}x{hw[1]}x3: PSNR(recur) - PSNR(serving) "
+                      f"{p_rec - p_srv:+.4f} dB, PSNR(recur) - PSNR(parity) "
+                      f"{p_rec - p_par:+.4f} dB, max|recur-serving| "
+                      f"{lsb(rec[hw][0], outs['serving'][hw][0])} LSB; engine recur "
+                      f"{px / rec[hw][1]:.3f} Mpix/s, serving {px / outs['serving'][hw][1]:.3f} "
+                      f"Mpix/s", flush=True)
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            del model, net
+            torch.cuda.empty_cache()
+    return launches
+
+
+def plain_harness(**kw):
+    """``tpuir_torch.harness.Harness(**kw)`` serving the plain twins of the
+    zoo's models (Restormer's plain blocks, MaIR's plain mixers in the same
+    precision and recurrence)."""
+    from tpuir_torch import harness, zoo
+    from tpuir_torch.models.mair import MaIR
+    from tpuir_torch.models.restormer import Restormer
+
+    class Plain(harness.Harness):
+        def _model(self, task, subtask, model_name, gray, sigma):
+            model = super()._model(task, subtask, model_name, gray, sigma)
+            if model.name == "Restormer":
+                net = Restormer(**CONFIG, fused=False, serving=model.compute_dtype is not None)
+            else:
+                mixer = next(m for m in model.net.modules() if hasattr(m, "recur_bf16"))
+                net = MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, serving=mixer.serving,
+                           recur_bf16=mixer.recur_bf16)
+            twin = plain_twin(model, net)
+            twin.name, twin.param_count = model.name, model.param_count
+            return twin
+
+    return Plain(**kw)
+
+
+def phase_harness(device):
+    """The port's evaluation harness on the card (see phase 16 in the module
+    docstring). Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch import harness
+    from tpuir_torch.core.image_io import imwrite_uint
+    from tpuir_torch.models.mair import init_state_dict as mair_state_dict
+    from tpuir_torch.models.restormer import init_state_dict as restormer_state_dict
+    from tpuir_torch.ops import _kernels
+
+    per_chunk = {
+        ("parity", False): {"fused_transformer_block": 44, "mixer_prologue": 36,
+                            "nss_scan": 36, "mixer_epilogue": 36},
+        ("serving", False): {"fused_transformer_block_serving": 44,
+                             **dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS)},
+        ("serving", True): {"fused_transformer_block_serving": 44,
+                            "mixer_prologue_serving": 36, "nss_scan_recur_serving": 36,
+                            "mixer_epilogue_serving": 36},
+    }
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_harness_") as root:
+        wdir = os.path.join(root, "weights")
+        for rel, sd in (("Restormer/denoising/gaussian_color_denoising_sigma15.pth",
+                         restormer_state_dict(CONFIG, seed=SEED)),
+                        (f"MaIR/denoising/MaIR_CDN_s{RECUR_SIGMA}.pth",
+                         mair_state_dict(None, seed=SEED))):
+            os.makedirs(os.path.dirname(os.path.join(wdir, rel)), exist_ok=True)
+            torch.save({"params": sd}, os.path.join(wdir, rel))
+        ds = os.path.join(root, "datasets", "denoising", "gaussian", "test", "CBSD68")
+        os.makedirs(ds)
+        for i, (h, w) in enumerate(HARNESS_IMAGES):
+            imwrite_uint(os.path.join(ds, f"{i + 1:02d}.png"), synthetic_image(h, w, SEED + 7 + i))
+        saved = os.environ.get("TPUIR_DATASET_DIR")
+        os.environ["TPUIR_DATASET_DIR"] = os.path.join(root, "datasets")
+        cell = dict(datasets=("CBSD68",), sigmas=(RECUR_SIGMA,), models=("Restormer", "MaIR"))
+        for (precision, recur), want_chunk in per_chunk.items():
+            tag = f"{precision}{' recur' if recur else ''}"
+            kw = dict(weights_dir=wdir, save_images=False, device=device, precision=precision,
+                      recur_bf16=recur)
+            h = harness.Harness(results_dir=os.path.join(root, tag.replace(" ", "_")), **kw)
+            _kernels.reset_launches()
+            t0 = time.time()
+            h.gaussian_color_nonblind(**cell)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            got = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+            want = {k: n * len(HARNESS_IMAGES) for k, n in want_chunk.items()}  # a chunk an image
+            print(f"harness {tag}: {len(h.results_table)} rows in {secs:.1f} s; launches {got}",
+                  flush=True)
+            if got != want:
+                fail(f"harness {tag}: launches {got}, expected {want}")
+            path = h.save_results()
+            with open(path) as f:
+                header = f.readline().strip().split(",")
+            if tuple(header) != harness.COLUMNS:
+                fail(f"harness {tag}: CSV columns {header}")
+            plain = plain_harness(results_dir=os.path.join(root, "plain"), **kw)
+            plain.gaussian_color_nonblind(**cell)
+            if [r["Model"] for r in h.results_table] != ["Restormer", "MaIR"]:
+                fail(f"harness {tag}: rows {[r['Model'] for r in h.results_table]}")
+            for row, ref in zip(h.results_table, plain.results_table):
+                text = [c for c in harness.COLUMNS[:6] if row[c] != ref[c]]
+                dp, ds_ = abs(row["PSNR"] - ref["PSNR"]), abs(row["SSIM"] - ref["SSIM"])
+                print(f"harness {tag} row {row['Model']}: PSNR {row['PSNR']:.4f} dB SSIM "
+                      f"{row['SSIM']:.5f} (plain path {ref['PSNR']:.4f} dB {ref['SSIM']:.5f}), "
+                      f"{row['Avg_Time_ms']:.1f} ms an image", flush=True)
+                if text or dp > HARNESS_PSNR_DB or ds_ > HARNESS_SSIM:
+                    fail(f"harness {tag} row {row['Model']} against the plain path: columns "
+                         f"{text} differ, PSNR by {dp:.4f} dB, SSIM by {ds_:.5f}")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+        if saved is None:
+            del os.environ["TPUIR_DATASET_DIR"]
+        else:
+            os.environ["TPUIR_DATASET_DIR"] = saved
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2186,6 +2473,17 @@ def main() -> int:
     for name, n in phase_seq_serving_path(device, unet_outs, mair_outs).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[MaIRUNet and off-stripe serving paths {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    rows["nss_scan_recur_serving"] = phase_recur_kernels(device)
+    print(f"[recur kernels {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_recur_path(device).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[recur paths {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_harness(device).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[harness {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -1,15 +1,19 @@
-"""Weights directory and per-model patch configuration.
+"""Directory roots and per-model patch configuration.
 
-The port's own copy of ``tpuir/config.py``'s patch table and its
-variant selection (the original's ``get_patch_config``), held equal to it
-by ``tests/test_torch_host.py``.
+The port's own copy of ``tpuir/config.py``: the dataset, weights and
+results roots (``TPUIR_DATASET_DIR``, ``TPUIR_WEIGHTS_DIR``,
+``TPUIR_RESULTS_DIR``), the patch table and its variant selection (the
+original's ``get_patch_config``), held equal to it by
+``tests/test_torch_host.py`` and ``tests/test_torch_harness.py``.
 """
 
 from __future__ import annotations
 
 import os
 
+ROOT_DATASET_DIR = os.environ.get("TPUIR_DATASET_DIR", "datasets")
 ROOT_WEIGHTS_DIR = os.environ.get("TPUIR_WEIGHTS_DIR", "weights")
+ROOT_RESULTS_DIR = os.environ.get("TPUIR_RESULTS_DIR", "results")
 
 PATCH_CONFIG = {
     "REDNet": {"patch_size": 128, "patch_overlap": 32},

@@ -51,6 +51,12 @@ out_norm's output and z rounded to bf16, ``silu_bf16``, their product
 rounded, out_proj in float32 on the float32 weight). Every other layer
 stays float32. The parameters stay float32 in both precisions, so a
 released ``.pth`` loads as it is.
+
+``recur_bf16=True`` (the JAX module's ``TPUIR_RECUR_BF16=1``) takes K2's
+bf16-recurrence serving body on the stripe route, and only there and only
+in serving precision, as ``tpuir/models/mair.py:248-254`` passes it: the
+fused and sequence routes, and parity, ignore it. With ``fused=False`` the
+stripe route takes its plain version, ``nss_scan_recur_plain``.
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from tpuir_torch.ops.nss_fused import (nss_scan_fused, nss_scan_fused_plain,
                                        nss_scan_fused_serving_plain)
 from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_plain,
                                           mixer_prologue_serving_plain)
-from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain, nss_scan_serving_plain
+from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_plain, nss_scan_recur_plain,
+                                        nss_scan_serving_plain)
 from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
                                              selective_scan_fused_proj_plain,
                                              selective_scan_fused_proj_serving_plain)
@@ -132,11 +139,13 @@ class SSMixer(nn.Module):
 
     def __init__(self, d_model: int, d_state: int = 16, expand: float = 2.0,
                  scan_len: int = 4, fused: bool = True, nss: str = "stripe",
-                 serving: bool = False):
+                 serving: bool = False, recur_bf16: bool = False):
         super().__init__()
         if nss not in NSS_MODES:
             raise ValueError(f"nss must be one of {NSS_MODES}, got {nss!r}")
         self.serving = serving
+        # the bf16 recurrence is a serving body of the stripe route's K2 only
+        self.recur_bf16 = serving and recur_bf16
         self.d_inner = d_inner = int(expand * d_model)
         self.dt_rank = math.ceil(d_model / 16)
         self.d_state = d_state
@@ -188,12 +197,14 @@ class SSMixer(nn.Module):
         if route == "fused":
             return self._fused_route(h, shift, scan_w)
         if self.fused:
-            prologue, scan, epilogue = (
-                functools.partial(f, serving=self.serving)
-                for f in (mixer_prologue, nss_scan, mixer_epilogue))
+            prologue, epilogue = (functools.partial(f, serving=self.serving)
+                                  for f in (mixer_prologue, mixer_epilogue))
+            scan = functools.partial(nss_scan, serving=self.serving, recur_bf16=self.recur_bf16)
         elif self.serving:
-            prologue, scan, epilogue = (mixer_prologue_serving_plain, nss_scan_serving_plain,
-                                        mixer_epilogue_serving_plain)
+            prologue, scan, epilogue = (
+                mixer_prologue_serving_plain,
+                nss_scan_recur_plain if self.recur_bf16 else nss_scan_serving_plain,
+                mixer_epilogue_serving_plain)
         else:
             prologue, scan, epilogue = mixer_prologue_plain, nss_scan_plain, mixer_epilogue_plain
         x, z = prologue(h.contiguous(), self.in_proj.weight, self.conv2d.weight,
@@ -283,10 +294,11 @@ class MaIRBlock(nn.Module):
 
     def __init__(self, dim: int, d_state: int, ssm_ratio: float, mlp_ratio: float,
                  scan_len: int = 4, fused: bool = True, mlp_attr: str = "conv_blk",
-                 nss: str = "stripe", serving: bool = False):
+                 nss: str = "stripe", serving: bool = False, recur_bf16: bool = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim)
-        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused, nss, serving)
+        self.self_attention = SSMixer(dim, d_state, ssm_ratio, scan_len, fused, nss, serving,
+                                      recur_bf16)
         self.skip_scale = nn.Parameter(torch.ones(dim))
         self.ln_2 = nn.LayerNorm(dim)
         self.mlp_attr = mlp_attr
@@ -312,11 +324,11 @@ class RMG(nn.Module):
 
     def __init__(self, dim: int, depth: int, d_state: int, ssm_ratio: float,
                  mlp_ratio: float, scan_len: int, fused: bool, nss: str = "stripe",
-                 serving: bool = False):
+                 serving: bool = False, recur_bf16: bool = False):
         super().__init__()
         self.residual_group = ResidualGroup(
             [MaIRBlock(dim, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss=nss,
-                       serving=serving)
+                       serving=serving, recur_bf16=recur_bf16)
              for _ in range(depth)])
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
@@ -337,13 +349,14 @@ class PatchEmbed(nn.Module):
 
 class MaIR(nn.Module):
     """Flat MaIR for Gaussian color denoising (upsampler None, 1conv);
-    ``serving`` takes the mixers' serving bodies (see the module docstring)."""
+    ``serving`` takes the mixers' serving bodies, ``recur_bf16`` K2's
+    bf16-recurrence one among them (see the module docstring)."""
 
     def __init__(self, in_chans: int = 3, embed_dim: int = 180,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6), d_state: int = 16,
                  ssm_ratio: float = 1.3, mlp_ratio: float = 2.0, scan_len: int = 4,
                  img_range: float = 1.0, fused: bool = True, nss: str = "stripe",
-                 serving: bool = False):
+                 serving: bool = False, recur_bf16: bool = False):
         super().__init__()
         self.img_range = img_range
         mean = [0.4488, 0.4371, 0.4040] if in_chans == 3 else [0.0] * in_chans
@@ -352,7 +365,8 @@ class MaIR(nn.Module):
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, padding=1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
-            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss, serving)
+            RMG(embed_dim, depth, d_state, ssm_ratio, mlp_ratio, scan_len, fused, nss, serving,
+                recur_bf16)
             for depth in depths
         ])
         self.norm = nn.LayerNorm(embed_dim)

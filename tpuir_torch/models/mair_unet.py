@@ -17,7 +17,9 @@ are multiples of it; "0": none of those), K3 on gathered sequences
 elsewhere. ``fused`` picks the kernel wrappers or their plain versions, as
 in ``MaIR``, and ``serving`` every mixer's serving precision (the JAX
 module's ``scan_io_dtype="bfloat16"``: the serving bodies of K6, K2 and K7,
-K5 or K3 on each level's route; see ``models/mair.py``). Modules take NCHW
+K5 or K3 on each level's route; see ``models/mair.py``), and ``recur_bf16``
+K2's bf16-recurrence serving body on the stripe levels (the JAX module's
+``TPUIR_RECUR_BF16=1``). Modules take NCHW
 outside; the blocks run on contiguous NHWC (B, H, W, C) tensors, and the
 convs see them as channels_last views. Parameter names are the released
 checkpoints' (upstream MaIRUNet), so ``load_state_dict`` reads a released
@@ -55,13 +57,14 @@ class MaIRUNet(nn.Module):
                  ssm_ratio: float = 2.0, flp_ratio: float = 4.0, mlp_ratio: float = 1.5,
                  bias: bool = False, dual_pixel_task: bool = False, scan_len: int = 4,
                  base_d_state: int = 4, fused: bool = True, nss: str = "stripe",
-                 serving: bool = False):
+                 serving: bool = False, recur_bf16: bool = False):
         super().__init__()
         nb, ds = num_blocks, base_d_state
 
         def stage(n, width, d_state, ratio):
             return nn.ModuleList([MaIRBlock(width, d_state, ssm_ratio, ratio, scan_len, fused,
-                                            mlp_attr="mlp", nss=nss, serving=serving)
+                                            mlp_attr="mlp", nss=nss, serving=serving,
+                                            recur_bf16=recur_bf16)
                                   for _ in range(n)])
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, dim, bias)

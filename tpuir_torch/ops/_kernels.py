@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "fused_transformer_block": 0, "fused_transformer_block_serving": 0, "mixer_prologue": 0,
     "nss_scan": 0, "mixer_epilogue": 0, "mixer_prologue_serving": 0, "nss_scan_serving": 0,
-    "mixer_epilogue_serving": 0, "selective_scan_fused_proj": 0,
+    "mixer_epilogue_serving": 0, "nss_scan_recur_serving": 0, "selective_scan_fused_proj": 0,
     "selective_scan_fused_proj_serving": 0, "nss_scan_fused": 0, "nss_scan_fused_serving": 0,
     "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0, "tc_gemm_bf16": 0,
 }
@@ -172,6 +172,10 @@ def library() -> ctypes.CDLL:
         lib.tpuir_nss_scan_f32.restype = ci
         lib.tpuir_nss_scan_bf16.argtypes = lib.tpuir_nss_scan_f32.argtypes
         lib.tpuir_nss_scan_bf16.restype = ci
+        lib.tpuir_nss_scan_recur_bf16.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+        lib.tpuir_nss_scan_recur_bf16.restype = ci
+        lib.tpuir_nss_scan_recur_scratch_numel.argtypes = [ci] * 6
+        lib.tpuir_nss_scan_recur_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_mixer_epilogue_f32.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         lib.tpuir_mixer_epilogue_f32.restype = ci
         lib.tpuir_mixer_epilogue_bf16.argtypes = lib.tpuir_mixer_epilogue_f32.argtypes

@@ -4,7 +4,9 @@ The port's copy of ``tpuir/ops/scan_ids.py`` (pure NumPy), held equal to it
 by ``tests/test_torch_nss.py``, plus ``scan_ids_tensor``, which hands the
 table to a kernel as an int32 tensor on its device, and
 ``scan_index_tensors``, the table and its inverse as int64 index tensors
-for the gathers around K3. Semantics:
+for the gathers around K3, and the level-1 subchunks of K2's bf16
+recurrence (``mair_subchunk_starts``, the kernel's ``mair_subchunk_offsets``
+and the plain version's ``mair_subchunk_layout``). Semantics:
 
 * The image is cut into vertical stripes of width ``scan_len`` (optionally
   preceded by a narrow stripe of width ``shift_len``).
@@ -117,3 +119,115 @@ def scan_index_tensors(H: int, W: int, scan_len: int, shift_len: int,
                          for a in mair_scan_ids(H, W, scan_len, shift_len))
             _DEVICE_IDS[key] = pair
     return pair
+
+
+# --- the level-1 subchunks of K2's bf16 recurrence -------------------------
+#
+# tpuir/ops/nss_stripe.py's recur_bf16 body restarts its bf16 level-1
+# recurrence every ``rp`` rows of a stripe (a subchunk) and chains the
+# subchunks' float32 carries in sequence order. In the compact sequence a
+# stripe of width w and length n (n = H for directions 0 and 1, W for 2 and
+# 3) is n rows of w positions in walk order, so its subchunks are runs of
+# rp * w positions: 16 in a full stripe, 8 in a shifted half-width lead or
+# tail stripe at MaIR's scan_len 4 and vert_p 16. A row-reversed stripe
+# walks its subchunks in reverse, but rp divides n, so the boundaries still
+# fall every rp rows of the walk.
+
+
+def subchunk_rows(n: int, scan_len: int, vert_p: int = 16) -> int:
+    """rp, the rows of a level-1 subchunk of a stripe of length n: even,
+    dividing n, as near vert_p // scan_len as it can be (the rule of
+    ``tpuir/ops/nss_stripe.py:_seg_params``; its segment count moves no
+    boundary)."""
+    rp = max(2, (vert_p // scan_len) // 2 * 2)
+    while n % rp:
+        rp -= 2
+    return rp
+
+
+def _stripe_widths(cols: int, scan_len: int, shift_len: int):
+    """The widths of the stripes of a grid ``cols`` wide, left to right, as
+    ``_nss_flatten`` cuts them."""
+    widths = [min(shift_len, cols)] if shift_len else []
+    s = shift_len
+    while s < cols:
+        widths.append(min(scan_len, cols - s))
+        s += scan_len
+    return widths
+
+
+def _class_dims(H: int, W: int, k: int) -> Tuple[int, int]:
+    """(stripe length, grid width) of direction k's oriented grid."""
+    return (H, W) if k < 2 else (W, H)
+
+
+@lru_cache(maxsize=256)
+def mair_subchunk_starts(H: int, W: int, scan_len: int = 4, shift_len: int = 0,
+                         vert_p: int = 16) -> np.ndarray:
+    """(4, H*W) uint8: 1 where direction k's compact sequence starts a
+    level-1 subchunk (``ids`` of ``mair_scan_ids`` order), else 0. Position
+    0 of every direction is a start."""
+    starts = np.zeros((4, H * W), np.uint8)
+    for k in range(4):
+        n, cols = _class_dims(H, W, k)
+        rp = subchunk_rows(n, scan_len, vert_p)
+        t = 0
+        for w in _stripe_widths(cols, scan_len, shift_len):
+            starts[k, t:t + n * w:rp * w] = 1
+            t += n * w
+    return starts
+
+
+@lru_cache(maxsize=256)
+def mair_subchunk_layout(H: int, W: int, scan_len: int = 4, shift_len: int = 0,
+                         vert_p: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+    """(layout, count): ``layout`` (4, S, P) int64 lists each direction's
+    subchunks in sequence order, slot p of subchunk s holding the compact
+    position it scans, or -1 past a short subchunk's end and past a
+    direction's last subchunk (identity steps of the recurrence; P is the
+    longest subchunk, S the most subchunks of a direction); ``count`` (4,)
+    the subchunks of each direction."""
+    runs = []
+    for k in range(4):
+        n, cols = _class_dims(H, W, k)
+        rows = subchunk_rows(n, scan_len, vert_p)
+        runs.append([rows * w for w in _stripe_widths(cols, scan_len, shift_len)
+                     for _ in range(n // rows)])
+    S = max(len(r) for r in runs)
+    P = max(max(r) for r in runs)
+    layout = np.full((4, S, P), -1, np.int64)
+    for k, r in enumerate(runs):
+        t = 0
+        for s, m in enumerate(r):
+            layout[k, s, :m] = np.arange(t, t + m)
+            t += m
+    return layout, np.array([len(r) for r in runs], np.int64)
+
+
+def mair_subchunk_offsets(H: int, W: int, scan_len: int = 4, shift_len: int = 0,
+                          vert_p: int = 16) -> np.ndarray:
+    """(4, S + 1) int32: where each of direction k's subchunks starts in its
+    compact sequence (the marks of ``mair_subchunk_starts``, in order),
+    padded with H*W past its last one; S is the most subchunks of a
+    direction."""
+    starts = mair_subchunk_starts(H, W, scan_len, shift_len, vert_p)
+    firsts = [np.flatnonzero(row) for row in starts]
+    off = np.full((4, max(len(f) for f in firsts) + 1), H * W, np.int32)
+    for k, f in enumerate(firsts):
+        off[k, :len(f)] = f
+    return off
+
+
+def subchunk_offsets_tensor(H: int, W: int, scan_len: int, shift_len: int,
+                            device: torch.device, vert_p: int = 16) -> torch.Tensor:
+    """``mair_subchunk_offsets`` as a contiguous int32 tensor on ``device``,
+    cached as ``scan_ids_tensor`` caches the ids. Callers must not write to
+    it."""
+    key = (H, W, scan_len, shift_len, str(torch.device(device)), "offsets", vert_p)
+    with _DEVICE_IDS_LOCK:
+        t = _DEVICE_IDS.get(key)
+        if t is None:
+            t = torch.from_numpy(mair_subchunk_offsets(H, W, scan_len, shift_len, vert_p)).to(
+                device)
+            _DEVICE_IDS[key] = t
+    return t

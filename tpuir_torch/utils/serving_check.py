@@ -47,6 +47,23 @@ reads back from the kernel, so nothing is emulated bit for bit:
   variance), the output against float64 sums of bf16(gated) . bf16(W_out)
   from the kernel's own gated rows.
 
+K2's bf16-recurrence body (``check_nss_scan_recur_serving``, on the stages
+of ``ops/nss_stripe.nss_scan_recur_stages``) is the one whose float32
+arithmetic decides bf16 values inside the body, at every step of its
+level-1 recurrence, so its middle stage is emulated bit for bit:
+
+* x_dbl against float64 sums of bf16(x) . bf16(W_xp), as K2's;
+* the level-2 carries (cc at each subchunk's start) against
+  ``ops/nss_stripe.recur_from_xdbl`` on the kernel's own x_dbl, bit for
+  bit: dt, the decays, the level-1 roundings and the carry chain are the
+  kernel's float32 operations, which PyTorch's float32 ops on the same
+  card repeat (exp2f, expf, log1pf; each product of two bf16 values exact),
+  with the subchunks of ``ops/scan_ids.mair_subchunk_layout``, not the
+  kernel's table;
+* y (bf16) the rounding of a value within RECUR_RTOL sum_n |h C_n| + |D x|
+  of its float64 sum from those emulated h, and pooled within SCAN_ATOL +
+  SCAN_RTOL sum|y| of its float64 sum.
+
 The sequence route's K3 (``check_seq_scan_serving``) and the fused route's
 K5 (``check_fused_scan_serving``) are held as K2: x_dbl against float64
 sums of bf16(x) . bf16(W_xp), then the scan in float64 from the kernel's
@@ -66,6 +83,9 @@ import torch.nn.functional as F
 
 ATOL, RTOL = 5e-5, 1e-4  # the GEMM core's card tolerance against float64
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # the JAX package's scan tolerance (tests/test_mair.py)
+# the recurrence body's y against its float64 sum from the emulated h, as a
+# share of sum_n |h C_n| + |D x|: its float32 sum rounds about 11 times
+RECUR_RTOL = 4e-6
 GRAM_CHUNK = 256  # pixels a Gram partial (csrc/fused_block.cu kGramChunk)
 EPS = torch.tensor(1e-5, dtype=torch.float32).item()  # 1e-5f, as the kernel adds it
 
@@ -423,3 +443,45 @@ def check_fused_scan_serving(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torc
     y = torch.cat([st["y01"], st["y23"].transpose(2, 3)], 1)
     return check_scan_serving(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift,
                               {"x_dbl": st["x_dbl"], "y": y, "pooled": st["pooled"]})
+
+
+# --- K2's bf16-recurrence body ---------------------------------------------
+
+
+def check_nss_scan_recur_serving(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
+                                 A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
+                                 scan_len: int, shift: bool, st: Mapping[str, torch.Tensor]
+                                 ) -> List[Stage]:
+    """K2's bf16-recurrence stages ``st`` (``ops/nss_stripe.nss_scan_recur_stages``):
+    x_dbl against float64, the level-2 carries bit for bit against their
+    emulation from the kernel's own x_dbl, y and pooled against float64
+    sums of the emulated h. x: the body's bf16 input. Run on the kernel's
+    card: the emulation's exp2, exp and log1p are that card's."""
+    from tpuir_torch.ops.nss_stripe import recur_from_xdbl
+
+    B, H, W, d = x.shape
+    xw = x.reshape(B, H * W, d).float()
+    xdbl = torch.einsum("bld,kcd->blkc", xw.double(), _bf16(x_proj_w, torch.float64))
+    y, pooled, carries, mag = recur_from_xdbl(xw, st["x_dbl"].float(), dt_w, A, D, delta_bias,
+                                              H, W, scan_len, shift, torch.float64,
+                                              magnitude=True)
+    got = st["carries"]
+    same_shape = tuple(got.shape) == tuple(carries.shape)
+    n = _differ(got, carries) if same_shape else carries.numel()
+    rel = ((got.double() - carries.double()).abs().max().item() if same_shape else float("nan"))
+    lo, hi = ((y + s * RECUR_RTOL * mag).to(torch.bfloat16).double() for s in (-1, 1))
+    g = st["y"].double()
+    outside = int(((g < lo) | (g > hi) | ~torch.isfinite(g)).sum().item())
+    flips = int((g != y.to(torch.bfloat16).double()).sum().item())
+    bound = SCAN_ATOL + SCAN_RTOL * y.abs().sum((2, 3))
+    r = ((st["pooled"].double() - pooled).abs() / bound).max().item()
+    finite = bool(torch.isfinite(st["pooled"]).all().item())
+    return [_close("x_dbl", st["x_dbl"], xdbl),
+            Stage("level-2 carries", same_shape and n == 0,
+                  f"{n} of {carries.numel()} values differ (max |diff| {rel:.3g}); "
+                  f"shape {tuple(got.shape)}, want {tuple(carries.shape)}"),
+            Stage("y", outside == 0, f"{outside} values not the rounding of one within "
+                  f"RECUR_RTOL of the emulated h's sum; {flips} of {g.numel()} not "
+                  f"bf16(float64 reference)"),
+            Stage("pooled", r <= 1.0 and finite,
+                  f"max {r:.3f} of the tolerance (atol + rtol sum|y|)")]

@@ -1,10 +1,11 @@
 """Mutation controls for the serving checks, on the card.
 
-    python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer|seq] [--dir DIR] [--jobs 4]
+    python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer|seq|recur] [--dir DIR] [--jobs 4]
 
 Copies ``tpuir_torch/`` once per mutant into DIR (default: a temporary
 directory, removed at the end), plants one fault in the copy's serving
-body (``csrc/``), builds the copy's kernels there and runs the stage check
+body (``csrc/``, or for the recurrence body its subchunk table in
+``ops/scan_ids.py``), builds the copy's kernels there and runs the stage check
 of ``utils/serving_check.py`` on the copy's kernels. Each copy starts from
 the checked tree's compiled objects (``ops/_kernels.py`` keys an object by
 its source and the headers it includes), so it recompiles only the
@@ -25,10 +26,14 @@ sources its fault reaches:
   request (96x82 and 48x41, batch 1, seeded weights of that level's block
   0, on xs gathered from the plain serving prologue's x) and
   ``check_fused_scan_serving`` (K5) at MaIR-CDN's widths, 128x128 at batch
-  2 (shift on) and the 96x72 tile at batch 1 (shift off).
+  2 (shift on) and the 96x72 tile at batch 1 (shift off);
+* ``recur``: ``check_nss_scan_recur_serving`` on ``nss_scan_recur_stages``
+  (K2's bf16-recurrence body) at MaIR-CDN's widths, 128x128 at batch 2
+  (shift off and on) and the 96x72 tile at batch 1 (shift on), on inputs
+  the plain serving prologue makes.
 
 The check must reject every mutant of ``MUTANTS`` (``MIXER_MUTANTS``,
-``SEQ_MUTANTS``) and accept the copy with no fault ("none"); a mutant named
+``SEQ_MUTANTS``, ``RECUR_MUTANTS``) and accept the copy with no fault ("none"); a mutant named
 for its kernels ("K3+K5 ...") is rejected when the check of each of those
 kernels rejects it. ``MIXER_REPORTED`` and ``SEQ_REPORTED`` are faults whose
 verdict is printed, not required: rounding differences the stage checks'
@@ -53,6 +58,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FB, TC = "fused_block.cu", "tc_gemm.cuh"
 PRO, SCAN, EPI = "nss_prologue.cu", "chunk_scan.cuh", "nss_epilogue.cu"
 K3S, GEMM = "scan_fused_proj.cu", "simt_gemm.cuh"
+K2S, IDS = "nss_scan.cu", "../ops/scan_ids.py"
 
 # mutant -> [(source under csrc/, text, its replacement)]; each text occurs once
 MUTANTS = {
@@ -136,6 +142,26 @@ SEQ_REPORTED = {
         (K3S, "x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);", ""),
         *MIXER_REPORTED["K2 dt operands unrounded"]],
     "K5 pooled from the rounded y": MIXER_REPORTED["K2 pooled from the rounded y"],
+}
+
+# K2's bf16-recurrence body: faults the check must reject
+RECUR_MUTANTS = {
+    "none": [],
+    "K2r level 1 in float32": [
+        (K2S, "const float av = recur_bf16(exp2f(__fmul_rn(dt, a2[i])));",
+         "const float av = exp2f(__fmul_rn(dt, a2[i]));"),
+        (K2S, "const float bv = recur_bf16(__fmul_rn(row[R + n], du));",
+         "const float bv = __fmul_rn(row[R + n], du);"),
+        (K2S, "hA[i] = recur_bf16(av * hA[i]);", "hA[i] = av * hA[i];"),
+        (K2S, "hB[i] = recur_bf16(__fadd_rn(recur_bf16(av * hB[i]), bv));",
+         "hB[i] = __fadd_rn(av * hB[i], bv);")],
+    "K2r final combine rounded": [
+        (K2S, "const float h = __fadd_rn(recur_bf16(hA[i] * ce[i]), hB[i]);",
+         "const float h = recur_bf16(__fadd_rn(recur_bf16(hA[i] * ce[i]), hB[i]));")],
+    "K2r carry unrounded": [(K2S, "ce[i] = recur_bf16(cc);", "ce[i] = cc;")],
+    "K2r rp 2 instead of 4": [(IDS, "rp = subchunk_rows(n, scan_len, vert_p)", "rp = 2")],
+    "K2r no reset at a shifted lead or tail stripe": [
+        (IDS, "starts[k, t:t + n * w:rp * w] = 1", "starts[k, t:t + n * w:rp * w] = w == scan_len")],
 }
 
 # (label, H = W, C, heads): Restormer@256's level 3 and level 1, batch 8
@@ -249,8 +275,41 @@ print(json.dumps(res))
 """
 
 
+_RECUR_CHECK = r"""
+import json, sys
+import numpy as np, torch
+from tpuir_torch.ops import _kernels
+_kernels.build(); _kernels.library()
+from tpuir_torch import zoo
+from tpuir_torch.core.engine import true_float32
+from tpuir_torch.models.mair import init_state_dict
+from tpuir_torch.ops import nss_prologue as pr, nss_stripe as sc
+from tpuir_torch.utils import serving_check as ck
+dev, res = torch.device("cuda", 0), {}
+cfg = zoo.MAIR_CDN_CONFIG
+pre = "layers.0.residual_group.blocks.0.self_attention."
+w = {k[len(pre):]: v.to(dev) for k, v in init_state_dict(cfg, seed=0).items() if k.startswith(pre)}
+di, n = w["in_proj.weight"].shape[0] // 2, w["A_logs"].shape[1]
+scan_w = dict(x_proj_w=w["x_proj_weight"], dt_w=w["dt_projs_weight"],
+              A=-torch.exp(w["A_logs"]).reshape(4, di, n), D=w["Ds"].reshape(4, di),
+              delta_bias=w["dt_projs_bias"])
+for label, b, hh, ww, shifts in json.loads(sys.argv[1]):
+    h = torch.from_numpy(np.random.RandomState(hh).randn(b, hh, ww, cfg["embed_dim"]).astype(
+        np.float32)).to(dev)
+    with torch.inference_mode(), true_float32():
+        x, _ = pr.mixer_prologue_serving_plain(h, w["in_proj.weight"], w["conv2d.weight"],
+                                               w["conv2d.bias"])
+        for shift in shifts:
+            st = sc.nss_scan_recur_stages(x, **scan_w, shift=shift)
+            v = ck.check_nss_scan_recur_serving(x, **scan_w, scan_len=4, shift=shift, st=st)
+            res[f"K2r {label} shift={int(shift)}"] = {s.name: [s.ok, s.detail] for s in v}
+print(json.dumps(res))
+"""
+
+
 def plant(src_dir: str, edits) -> None:
-    """Apply a mutant's edits to the copy of tpuir_torch at src_dir."""
+    """Apply a mutant's edits to the copy of tpuir_torch at src_dir (paths
+    under its ``csrc/``)."""
     for name, old, new in edits:
         path = os.path.join(src_dir, "csrc", name)
         with open(path) as f:
@@ -264,7 +323,8 @@ def plant(src_dir: str, edits) -> None:
 # bodies -> (required mutants, reported mutants, check script, its shapes)
 BODIES = {"K1": (MUTANTS, {}, _CHECK, SHAPES),
           "mixer": (MIXER_MUTANTS, MIXER_REPORTED, _MIXER_CHECK, MIXER_SHAPES),
-          "seq": (SEQ_MUTANTS, SEQ_REPORTED, _SEQ_CHECK, SEQ_SHAPES)}
+          "seq": (SEQ_MUTANTS, SEQ_REPORTED, _SEQ_CHECK, SEQ_SHAPES),
+          "recur": (RECUR_MUTANTS, {}, _RECUR_CHECK, MIXER_SHAPES)}
 
 
 def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
@@ -285,7 +345,7 @@ def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
 
 def _rejected(res: dict, name: str = "none") -> bool:
     """Whether a check script's result rejects mutant ``name``: K1's lists
-    the stages that missed a shape; the mixer's and seq's give every stage's
+    the stages that missed a shape; the mixer's, seq's and recur's give every stage's
     [ok, detail] under labels that start with the kernel ("K2 ..."). A
     mutant named for its kernels ("K3+K5 ...") is rejected when each of
     their checks rejects it; any other, when any check does."""
@@ -336,8 +396,8 @@ def failures(bodies: str, verdicts: dict) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bodies", choices=tuple(BODIES), default="K1",
-                    help="K1's serving body, the MaIR mixer's (K6, K2, K7), or MaIR's "
-                         "scans off the stripe route (K3, K5)")
+                    help="K1's serving body, the MaIR mixer's (K6, K2, K7), MaIR's "
+                         "scans off the stripe route (K3, K5), or K2's bf16-recurrence body")
     ap.add_argument("--dir", default=None, help="where the copies go (default: a temp dir)")
     ap.add_argument("--jobs", type=int, default=4, help="copies built and checked at once")
     args = ap.parse_args()

@@ -3,7 +3,8 @@
 The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
 (all 12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15, 25
 and 50) and MaIRUNet (MaIR's real denoising and motion deblurring), each in
-parity and serving precision, MaIR on every NSS route; the other families
+parity and serving precision, MaIR on every NSS route and with K2's
+bf16-recurrence serving body under ``recur_bf16``; the other families
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 Checkpoints are the released
 files, read with ``torch.load(..., weights_only=True)``; a missing file
@@ -44,6 +45,17 @@ def resolve_nss(nss: Optional[str] = None) -> str:
     if n not in ("stripe", "fused", "0"):
         raise ValueError(f"unknown NSS route {n!r} (stripe|fused|0)")
     return n
+
+
+def resolve_recur_bf16(recur: Optional[bool] = None) -> bool:
+    """Whether MaIR's serving mixers take K2's bf16-recurrence body, as the
+    JAX module's TPUIR_RECUR_BF16 knob (``tpuir/models/mair.py:248-254``):
+    ``recur`` when given, else the TPUIR_RECUR_BF16 environment variable
+    ("1" turns it on). It acts only in serving precision and on the stripe
+    route."""
+    if recur is not None:
+        return bool(recur)
+    return os.environ.get("TPUIR_RECUR_BF16") == "1"
 
 
 def _load_sd(path: str, key: Optional[str] = None):
@@ -123,7 +135,7 @@ MAIR_UNET_WEIGHTS = {
 def build_mair(weights_dir: str, task: str, subtask: str, sigma,
                precision: str = "parity",
                device: Union[str, torch.device] = "cuda",
-               nss: Optional[str] = None) -> InferenceModel:
+               nss: Optional[str] = None, recur_bf16: Optional[bool] = None) -> InferenceModel:
     """The released MaIR-CDN for this sigma (Gaussian denoising) or MaIRUNet
     (real denoising, motion deblurring); every mixer through K6, K2 and K7
     (``nss`` "stripe", the default) or K5 ("fused"), or K3 on levels those
@@ -134,7 +146,9 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
     ``MaIRUNet(serving=True)``: K6, K2 and K7's, K5's or K3's, with bf16
     activations inside the mixers) and ``compute_dtype="float32"``, as
     ``tpuir/zoo.py`` builds ``MaIR(scan_io_dtype="bfloat16")`` and
-    ``MaIRUNet(scan_io_dtype="bfloat16")``."""
+    ``MaIRUNet(scan_io_dtype="bfloat16")``. ``recur_bf16`` (see
+    ``resolve_recur_bf16``) takes K2's bf16-recurrence serving body on the
+    stripe route; in parity it has no effect, as in the JAX package."""
     from tpuir_torch.models import mair as m
     from tpuir_torch.models import mair_unet as mu
 
@@ -145,12 +159,14 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
         raise ValueError(f"no MaIR config for {task}/{subtask}")
     serving = resolve_precision(precision) == "serving"
     nss = resolve_nss(nss)
+    recur = serving and resolve_recur_bf16(recur_bf16)
     rel = (os.path.join("denoising", f"MaIR_CDN_s{sigma}.pth") if gaussian
            else MAIR_UNET_WEIGHTS[(task, subtask)])
     sd = _load_sd(os.path.join(weights_dir, "MaIR", rel), key="params")
     device = torch.device(device)
-    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving) if gaussian
-           else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss, serving=serving))
+    net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving, recur_bf16=recur)
+           if gaussian else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss,
+                                        serving=serving, recur_bf16=recur))
     # keys the model does not hold (if a checkpoint carries any) are ignored,
     # as the JAX converter ignores them; a missing or misshapen one raises
     keys = net.state_dict().keys()
@@ -184,9 +200,12 @@ def get_model_instance(
     precision: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
     nss: Optional[str] = None,
+    recur_bf16: Optional[bool] = None,
 ) -> InferenceModel:
     """Route a harness configuration to a loaded model bundle on ``device``
-    (MaIR's mixers on the ``nss`` route, see ``resolve_nss``).
+    (MaIR's mixers on the ``nss`` route, see ``resolve_nss``; K2's
+    bf16-recurrence serving body under ``recur_bf16``, see
+    ``resolve_recur_bf16``).
 
     Raises ValueError for unsupported combinations, NotImplementedError for
     families and modes not ported yet, and FileNotFoundError when the
@@ -203,7 +222,9 @@ def get_model_instance(
             return build_restormer(weights_dir, task, sub, gray, sigma, precision, device)
     elif key == "MaIR":
         if task == "denoising" and subtask == "gaussian" and not gray and sigma is not None:
-            return build_mair(weights_dir, task, subtask, sigma, precision, device, nss)
+            return build_mair(weights_dir, task, subtask, sigma, precision, device, nss,
+                              recur_bf16)
         if (task, subtask) in (("denoising", "real"), ("deblurring", "motion")):
-            return build_mair(weights_dir, task, subtask, None, precision, device, nss)
+            return build_mair(weights_dir, task, subtask, None, precision, device, nss,
+                              recur_bf16)
     raise ValueError("No model instance found for current configuration.")
