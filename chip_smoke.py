@@ -89,13 +89,16 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     and the MUFU floors (two exp2 a state update for the three-pass scan of
     K2, K5 and K4, one for K3's one-pass scan) from the measured rates,
     beside K2's, K5's, K4's and K3's times of phases 4, 8, 10 and 6.
-12. Restormer's serving precision. The GEMM core's bf16 mode alone at K1
-    serving's product shapes (against float64 products of its rounded
-    operands, beside ``torch.matmul`` in bf16); K1's serving body at the
-    five Restormer@256 block shapes, batch 8, both LayerNorm variants, held
-    stage by stage against functions of its own previous stage
-    (``utils/serving_check.py``), bit for bit on repeat, timed beside its
-    plain version; then the released sigma=25 Restormer built through the
+12. Restormer's serving precision. The GEMM core's bf16-operand kernel
+    alone at K1 serving's apply, projection and project_out shapes (against
+    float64 products of its operands, beside ``torch.matmul`` in bf16); K1's
+    serving body at the five Restormer@256 block shapes, batch 8, both
+    LayerNorm variants, held stage by stage against functions of its own
+    previous stage (``utils/serving_check.py``), bit for bit on repeat, timed
+    beside its plain version and beside the recorded times of the unfused
+    body it replaced (``K1_SERVING_REPLACED_MS``); its mutation controls (``python -m
+    tpuir_torch.utils.serving_mutants --bodies K1``: 16 required faults);
+    then the released sigma=25 Restormer built through the
     zoo with ``precision="serving"`` on phase 3's weights serves phase 3's
     requests, three rounds: 44 serving-body launches a chunk and no parity
     K1 launch, repeatable, within 2 uint8 LSB of the same path with plain
@@ -272,6 +275,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12
 F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
+# The recorded times of the serving body this one replaced (float32
+# intermediates, the products and depthwise convs in separate launches, the
+# Gram on the ALU): ms a block at each BLOCK_SHAPES shape (BiasFree, batch 8)
+# and a forward. They are the first of the two readings of that body in
+# PERF.md §6, taken by utils/gemm_bench.py --kernels K1s --tree <its checkout>
+# in turns with this body on an NVIDIA H100 80GB HBM3 at 700.00 W. A recorded
+# figure, not a measurement of this run: printed beside this run's times as
+# such, and to be timed again with gemm_bench.py --tree on another card.
+K1_SERVING_REPLACED_MS = {"level1": 2.760, "level2": 1.398, "level3": 0.772, "latent": 0.588,
+                          "decoder1+refinement": 5.436, "forward": 85.263}
 SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
 SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
 # The bf16 recurrence (recur_bf16) is an opt-in mode that the JAX package keeps
@@ -1440,13 +1453,14 @@ def phase_probe(device, scan_ms):
 
 
 def k1_serving_products(batch, hw, C):
-    """The products of K1's serving body on the bf16 core as (label, images,
-    M, N, K, one weight an image): qkv, the attention apply (blockdiag(A_b),
-    one C x C weight an image), the projection, project_in, project_out."""
-    h, px = int(C * 2.66), batch * hw * hw
-    return [("qkv", 1, px, 3 * C, C, False), ("apply", batch, hw * hw, C, C, True),
-            ("proj", 1, px, C, C, False), ("ffn_in", 1, px, 2 * h, C, False),
-            ("ffn_out", 1, px, C, h, False)]
+    """The products of K1's serving body on the core's bf16-operand kernel as
+    (label, images, M, N, K, one weight an image): the attention apply
+    (blockdiag(A_b), one C x C weight an image), the projection and
+    project_out (K the gate's row stride, h rounded up to 8). qkv and
+    project_in run fused with their depthwise convs."""
+    hp, px = -(-int(C * 2.66) // 8) * 8, batch * hw * hw
+    return [("apply", batch, hw * hw, C, C, True), ("proj", 1, px, C, C, False),
+            ("ffn_out", 1, px, C, hp, False)]
 
 
 def k1_serving_work(batch, hw, C, heads, ln_bias=False):
@@ -1472,24 +1486,29 @@ def bound_bf16(nbytes, gemm_flops, flops, exps=0):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed):
-    """The GEMM core's bf16 mode alone (``ops/tc_gemm.gemm_bf16``) at one
-    product shape, against float64 products of its bf16-rounded operands,
-    and beside ``torch.matmul`` on the same operands in bf16 (a bf16
-    output): prints max |error|, its share of atol + rtol * |ref| and
-    TFLOP/s of each; fails if the core misses the tolerance."""
+def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed, bf16_operands=False):
+    """The GEMM core alone at one product shape: its bf16 mode
+    (``ops/tc_gemm.gemm_bf16``: float32 operands, rounded at fragment load)
+    or, with ``bf16_operands``, its bf16-operand kernel
+    (``gemm_bf16_operands``: the operands already bf16). Held against
+    float64 products of the bf16 operands, and beside ``torch.matmul`` on
+    them in bf16 (a bf16 output): prints max |error|, its share of atol +
+    rtol * |ref| and TFLOP/s of each; fails if the core misses the
+    tolerance."""
     import torch
 
-    from tpuir_torch.ops.tc_gemm import gemm_bf16
+    from tpuir_torch.ops.tc_gemm import gemm_bf16, gemm_bf16_operands
 
     gen = torch.Generator(device=device).manual_seed(seed)
     a = torch.randn(images, M, K, device=device, generator=gen)
     w = torch.randn(*((images,) if per_image else ()), N, K, device=device,
                     generator=gen) * K ** -0.5
     a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    what = "bf16-operand core" if bf16_operands else "bf16 core"
     with torch.inference_mode():
         mm = lambda: torch.matmul(a16, w16.transpose(-1, -2))  # noqa: E731
-        core = lambda: gemm_bf16(a, w)  # noqa: E731
+        core = ((lambda: gemm_bf16_operands(a16, w16)) if bf16_operands
+                else (lambda: gemm_bf16(a, w)))
         ref = torch.matmul(a16.double(), w16.double().transpose(-1, -2))
         stats = []
         for fn in (core, mm):
@@ -1502,13 +1521,13 @@ def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed):
         t_core = (cuda_ms(core, ITERS) + cuda_ms(core, ITERS)) / 2
         t_mm = (t_mm + cuda_ms(mm, ITERS)) / 2
     tflop = 2 * images * M * N * K / 1e12
-    print(f"  bf16 core {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
+    print(f"  {what} {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
           f"{tflop / t_core * 1e3:6.1f} TFLOP/s max|err| {stats[0][0]:.2e} "
           f"({stats[0][1]:.3f} of tol)  torch.matmul bf16 {t_mm:.3f} ms "
           f"{tflop / t_mm * 1e3:6.1f} TFLOP/s max|err| {stats[1][0]:.2e} (bf16 out)", flush=True)
     if not stats[0][1] <= 1.0:
-        fail(f"the bf16 core misses atol {ATOL:g} + rtol {RTOL:g} against float64 products of "
-             f"its rounded operands at {label}")
+        fail(f"the {what} misses atol {ATOL:g} + rtol {RTOL:g} against float64 products of "
+             f"its bf16 operands at {label}")
 
 
 def ulp2_ratio(got, want) -> float:
@@ -1534,7 +1553,9 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
     against the plain version (max|d|, and tpuir's block criteria, two bf16
     ulps and 1/20 of the serving-parity gap) is printed beside, for the
     record. Before each shape, the bf16 core alone at the body's five
-    product shapes (``gemm_bf16_yardstick``). Returns (max |kernel -
+    product shapes (``gemm_bf16_yardstick`` with ``bf16_operands``); after,
+    the check's mutation controls (``mutant_controls("K1")``: 16 required
+    faults). Returns (max |kernel -
     plain|, per-forward kernel ms, per-forward plain ms, bound ms, what
     bounds it), the per-forward figures summing each BiasFree shape's over
     its blocks.
@@ -1557,7 +1578,7 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
         for name, hw, C, heads, count in shapes:
             for label, images, M, N, K, per_image in k1_serving_products(batch, hw, C):
                 gemm_bf16_yardstick(f"K1s {name} {label}", images, M, N, K, per_image, device,
-                                    SEED + K)
+                                    SEED + K, bf16_operands=True)
             for ln_bias in (False, True):
                 p = {k: v.to(device) for k, v in
                      init_block_params(C, heads, ln_bias, SEED + C).items()}
@@ -1592,7 +1613,10 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
                       f"against plain max|d| {max_err:.3e} ({tp_ratio:.2f} x 2 ulps, mean "
                       f"{tp_mean:.3f} of the gap); repeat {'bit for bit' if repeat else 'DIFFERS'}"
                       f"; parts {'= whole' if parts else 'DIFFER'}  kernel {t_kern:.3f} ms  "
-                      f"plain {t_plain:.3f} ms  bound {b_ms:.3f} ms", flush=True)
+                      f"plain {t_plain:.3f} ms  bound {b_ms:.3f} ms"
+                      + (f"  (the replaced body, recorded on an H100 at 700 W: "
+                         f"{K1_SERVING_REPLACED_MS[name]:.3f} ms)" if not ln_bias else ""),
+                      flush=True)
                 for v in verdicts:
                     print(f"    {v.name:18s} {'ok  ' if v.ok else 'MISS'} {v.detail}", flush=True)
                 if missed:
@@ -1608,6 +1632,8 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
                     fwd_gemm += count * gemm
                     fwd_other += count * other
                 del x, p
+    torch.cuda.empty_cache()  # each copy's float64 check at level 1 holds several GB of the card
+    mutant_controls("K1", jobs=4)
     return (worst, fwd_ms, fwd_plain_ms) + bound_bf16(fwd_bytes, fwd_gemm, fwd_other)
 
 
@@ -1809,8 +1835,7 @@ def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITER
     return max_err, t_kern, t_plain, b_ms, b_by
 
 
-def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72),
-                               mutants=True):
+def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
     """The serving bodies of K6, K2 and K7 stage by stage, timed, and their
     mutation controls.
 
@@ -1823,7 +1848,7 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
     previous stage (``utils/serving_check.py``); the output against the
     plain version (max|d|, and tpuir's criterion of two bf16 ulps) printed
     for the record. Before, the bf16 core alone at K6's in_proj and K7's
-    out_proj shapes (``gemm_bf16_yardstick``); after, with ``mutants``,
+    out_proj shapes (``gemm_bf16_yardstick``); after,
     ``utils/serving_mutants.run_mutants("mixer")``. Returns {kernel: (max
     |kernel - plain|, ms, plain ms, bound ms, bound by)} per call at
     ``tile``, K2 the mean over both shifts."""
@@ -1861,8 +1886,7 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
                 res[name] = row
             del pro, scan, epi
             torch.cuda.empty_cache()
-    if mutants:
-        mutant_controls("mixer", jobs=8)
+    mutant_controls("mixer", jobs=8)
     return res
 
 
@@ -1930,7 +1954,7 @@ def serving_k5_work(px, di, n, r):
     return nbytes - 4 * 4 * px, gemm, other, exps
 
 
-def phase_seq_serving_kernels(device, mutants=True, levels=UNET_LEVELS, rect=UNET_RECT,
+def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
                               k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH):
     """Phase 14's kernels: the serving bodies at MaIRUNet's widths and K3's
     and K5's serving bodies, each stage by stage (``check_serving_body``),
@@ -2052,8 +2076,7 @@ def phase_seq_serving_kernels(device, mutants=True, levels=UNET_LEVELS, rect=UNE
                                       cdn[0][3], cdn[0][4])
     rows["selective_scan_fused_proj_serving"] = k3_row
     worst.pop("selective_scan_fused_proj_serving")
-    if mutants:
-        mutant_controls("seq", jobs=8)
+    mutant_controls("seq", jobs=8)
     return rows, worst
 
 
@@ -2127,12 +2150,12 @@ def phase_seq_serving_path(device, unet_outs, mair_outs, unet_requests=UNET_REQU
     return launches
 
 
-def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), mutants=True):
+def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
     """K2's bf16-recurrence body stage by stage (``check_serving_body`` with
     ``check_nss_scan_recur_serving``) at MaIR-CDN@``tile``, batch ``batch``,
     shift off and on (timed: plain, kernel, kernel, plain), and at the
     ``rect`` tile, batch 1, shift on, on phase 4's seeded activations
-    rounded to bf16; then, with ``mutants``, its mutation controls. Returns
+    rounded to bf16; then its mutation controls. Returns
     (max |kernel - plain|, ms, plain ms, bound ms, bound by) per call at
     ``tile``, the mean over both shifts."""
     import torch
@@ -2164,8 +2187,7 @@ def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), muta
                     "turns" if timed else None))
             del x, scan
             torch.cuda.empty_cache()
-    if mutants:
-        mutant_controls("recur", jobs=6)
+    mutant_controls("recur", jobs=6)
     timed_rows = rows[:2]
     return (max(row[0] for row in rows), sum(row[1] for row in timed_rows) / 2,
             sum(row[2] for row in timed_rows) / 2, timed_rows[0][3], timed_rows[0][4])
@@ -2452,9 +2474,10 @@ def main() -> int:
     t0 = time.time()
     row = phase_serving_kernels(device)
     rows["fused_transformer_block_serving"] = row
-    print(f"K1 serving per forward (44 BiasFree blocks, batch {BATCH}): kernel {row[1]:.2f} ms, "
-          f"plain {row[2]:.2f} ms, bound {row[3]:.2f} ms ({row[4]}); max|d| {row[0]:.3e}",
-          flush=True)
+    print(f"K1 serving per forward (44 BiasFree blocks, batch {BATCH}): kernel {row[1]:.2f} ms "
+          f"(the replaced body, recorded on an H100 at 700 W: "
+          f"{K1_SERVING_REPLACED_MS['forward']:.3f} ms), plain {row[2]:.2f} ms, "
+          f"bound {row[3]:.2f} ms ({row[4]}); max|d| {row[0]:.3e}", flush=True)
     launches.update(phase_serving_path(device, restormer_outs))
     print(f"[serving {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()

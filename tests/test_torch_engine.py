@@ -13,6 +13,7 @@ import torch
 from tpuir_torch import zoo
 from tpuir_torch.core.engine import InferenceModel, run_model_inference
 from tpuir_torch.models.restormer import Restormer, init_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, heads=(1, 2, 4, 8),
             layer_norm_bias=False)

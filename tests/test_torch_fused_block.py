@@ -14,6 +14,7 @@ from tpuir_torch.core.engine import true_float32
 from tpuir_torch.models.restormer import init_block_params, state_dict_from_jax
 from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.fused_block import fused_transformer_block, fused_transformer_block_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEY = "fused_transformer_block"
 

@@ -2,8 +2,10 @@
 with ``mm_bf16=True, fast_gelu=True`` (interpret mode) on bf16 inputs, the
 wrapper's checks, the stage-by-stage check of ``utils/serving_check.py``
 (its emulations, and that it passes the body and catches each planted
-fault), the GEMM core's bf16 mode (``ops/tc_gemm.gemm_bf16``) against
-float64, and the CUDA kernels on a card.
+fault), the GEMM core's bf16 mode (``ops/tc_gemm.gemm_bf16``) and its
+bf16-operand kernel (``gemm_bf16_operands``, the serving body's apply,
+projection and project_out) against float64, and the CUDA kernels on a
+card.
 
 Block-level criteria against tpuir on the CPU (the bf16 flips that two sum
 orders give): elementwise |got - want| <= 2^-6 * max(|want|, 1), two bf16
@@ -37,9 +39,10 @@ from tpuir_torch.ops.fused_block import (
     fused_transformer_block_serving_plain,
     serving_stages,
 )
-from tpuir_torch.ops.tc_gemm import _ln_stats, gemm_bf16, gemm_bf16_plain
+from tpuir_torch.ops.tc_gemm import _ln_stats, gemm_bf16, gemm_bf16_operands, gemm_bf16_plain
+from tpuir_torch.utils import k1s_phases, serving_mutants
 from tpuir_torch.utils import serving_check as sc
-from tpuir_torch.utils import serving_mutants
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEY = "fused_transformer_block_serving"
 # the bf16 core against float64 products of its rounded operands (the
@@ -184,17 +187,23 @@ def test_ln_stats_are_the_one_pass_statistics(C):
     torch.testing.assert_close(st[:, 1].double(), (var + 1e-5).rsqrt(), atol=0, rtol=1e-5)
 
 
-@pytest.mark.parametrize("H,W,C,heads", [(8, 8, 16, 2), (20, 30, 8, 1)])  # 1 and 3 chunks
+@pytest.mark.parametrize("H,W,C,heads", [(8, 8, 16, 2), (20, 30, 8, 1)])  # 1 and 6 tiles
 def test_gram_is_the_sum_of_bf16_products(H, W, C, heads):
+    """The plain Gram sums the products of the bf16 q, k (exact in float32);
+    the norms from the tile partials are q's and k's float32 norms."""
     qkv = torch.from_numpy(np.random.RandomState(H).randn(2, H, W, 3 * C).astype(np.float32))
-    g, norms = sc.gram(qkv, heads)
+    g, scale = sc.gram(qkv.to(torch.bfloat16), heads)
     q, k = (qkv[..., i * C:(i + 1) * C].reshape(2, H * W, heads, C // heads).double()
             for i in (0, 1))
     bq, bk = (t.to(torch.bfloat16).double() for t in (q, k))
     want = torch.einsum("bphc,bphd->bhcd", bq, bk)
-    scale = torch.einsum("bphc,bphd->bhcd", bq.abs(), bk.abs())
-    # float32 sums of exact products: within (pixels a chunk + chunks) ulps of the |terms|
-    assert bool(((g.double() - want).abs() <= 2.0 ** -24 * (256 + 3) * scale).all())
+    want_scale = torch.einsum("bphc,bphd->bhcd", bq.abs(), bk.abs())
+    # float32 sums of exact products: within (pixels) ulps of the |terms|
+    assert bool(((g.double() - want).abs() <= 2.0 ** -24 * H * W * want_scale).all())
+    assert bool(((scale.double() - want_scale).abs() <= 2.0 ** -24 * H * W * want_scale).all())
+    parts = sc.norm_partials(qkv)
+    assert parts.shape == (2, -(-H // sc.TILE_H) * -(-W // sc.TILE_W), 2 * C)
+    norms = sc.norms_from_partials(parts, heads)
     want_n = torch.stack([q.square().sum(1).sqrt(), k.square().sum(1).sqrt()], 2)
     torch.testing.assert_close(norms.double(), want_n, atol=0, rtol=2e-5)
 
@@ -229,76 +238,117 @@ def _two_pass(x):
     return torch.stack([mu, torch.rsqrt(((x - mu[:, None]) ** 2).mean(-1) + 1e-5)], -1)
 
 
+def _truncated(t):
+    """float32 t rounded to bf16 toward zero."""
+    return (t.float().contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32).to(
+        torch.bfloat16)
+
+
 def _faulty_stages(x, p, heads, ln_bias, fault):
     """The plain stages with one planted fault, each later stage computed
     from the faulty one, as a kernel with that fault would."""
-    f32, C = torch.float32, x.shape[1]
+    f32, bf16, C = torch.float32, torch.bfloat16, x.shape[1]
     B, H, W, hc = x.shape[0], x.shape[2], x.shape[3], C // heads
-    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    hidden = p["ffn.project_out.weight"].shape[1]
+    bf = lambda t: t.to(bf16).float()  # noqa: E731
     def stats(name, t):
         return (_two_pass if fault == name else sc.ln_stats)(t.reshape(-1, C))
-    st = {"xw": x.permute(0, 2, 3, 1).float().contiguous()}
-    st["stats1"] = stats("two-pass LN1", st["xw"])
-    st["qkv"] = sc.stage_qkv(st["xw"], st["stats1"], p, ln_bias, f32)
+    xw = x.permute(0, 2, 3, 1).float().contiguous()
+    st = {"stats1": stats("two-pass LN1", xw)}
+    qkv32 = sc.stage_qkv(xw, st["stats1"], p, ln_bias, f32)
+    wq = p["attn.qkv.weight"].reshape(3 * C, C)
+    y = sc.ln_prologue(xw.reshape(-1, C), st["stats1"], p["norm1.body.weight"],
+                       p.get("norm1.body.bias"), ln_bias)
     if fault == "LN1 output unrounded":
-        y = sc.ln_prologue(st["xw"].reshape(-1, C), st["stats1"], p["norm1.body.weight"],
-                           p.get("norm1.body.bias"), ln_bias)
-        qkv = y @ bf(p["attn.qkv.weight"].reshape(3 * C, C)).t()
-        st["qkv"] = sc._dwconv(qkv.view(B, H, W, 3 * C), p["attn.qkv_dwconv.weight"])
-    st["gram"], st["norms"] = sc.gram(st["qkv"], heads)
-    if fault in ("q unrounded", "k unrounded"):
-        q, k = (st["qkv"][..., i * C:(i + 1) * C].reshape(B, H * W, heads, hc) for i in (0, 1))
-        q, k = (q, bf(k)) if fault == "q unrounded" else (bf(q), k)
-        st["gram"] = torch.einsum("bphc,bphd->bhcd", q, k)
+        qkv32 = sc._dwconv((y @ bf(wq).t()).view(B, H, W, 3 * C), p["attn.qkv_dwconv.weight"])
+    if fault == "halo not zeroed outside the image":
+        # a pixel outside the image reads as zeros with statistics (0, 0): its
+        # LayerNorm is the bias, and the product of that fills the conv's padding
+        prod = (bf(y) @ bf(wq).t()).view(B, H, W, 3 * C)
+        pad = bf(p["norm1.body.bias"]) @ bf(wq).t()
+        full = pad.expand(B, H + 2, W + 2, 3 * C).clone()
+        full[:, 1:-1, 1:-1] = prod
+        qkv32 = torch.nn.functional.conv2d(full.permute(0, 3, 1, 2), p["attn.qkv_dwconv.weight"],
+                                           groups=3 * C).permute(0, 2, 3, 1)
+    st["qkv32"] = qkv32
+    st["qkv"] = qkv32.to(bf16)
+    if fault == "q and k stored truncated":
+        st["qkv"][..., :2 * C] = _truncated(qkv32[..., :2 * C])
+    if fault == "v stored truncated":
+        st["qkv"][..., 2 * C:] = _truncated(qkv32[..., 2 * C:])
+    st["norm_parts"] = sc.norm_partials(
+        torch.cat([bf(qkv32[..., :2 * C]), qkv32[..., 2 * C:]], -1)
+        if fault == "norms from the rounded q" else qkv32)
+    st["norms"] = sc.norms_from_partials(st["norm_parts"], heads)
+    st["gram"] = sc.gram(st["qkv"], heads)[0]
+    if fault == "Gram transposed":
+        st["gram"] = st["gram"].transpose(-1, -2).contiguous()
     st["attn"] = sc.stage_attn(st["gram"], st["norms"], p["attn.temperature"], f32)
-    v = st["qkv"][..., 2 * C:].reshape(B, H * W, heads, hc)
-    st["ao"] = sc.stage_ao(st["qkv"], st["attn"], heads, f32)
+    ao = sc.stage_ao(st["qkv"], st["attn"], heads, f32)
     if fault == "v unrounded":
-        st["ao"] = torch.einsum("bphd,bhcd->bphc", v, bf(st["attn"])).reshape(B, H, W, C)
+        v = qkv32[..., 2 * C:].reshape(B, H * W, heads, hc)
+        ao = torch.einsum("bphd,bhcd->bphc", v, bf(st["attn"])).reshape(B, H, W, C)
+    st["ao"] = _truncated(ao) if fault == "ao stored truncated" else ao.to(bf16)
     wp = p["attn.project_out.weight"].reshape(C, C)
-    st["x2"] = sc.stage_x2(st["xw"], st["ao"], p, f32)
+    st["x2"] = sc.stage_x2(xw, st["ao"], p, f32)
     if fault == "ao unrounded":
-        st["x2"] = st["xw"] + st["ao"] @ bf(wp).t()
+        st["x2"] = xw + ao @ bf(wp).t()
     if fault == "attention folded into the projection":
+        v = st["qkv"][..., 2 * C:].float().reshape(B, H * W, C)
         mt = torch.einsum("ohc,bhcd->bohd", wp.reshape(C, heads, hc), st["attn"]).reshape(B, C, C)
-        vm = torch.einsum("bpk,bok->bpo", bf(v.reshape(B, H * W, C)), bf(mt))
-        st["x2"] = st["xw"] + vm.reshape(B, H, W, C)
+        st["x2"] = xw + torch.einsum("bpk,bok->bpo", v, bf(mt)).reshape(B, H, W, C)
     st["stats2"] = stats("two-pass LN2", st["x2"])
-    st["h1"] = sc.stage_h1(st["x2"], st["stats2"], p, ln_bias, f32)
-    if fault == "LN2 output unrounded":
-        y = sc.ln_prologue(st["x2"].reshape(-1, C), st["stats2"], p["norm2.body.weight"],
-                           p.get("norm2.body.bias"), ln_bias)
-        st["h1"] = (y @ bf(p["ffn.project_in.weight"].reshape(-1, C)).t()).view(B, H, W, -1)
-    gate = sc.stage_gate(st["h1"], p, f32)
-    if fault == "exact GELU":
-        a1, a2 = sc._dwconv(st["h1"], p["ffn.dwconv.weight"]).chunk(2, dim=-1)
-        gate = torch.nn.functional.gelu(a1) * a2
-    st["gate"] = torch.nn.functional.pad(gate, (0, -gate.shape[-1] % 4))
+    gate = sc.stage_gate(st["x2"], st["stats2"], p, ln_bias, f32)
+    if fault in ("LN2 output unrounded", "exact GELU"):
+        y2 = sc.ln_prologue(st["x2"].reshape(-1, C), st["stats2"], p["norm2.body.weight"],
+                            p.get("norm2.body.bias"), ln_bias)
+        y2 = y2 if fault == "LN2 output unrounded" else bf(y2)
+        h1 = (y2 @ bf(p["ffn.project_in.weight"].reshape(-1, C)).t()).view(B, H, W, -1)
+        a1, a2 = sc._dwconv(h1, p["ffn.dwconv.weight"]).chunk(2, dim=-1)
+        gelu = torch.nn.functional.gelu(a1) if fault == "exact GELU" else a1 * torch.sigmoid(
+            1.702 * a1)
+        gate = gelu * a2
+    st["gate32"] = torch.nn.functional.pad(gate, (0, -gate.shape[-1] % 8))
+    st["gate"] = (_truncated(st["gate32"]) if fault == "gate stored truncated"
+                  else st["gate32"].to(bf16))
     wo = p["ffn.project_out.weight"].reshape(C, -1)
-    out = sc.stage_out(st["x2"], gate, p, f32)
+    g16 = st["gate"][..., :hidden].float()
+    out = sc.stage_out(st["x2"], g16, p, f32)
     if fault == "gate unrounded":
         out = st["x2"] + gate @ bf(wo).t()
     if fault == "Wout unrounded":
-        out = st["x2"] + bf(gate) @ wo.t()
+        out = st["x2"] + g16 @ wo.t()
     if fault == "output truncated":
         out = (out.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
-    st["out"] = out.to(torch.bfloat16).permute(0, 3, 1, 2)
+    st["out"] = out.to(bf16).permute(0, 3, 1, 2)
     return st
 
 
-# (planted fault, the stage that must catch it)
+# (planted fault, the stage that must catch it, the LayerNorm variants it shows in)
 FAULTS = [
-    ("two-pass LN1", "LN1 statistics"), ("LN1 output unrounded", "qkv"),
-    ("q unrounded", "Gram of bf16 q, k"), ("k unrounded", "Gram of bf16 q, k"),
-    ("v unrounded", "ao"), ("ao unrounded", "x2"),
-    ("attention folded into the projection", "x2"), ("two-pass LN2", "LN2 statistics"),
-    ("LN2 output unrounded", "h1"), ("exact GELU", "gate"), ("gate unrounded", "out"),
-    ("Wout unrounded", "out"), ("output truncated", "out"),
+    ("two-pass LN1", "LN1 statistics", (False, True)),
+    ("LN1 output unrounded", "qkv", (False, True)),
+    # BiasFree: a zero pixel's LayerNorm is 0, so the unzeroed halo is zero anyway
+    ("halo not zeroed outside the image", "qkv", (True,)),
+    ("q and k stored truncated", "q, k, v rounded", (False, True)),
+    ("v stored truncated", "q, k, v rounded", (False, True)),
+    ("norms from the rounded q", "norm partials", (False, True)),
+    ("Gram transposed", "Gram of bf16 q, k", (False, True)),
+    ("v unrounded", "ao", (False, True)),
+    ("ao stored truncated", "ao", (False, True)),
+    ("ao unrounded", "x2", (False, True)),
+    ("attention folded into the projection", "x2", (False, True)),
+    ("two-pass LN2", "LN2 statistics", (False, True)),
+    ("LN2 output unrounded", "gate", (False, True)),
+    ("exact GELU", "gate", (False, True)),
+    ("gate stored truncated", "gate rounded", (False, True)),
+    ("gate unrounded", "out", (False, True)),
+    ("Wout unrounded", "out", (False, True)),
+    ("output truncated", "out", (False, True)),
 ]
 
 
-@pytest.mark.parametrize("ln_bias", [False, True])
-@pytest.mark.parametrize("fault,stage", FAULTS)
+@pytest.mark.parametrize("fault,stage,ln_bias", [(f, s, b) for f, s, lbs in FAULTS for b in lbs])
 def test_stage_checks_catch_a_fault(fault, stage, ln_bias):
     C, heads = 48, 1
     p = init_block_params(C, heads, ln_bias, seed=C)
@@ -315,6 +365,15 @@ def test_serving_mutants_apply_to_the_sources(name, tmp_path):
     shutil.copytree(os.path.join(os.path.dirname(_kernels.__file__), "..", "csrc"),
                     tmp_path / "csrc")
     serving_mutants.plant(str(tmp_path), serving_mutants.MUTANTS[name])
+
+
+@pytest.mark.parametrize("name", list(k1s_phases.PHASES))
+def test_k1s_phases_apply_to_the_sources(name, tmp_path):
+    """The phase-removal timings (``utils/k1s_phases.py``) still take each
+    phase out of the current fused kernel, on a copy."""
+    shutil.copytree(os.path.join(os.path.dirname(_kernels.__file__), "..", "csrc"),
+                    tmp_path / "csrc")
+    serving_mutants.plant(str(tmp_path), k1s_phases.PHASES[name])
 
 
 # --- the GEMM core's bf16 mode ----------------------------------------------
@@ -367,6 +426,28 @@ def test_gemm_bf16_plain_is_the_product_of_rounded_operands(batch, M, N, K, per_
     assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
 
 
+# (batch, M, N, K, one weight an image, residual, row stride of A): the core's
+# bf16-operand kernel at the serving body's apply (v strided in q | k | v),
+# projection and project_out (K the gate's padded row) and ragged sizes
+BF16_OPERAND_CASES = [
+    (1, 37, 20, 16, False, False, None),
+    (2, 19, 12, 24, True, True, 72),
+    (1, 130, 48, 136, False, True, None),
+]
+
+
+@pytest.mark.parametrize("batch,M,N,K,per_image,resid,lda", BF16_OPERAND_CASES)
+def test_gemm_bf16_operands_plain_is_the_product_of_its_operands(batch, M, N, K, per_image,
+                                                               resid, lda):
+    a, w, r, _ = _gemm_operands(batch, M, N, K, per_image, None, resid, seed=M + K, lda=lda)
+    a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    before = _kernels.LAUNCHES["tc_gemm_bf16_operands"]
+    got = gemm_bf16_operands(a16, w16, r)
+    assert _kernels.LAUNCHES["tc_gemm_bf16_operands"] == before  # the plain version on a CPU tensor
+    want, scale = _bf16_float64_reference(a16.float(), w16.float(), None, r)
+    assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
+
+
 # --- the CUDA kernels, on a card --------------------------------------------
 
 # (batch, M, N, K, one weight an image, LayerNorm, residual, row stride of A)
@@ -394,6 +475,32 @@ def test_gemm_bf16_matches_float64_on_card(cuda_device, batch, M, N, K, per_imag
         assert _kernels.LAUNCHES["tc_gemm_bf16"] == before + 1
         again = gemm_bf16(a, w, r, lnp)
         want, _ = _bf16_float64_reference(a, w, lnp, r)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,M,N,K,per_image,resid,lda", [
+    (1, 1000, 37, 48, False, False, None),  # ragged M, N
+    (3, 300, 96, 96, True, False, 288),     # the apply: one weight an image, v strided
+    (1, 777, 48, 128, False, True, None),   # level 1's project_out, h = 127 padded to 128
+    (1, 260, 384, 1024, False, True, None),  # the latent's project_out
+])
+def test_gemm_bf16_operands_matches_float64_on_card(cuda_device, batch, M, N, K, per_image,
+                                                    resid, lda):
+    a, w, r, _ = _gemm_operands(batch, M, N, K, per_image, None, resid, seed=N + K,
+                                device=cuda_device, lda=lda)
+    a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    if lda:  # a column slice of a wider bf16 tensor, as v is of q | k | v
+        a16 = torch.zeros(batch, M, lda, device=cuda_device, dtype=torch.bfloat16)[..., :K]
+        a16.copy_(a[..., :K].to(torch.bfloat16))
+    before = _kernels.LAUNCHES["tc_gemm_bf16_operands"]
+    with torch.inference_mode():
+        got = gemm_bf16_operands(a16, w16, r)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["tc_gemm_bf16_operands"] == before + 1
+        again = gemm_bf16_operands(a16, w16, r)
+        want, _ = _bf16_float64_reference(a16.float(), w16.float(), None, r)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=RTOL)
 

@@ -18,6 +18,7 @@ import torch
 
 from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.tc_gemm import gemm_f32x3, gemm_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEY = "tc_gemm"
 # the card tests' tolerance for K1 against its plain version

@@ -18,6 +18,7 @@ its scan compounds over a sequence, is not taken on the core.
 
 import numpy as np
 import pytest
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the card tests' tolerance for K1 against its plain version
 # (tests/test_torch_fused_block.py): float32 sums in another order

@@ -19,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

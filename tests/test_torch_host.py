@@ -14,6 +14,7 @@ import pytest
 
 from tpuir_torch import config
 from tpuir_torch.core import degrade, image_io, metrics, native, tiling
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ from tpuir_torch import zoo
 from tpuir_torch.core.engine import InferenceModel, run_model_inference, true_float32
 from tpuir_torch.models.mair import MaIR, MaIRBlock, SSMixer, init_state_dict, state_dict_from_jax
 from tpuir_torch.ops import _kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(embed_dim=32, depths=(2, 2), d_state=4, ssm_ratio=1.5, mlp_ratio=2.0, scan_len=4)
 # the JAX package's tolerance for MaIR against the reference (tests/test_mair.py:87)

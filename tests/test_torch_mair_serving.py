@@ -23,6 +23,7 @@ from tpuir_torch.models.mair import MaIR, SSMixer, init_state_dict
 from tpuir_torch.models.mair_unet import MaIRUNet
 from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
 from tpuir_torch.ops import _kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(embed_dim=32, depths=(2, 2), d_state=4, ssm_ratio=1.5, mlp_ratio=2.0, scan_len=4)
 HOOKS = dict(patch_size=32, patch_overlap=8, pad_factor=8, batch_size=4)

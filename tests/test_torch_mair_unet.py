@@ -20,6 +20,7 @@ from tpuir_torch.core.engine import InferenceModel, run_model_inference, true_fl
 from tpuir_torch.models import mair as pm
 from tpuir_torch.models.mair_unet import MaIRUNet, init_state_dict, state_dict_from_jax
 from tpuir_torch.ops import _kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, ssm_ratio=2.0,
             flp_ratio=4.0, mlp_ratio=1.5, scan_len=4)

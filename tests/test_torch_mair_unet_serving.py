@@ -31,6 +31,7 @@ from tpuir_torch.models.mair import init_state_dict as mair_state_dict
 from tpuir_torch.models.mair_unet import MaIRUNet
 from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
 from tpuir_torch.ops import _kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 UNET = dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, ssm_ratio=2.0,
             flp_ratio=4.0, mlp_ratio=1.5, scan_len=4)

@@ -21,6 +21,7 @@ import torch
 from tpuir_torch.ops import _kernels
 from tpuir_torch.utils import micro_rate
 from tpuir_torch.utils.micro_rate import probe, probe_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MICRO_VPU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "benchmarks", "micro_vpu.py")

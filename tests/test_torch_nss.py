@@ -20,6 +20,7 @@ from tpuir_torch.ops.nss_prologue import mixer_prologue, mixer_prologue_plain
 from tpuir_torch.ops.nss_stripe import nss_scan, nss_scan_plain
 from tpuir_torch.ops.scan_ids import mair_scan_ids
 from tpuir_torch.ops.selective_scan import selective_scan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's tolerance for its scan against the reference
 # (tests/test_mair.py:47): float32 sums in another order

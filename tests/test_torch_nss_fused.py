@@ -23,6 +23,7 @@ from tpuir_torch.models.mair_unet import MaIRUNet
 from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
 from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.nss_fused import nss_scan_fused, nss_scan_fused_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's tolerances for its kernel against its composition
 # (tests/test_nss_fused.py:39-44)

@@ -34,6 +34,7 @@ from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
 from tpuir_torch.utils import serving_mutants
 from tpuir_torch.utils.serving_check import (check_epilogue_serving, check_prologue_serving,
                                              check_scan_serving)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # tests/test_torch_nss.py's parity scan tolerance
 GAP_SHARE = 1 / 20  # the mean difference, as a share of the serving-parity gap

@@ -2,6 +2,7 @@
 
 import numpy as np
 import pytest
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

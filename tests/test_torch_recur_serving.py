@@ -39,6 +39,7 @@ from tpuir_torch.ops.scan_ids import (mair_scan_ids, mair_subchunk_layout, mair_
                                       mair_subchunk_starts, subchunk_rows)
 from tpuir_torch.utils import serving_mutants
 from tpuir_torch.utils.serving_check import check_nss_scan_recur_serving
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # tests/test_torch_nss.py's parity scan tolerance
 GAP_SHARE = 1 / 20  # the mean difference, as a share of the recur gap

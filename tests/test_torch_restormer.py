@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tpuir_torch.models.restormer import Restormer, init_state_dict, state_dict_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(dim=8, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, heads=(1, 2, 4, 8))
 FULL = dict(dim=48, num_blocks=(4, 6, 6, 8), num_refinement_blocks=4, heads=(1, 2, 4, 8))

@@ -21,6 +21,7 @@ from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
                                              selective_scan_fused_proj_plain)
 from tpuir_torch.ops.selective_scan import softplus
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's tolerance for K3 against its composition
 # (tests/test_scan_pallas.py:61)

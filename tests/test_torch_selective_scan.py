@@ -14,6 +14,7 @@ import torch
 from tpuir_torch.core.engine import true_float32
 from tpuir_torch.ops import _kernels
 from tpuir_torch.ops.selective_scan import selective_scan, selective_scan_kernel
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's tolerance for its kernel against its scan (tests/test_scan_pallas.py:27)
 TOL = 2e-4

@@ -35,6 +35,7 @@ from tpuir_torch.ops.scan_fused_proj import (selective_scan_fused_proj,
                                              seq_scan_serving_values)
 from tpuir_torch.utils import serving_mutants
 from tpuir_torch.utils.serving_check import check_fused_scan_serving, check_seq_scan_serving
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # tests/test_torch_nss.py's parity scan tolerance
 GAP_SHARE = 1 / 20  # the mean difference, as a share of the serving-parity gap

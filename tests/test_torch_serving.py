@@ -21,6 +21,7 @@ from tpuir_torch.core.engine import InferenceModel, run_model_inference
 from tpuir_torch.core.metrics import calculate_metrics
 from tpuir_torch.models.restormer import Restormer, init_state_dict
 from tpuir_torch.ops import _kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1, heads=(1, 2, 4, 8))
 HOOKS = dict(patch_size=32, patch_overlap=8, pad_factor=8, batch_size=4)

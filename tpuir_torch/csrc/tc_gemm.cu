@@ -1,5 +1,6 @@
 // The measurement entry points of the tensor-core GEMM core (tc_gemm.cuh):
 // the core alone, in either precision (3xTF32 float32 parity, bf16 products),
+// and its bf16-operand kernel,
 // with its LayerNorm prologue and its row store (with an optional residual),
 // so that its accuracy and rate can be held against float64 and torch.matmul
 // at the shapes of K1's, K6's and K7's products. The port's main paths reach
@@ -56,6 +57,19 @@ int tpuir_tc_gemm_bf16(const float* a, long long a_batch, int lda, const float* 
                        int ln_sub_mean, int batch, int M, int N, int K, void* stream) {
   return tc_gemm<tc::Bf16>(a, a_batch, lda, w, w_batch, resid, out, ldo, ln_stats, ln_w, ln_b,
                            ln_sub_mean, batch, M, N, K, stream);
+}
+
+// The bf16-operand kernel (K1's serving body's apply, projection and
+// project_out): a and w bf16 as stored, float32 sums, a float32 output; K,
+// lda and the batch strides multiples of 8, a and w 16-byte aligned.
+int tpuir_tc_gemm_bf16_operands(const __nv_bfloat16* a, long long a_batch, int lda,
+                                const __nv_bfloat16* w, long long w_batch, const float* resid,
+                                float* out, int ldo, int batch, int M, int N, int K,
+                                void* stream) {
+  if (ldo < N) return (int)cudaErrorInvalidValue;
+  const tc::ArgsBf16 p{a, a_batch, lda, w, w_batch, M, N, K};
+  const tc::StoreOut epi{out, resid, ldo, tc::pairs_aligned(out, resid, ldo)};
+  return tc::launch_tc_gemm_bf16(p, batch, epi, (cudaStream_t)stream);
 }
 
 }  // extern "C"

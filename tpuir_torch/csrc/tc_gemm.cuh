@@ -20,12 +20,19 @@
 // bounds the split's error; the card tests hold it to float64). No product is
 // taken in plain TF32.
 //
-// Bf16 (the serving bodies). Each operand is rounded to bf16 with
+// Bf16 (the serving bodies of K6 and K7). Each operand is rounded to bf16 with
 // cvt.rn.bf16x2.f32 (round to nearest even, as the JAX kernels'
 // astype(bfloat16)) on its way from shared memory to the fragments, and each
 // k16 step is one mma.sync.m16n8k16 bf16 product with float32 accumulators.
 // A bf16 x bf16 product is exact in float32, so the result is the float32 sum
 // of the rounded operands' products. The staged tiles stay float32.
+//
+// Bf16 operands (launch_tc_gemm_bf16, K1's serving body): A and W are bf16 in
+// device memory (a product's operands stored already rounded), staged as
+// bf16 tiles by 16-byte cp.async (8 values), fragments read by ldmatrix, one
+// m16n8k16 bf16 mma.sync a k16 step with float32 accumulators. No operand is
+// rounded here. Its own kernel, gemm_bf16_kernel: the F32x3 and Bf16
+// instances above are not touched by it.
 //
 // What bounds it on this card: 3xTF32 costs three tensor-core products and
 // the two splits, so its ceiling is the TF32 rate over 3 (494.7 / 3 TFLOP/s)
@@ -410,6 +417,190 @@ int launch_tc_gemm(const Args& p, int batch, const Pro& pro, const Epi& epi, cud
     default:
       return v4 ? launch_bn<128, 4, Prec>(p, batch, pro, epi, st)
                 : launch_bn<128, 1, Prec>(p, batch, pro, epi, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Bf16 operands: gemm_bf16_kernel (see the header note).
+// ---------------------------------------------------------------------------
+
+struct ArgsBf16 {
+  const __nv_bfloat16* a;
+  long long a_batch;
+  int lda;
+  const __nv_bfloat16* w;  // row stride K
+  long long w_batch;
+  int M, N, K;
+};
+
+constexpr int kBKH = kBK + 8;  // row stride of a staged bf16 tile: 80 bytes, ldmatrix rows on
+                               // 8 distinct 16-byte bank groups
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+// ldmatrix: lane l gives the address of row l % 8 of matrix l / 8; register j
+// receives matrix j, each lane (row lane / 4, columns 2 (lane % 4) + (0, 1)),
+// or with .trans (rows 2 (lane % 4) + (0, 1), column lane / 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(s));
+}
+
+// One block: a 128 x BN output tile of image blockIdx.y, N tiles fastest, as
+// gemm_kernel; 8 warps, 4 along M x 2 along N, each 32 x BN/2.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(kThreads, 2) gemm_bf16_kernel(ArgsBf16 p, Epi epi) {
+  constexpr int NT = BN / 16;  // n8 tiles of a warp's BN / 2 columns
+  extern __shared__ __align__(16) __nv_bfloat16 smem_h[];
+  __nv_bfloat16* As = smem_h;                  // [kStages][kBM][kBKH]
+  __nv_bfloat16* Ws = As + kStages * kBM * kBKH;  // [kStages][BN][kBKH]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int n0 = (int)(blockIdx.x % n_tiles) * BN;
+  const int m0 = (int)(blockIdx.x / n_tiles) * kBM;
+  const int z = blockIdx.y;
+  const __nv_bfloat16* A = p.a + z * p.a_batch;
+  const __nv_bfloat16* W = p.w + z * p.w_batch;
+  const int KT = (p.K + kBK - 1) / kBK;
+
+  auto load_tile = [&](int kt, int slot) {  // 8 values a copy; K is a multiple of 8
+    const int k0 = kt * kBK;
+    __nv_bfloat16* as = As + slot * kBM * kBKH;
+    __nv_bfloat16* ws = Ws + slot * BN * kBKH;
+#pragma unroll
+    for (int i = 0; i < kBM * kBK / 8 / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 2, kc = (c & 3) * 8;
+      const int m = m0 + r, k = k0 + kc;
+      const bool ok = m < p.M && k < p.K;
+      cp_async16b(as + r * kBKH + kc, ok ? A + (long long)m * p.lda + k : A, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * kBK / 8 + kThreads - 1) / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < BN * kBK / 8) {
+        const int r = c >> 2, kc = (c & 3) * 8;
+        const int n = n0 + r, k = k0 + kc;
+        const bool ok = n < p.N && k < p.K;
+        cp_async16b(ws + r * kBKH + kc, ok ? W + (long long)n * p.K + k : W, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    {
+      const int nk = kt + kStages - 1;
+      if (nk < KT) load_tile(nk, nk % kStages);
+      cp_async_commit();
+    }
+    const int slot = kt % kStages;
+    const __nv_bfloat16* as = As + slot * kBM * kBKH + wm * 32 * kBKH;
+    const __nv_bfloat16* ws = Ws + slot * BN * kBKH + wn * (BN / 2) * kBKH;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      // a: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15), registers a0..a3 of m16n8k16
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(af[mi], as + (mi * 16 + (lane & 15)) * kBKH + kk + 8 * (lane >> 4));
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        uint32_t b0, b1;  // columns n 0-7 of the tile, k 0-7 and 8-15
+        ldsm_x2(b0, b1, ws + (ni * 8 + (lane & 7)) * kBKH + kk + 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      const int n = n0 + wn * (BN / 2) + ni * 8 + 2 * t;
+      if (n >= p.N) continue;
+      const bool two = n + 1 < p.N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + mi * 16 + h * 8 + g;
+        if (m < p.M)
+          epi((long long)z * p.M + m, n, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1], two);
+      }
+    }
+}
+
+template <int BN, class Epi>
+int launch_bf16_bn(const ArgsBf16& p, int batch, const Epi& epi, cudaStream_t st) {
+  const int smem = (int)sizeof(__nv_bfloat16) * kStages * (kBM + BN) * kBKH;
+  auto kern = gemm_bf16_kernel<BN, Epi>;
+  static int smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const long long tiles = (long long)((p.N + BN - 1) / BN) * ((p.M + kBM - 1) / kBM);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<dim3((unsigned)tiles, batch), kThreads, smem, st>>>(p, epi);
+  return (int)cudaGetLastError();
+}
+
+// The product of bf16 operands p over `batch` images on st; epi as for
+// launch_tc_gemm. K, lda and the batch strides must be multiples of 8 and
+// a, w 16-byte aligned.
+template <class Epi>
+int launch_tc_gemm_bf16(const ArgsBf16& p, int batch, const Epi& epi, cudaStream_t st) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || batch <= 0 || batch > 65535 || p.lda < p.K ||
+      p.K % 8 || p.lda % 8 || p.a_batch % 8 || p.w_batch % 8 || ((uintptr_t)p.a & 15) ||
+      ((uintptr_t)p.w & 15))
+    return (int)cudaErrorInvalidValue;
+  switch (pick_bn(p.N)) {
+    case 48:
+      return launch_bf16_bn<48>(p, batch, epi, st);
+    case 96:
+      return launch_bf16_bn<96>(p, batch, epi, st);
+    default:
+      return launch_bf16_bn<128>(p, batch, epi, st);
   }
 }
 

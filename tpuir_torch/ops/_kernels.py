@@ -50,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "mixer_epilogue_serving": 0, "nss_scan_recur_serving": 0, "selective_scan_fused_proj": 0,
     "selective_scan_fused_proj_serving": 0, "nss_scan_fused": 0, "nss_scan_fused_serving": 0,
     "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0, "tc_gemm_bf16": 0,
+    "tc_gemm_bf16_operands": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -158,8 +159,10 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tpuir_fused_block_f32.argtypes = [vp] * 21 + [ci] * 7 + [vp]
         lib.tpuir_fused_block_f32.restype = ci
-        lib.tpuir_fused_block_bf16.argtypes = [vp] * 21 + [ci] * 8 + [vp]
+        lib.tpuir_fused_block_bf16.argtypes = [vp] * 23 + [ci] * 8 + [vp]
         lib.tpuir_fused_block_bf16.restype = ci
+        lib.tpuir_fused_block_bf16_norms_numel.argtypes = [ci] * 4
+        lib.tpuir_fused_block_bf16_norms_numel.restype = ctypes.c_longlong
         lib.tpuir_fused_block_partials_numel.argtypes = [ci] * 5
         lib.tpuir_fused_block_partials_numel.restype = ctypes.c_longlong
         lib.tpuir_mixer_prologue_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
@@ -202,6 +205,8 @@ def library() -> ctypes.CDLL:
         lib.tpuir_tc_gemm_f32.restype = ci
         lib.tpuir_tc_gemm_bf16.argtypes = lib.tpuir_tc_gemm_f32.argtypes
         lib.tpuir_tc_gemm_bf16.restype = ci
+        lib.tpuir_tc_gemm_bf16_operands.argtypes = [vp, ll, ci, vp, ll, vp, vp] + [ci] * 5 + [vp]
+        lib.tpuir_tc_gemm_bf16_operands.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]
         lib.tpuir_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

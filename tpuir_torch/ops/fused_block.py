@@ -18,7 +18,8 @@ runs ``fused_transformer_block_plain`` or
 The plain versions are also what the kernels are compared with on the card.
 ``serving_stages`` runs the serving kernel in its two parts and returns
 every stage's output, for the stage-by-stage check of
-``utils/serving_check.py``.
+``utils/serving_check.py``. The serving kernel takes C a multiple of 8, at
+most 384 (its fused product-and-conv tile's shared memory).
 
 Activations are NCHW tensors in ``torch.channels_last`` memory format, so
 each pixel's C channels are contiguous (the NHWC order of the JAX kernel).
@@ -47,6 +48,8 @@ _CONV_BIASES = (
     "ffn.project_in.bias", "ffn.dwconv.bias", "ffn.project_out.bias",
 )
 _MAX_HEAD_WIDTH = 128  # the Gram and softmax kernels' limit
+_MAX_SERVING_C = 384  # csrc/fused_block.cu kMaxServingC
+GRAM_CHUNK = 256  # pixels a Gram partial (csrc/fused_block.cu kGramChunk)
 
 
 def _check(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
@@ -186,22 +189,37 @@ def fused_transformer_block_serving_plain(x: torch.Tensor, p: Mapping[str, torch
     return out.to(torch.bfloat16).permute(0, 3, 1, 2)
 
 
-def _scratch(x: torch.Tensor, heads: int, hidden: int) -> dict:
-    """The kernels' scratch for x (B, C, H, W) on its card (csrc/fused_block.cu
-    gives each buffer's use)."""
+def _scratch(x: torch.Tensor, heads: int, hidden: int, serving: bool,
+             stages: bool = False) -> dict:
+    """A body's scratch for x (B, C, H, W) on its card (csrc/fused_block.cu
+    gives each buffer's use); ``stages``: with the serving body's float32
+    stage buffer, for ``serving_stages``."""
     B, C, H, W = x.shape
     n = B * H * W
-    hp = -(-hidden // 4) * 4  # the gate's row stride
     lib = _kernels.library()
-    empty = lambda numel: torch.empty(numel, device=x.device, dtype=torch.float32)  # noqa: E731
+
+    def empty(numel, dt=torch.float32):
+        return torch.empty(numel, device=x.device, dtype=dt)
+
+    partials = empty(lib.tpuir_fused_block_partials_numel(B, H, W, C, heads))
+    if not serving:
+        hp = -(-hidden // 4) * 4  # the gate's row stride
+        return {
+            "buf1": empty(n * max(3 * C, 2 * hidden)), "buf2": empty(n * max(3 * C, hp)),
+            "x2": empty(n * C), "w_out_p": empty(C * hp), "partials": partials,
+            "attn": empty(B * C * (C // heads)),
+            "mt": empty(B * C * C),  # the folded projection
+            "stats": empty(2 * n),  # per-pixel LayerNorm (mean, rstd)
+        }
+    hp = -(-hidden // 8) * 8  # the gate's row stride
+    bf = torch.bfloat16
     return {
-        "buf1": empty(n * max(3 * C, 2 * hidden)), "buf2": empty(n * max(3 * C, hp)),
-        "x2": empty(n * C),  # serving: x widened, then x2
-        "w_out_p": empty(C * hp),
-        "partials": empty(lib.tpuir_fused_block_partials_numel(B, H, W, C, heads)),
-        "attn": empty(B * C * (C // heads)),
-        "mt": empty(B * C * C),  # parity: the folded projection; serving: blockdiag(A_b)
-        "stats": empty(2 * n),  # per-pixel LayerNorm (mean, rstd)
+        "w16": empty(4 * C * C + 2 * hidden * C + C * hp, bf),  # the weights rounded
+        "qkv16": empty(n * 3 * C, bf), "act16": empty(n * max(C, hp), bf),  # ao, then the gate
+        "x2": empty(n * C), "norms": empty(lib.tpuir_fused_block_bf16_norms_numel(B, H, W, C)),
+        "partials": partials, "attn": empty(B * C * (C // heads)), "bd16": empty(B * C * C, bf),
+        "stats": empty(2 * n),
+        "f32": empty(n * max(3 * C, hp)) if stages else None,  # a stage's float32 values
     }
 
 
@@ -221,15 +239,15 @@ def _launch(x: torch.Tensor, out: torch.Tensor, p: Mapping[str, torch.Tensor], h
         p["ffn.project_in.weight"].data_ptr(), p["ffn.dwconv.weight"].data_ptr(),
         p["ffn.project_out.weight"].data_ptr(),
     )
-    ptr = {k: v.data_ptr() for k, v in sc.items()}
+    ptr = {k: (v.data_ptr() if v is not None else None) for k, v in sc.items()}
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         dims = (B, H, W, C, heads, hidden, int(ln_bias))
         if serving:
             err = lib.tpuir_fused_block_bf16(
-                x.data_ptr(), out.data_ptr(), *weights, ptr["x2"], ptr["buf1"], ptr["buf2"],
-                ptr["w_out_p"], ptr["partials"], ptr["attn"], ptr["mt"], ptr["stats"], *dims,
-                part, stream)
+                x.data_ptr(), out.data_ptr(), *weights, ptr["w16"], ptr["qkv16"], ptr["act16"],
+                ptr["x2"], ptr["norms"], ptr["partials"], ptr["attn"], ptr["bd16"], ptr["stats"],
+                ptr["f32"], *dims, part, stream)
         else:
             err = lib.tpuir_fused_block_f32(
                 x.data_ptr(), out.data_ptr(), *weights, ptr["buf1"], ptr["buf2"], ptr["x2"],
@@ -238,12 +256,16 @@ def _launch(x: torch.Tensor, out: torch.Tensor, p: Mapping[str, torch.Tensor], h
     _kernels.check(err, "fused_transformer_block_serving" if serving else "fused_transformer_block")
 
 
-def _check_cuda(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int) -> None:
+def _check_cuda(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
+                serving: bool) -> None:
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in p.values())):
         raise RuntimeError("fused_transformer_block: the CUDA kernel has no backward")
-    if x.shape[1] // heads > _MAX_HEAD_WIDTH:
-        raise ValueError(f"fused_transformer_block: head width {x.shape[1] // heads} > "
-                         f"{_MAX_HEAD_WIDTH}")
+    C = x.shape[1]
+    if C // heads > _MAX_HEAD_WIDTH:
+        raise ValueError(f"fused_transformer_block: head width {C // heads} > {_MAX_HEAD_WIDTH}")
+    if serving and (C % 8 or C > _MAX_SERVING_C):
+        raise ValueError(f"fused_transformer_block: the serving kernel takes C a multiple of 8, "
+                         f"at most {_MAX_SERVING_C}, got {C}")
 
 
 def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
@@ -252,17 +274,16 @@ def fused_transformer_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     version on a CPU tensor. Forward only, bias-free convs, float32 weights;
     x float32 (parity) or, with ``serving``, bfloat16, and the output alike.
 
-    The serving kernel reads the float32 weights as they are and rounds each
-    product operand to bf16 on its way to the tensor cores, so no bf16 weight
-    copy is made, per call or per parameter set.
+    The serving kernel rounds the float32 weights to bf16 copies in its
+    scratch at each call (its first launch).
     """
     hidden = _check(x, p, heads, ln_bias, serving)
     if x.device.type == "cpu":
         plain = fused_transformer_block_serving_plain if serving else fused_transformer_block_plain
         return plain(x, p, heads, ln_bias)
-    _check_cuda(x, p, heads)
+    _check_cuda(x, p, heads, serving)
     out = torch.empty_like(x)
-    _launch(x, out, p, heads, ln_bias, hidden, serving, _scratch(x, heads, hidden))
+    _launch(x, out, p, heads, ln_bias, hidden, serving, _scratch(x, heads, hidden, serving))
     name = "fused_transformer_block_serving" if serving else "fused_transformer_block"
     _kernels.LAUNCHES[name] += 1
     return out
@@ -272,34 +293,38 @@ def serving_stages(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
                    ln_bias: bool) -> dict:
     """The serving kernel's output and every stage's, from one run of its two
     parts on x's card, for a check (``utils/serving_check.py``); counts no
-    launch. Returns float32 tensors, channels last: ``xw`` (x widened),
-    ``stats1`` and ``stats2`` (LN1's and LN2's (mean, rstd) a pixel, (n, 2)),
-    ``qkv`` (B, H, W, 3C), ``gram`` (B, heads, hc, hc) and ``norms`` (B,
-    heads, 2, hc), ``attn`` (B, heads, hc, hc), ``ao`` and ``x2`` (B, H, W, C),
-    ``h1`` (B, H, W, 2h), ``gate`` (B, H, W, hp), and ``out`` (bf16, as the
-    wrapper returns it). On a CPU tensor, and only there, the same stages
-    of the plain version with the kernel's sum orders
-    (``utils/serving_check.serving_stage_values``)."""
+    launch. Returns tensors, channels last: ``stats1`` and ``stats2`` (LN1's
+    and LN2's (mean, rstd) a pixel, (n, 2)), ``qkv32`` (B, H, W, 3C: q | k |
+    v in float32, as the fused product-and-conv computes them) and ``qkv``
+    (the same as stored, bf16), ``norm_parts`` (B, output tiles, 2C: q's and
+    k's squared norms an 8 x 16 tile), ``gram`` (B, heads, hc, hc) and
+    ``norms`` (B, heads, 2, hc), ``attn`` (B, heads, hc, hc), ``ao`` (bf16)
+    and ``x2`` (B, H, W, C), ``gate32`` and ``gate`` (bf16) (B, H, W, hp: the
+    gate's rows, zeros past h, hp = h rounded up to a multiple of 8), and
+    ``out`` (bf16, as the wrapper returns it). On a CPU tensor, and only
+    there, the same stages of the plain version with the kernel's sum orders
+    where they decide a bit (``utils/serving_check.serving_stage_values``)."""
     hidden = _check(x, p, heads, ln_bias, True)
     if x.device.type == "cpu":
         from tpuir_torch.utils.serving_check import serving_stage_values
 
         return serving_stage_values(x, p, heads, ln_bias)
-    _check_cuda(x, p, heads)
+    _check_cuda(x, p, heads, True)
     B, C, H, W = x.shape
-    hc, n, hp = C // heads, B * H * W, -(-hidden // 4) * 4
-    sc = _scratch(x, heads, hidden)
+    hc, n, hp = C // heads, B * H * W, -(-hidden // 8) * 8
+    sc = _scratch(x, heads, hidden, True, stages=True)
     out = torch.empty_like(x)
     rows = lambda t, w: t[: n * w].view(B, H, W, w).clone()  # noqa: E731
     _launch(x, out, p, heads, ln_bias, hidden, True, sc, part=1)
-    stride = hc * hc + 2 * hc
-    red = sc["partials"][-B * heads * stride:].view(B, heads, stride)
-    got = {"xw": rows(sc["x2"], C), "stats1": sc["stats"].view(n, 2).clone(),
-           "qkv": rows(sc["buf2"], 3 * C), "ao": rows(sc["buf1"], C),
+    nchunk = -(-H * W // GRAM_CHUNK)
+    red = sc["partials"][B * heads * nchunk * hc * hc:][: B * heads * (hc * hc + 2 * hc)]
+    red = red.view(B, heads, hc * hc + 2 * hc)
+    got = {"stats1": sc["stats"].view(n, 2).clone(), "qkv32": rows(sc["f32"], 3 * C),
+           "qkv": rows(sc["qkv16"], 3 * C), "norm_parts": sc["norms"].view(B, -1, 2 * C).clone(),
            "gram": red[..., : hc * hc].reshape(B, heads, hc, hc).clone(),
            "norms": red[..., hc * hc:].reshape(B, heads, 2, hc).clone(),
-           "attn": sc["attn"].view(B, heads, hc, hc).clone()}
+           "attn": sc["attn"].view(B, heads, hc, hc).clone(), "ao": rows(sc["act16"], C)}
     _launch(x, out, p, heads, ln_bias, hidden, True, sc, part=2)
     got.update(x2=rows(sc["x2"], C), stats2=sc["stats"].view(n, 2).clone(),
-               h1=rows(sc["buf1"], 2 * hidden), gate=rows(sc["buf2"], hp), out=out)
+               gate32=rows(sc["f32"], hp), gate=rows(sc["act16"], hp), out=out)
     return got

@@ -3,7 +3,7 @@
 ``gemm_f32x3`` and ``gemm_bf16`` are the wrappers of
 ``tpuir_torch/csrc/tc_gemm.cu``: the core of ``csrc/tc_gemm.cuh``
 (``mma.sync``, a ``cp.async`` ring) in its two precisions, 3xTF32 (float32
-parity) and bf16 products with float32 sums (K1's serving body), with its
+parity) and bf16 products with float32 sums (K6's and K7's serving bodies), with its
 LayerNorm prologue and its row store. K1 (``csrc/fused_block.cu``), K6
 (``csrc/nss_prologue.cu``) and K7 (``csrc/nss_epilogue.cu``) call the core
 from C; the port's models never call these wrappers. They exist so that the
@@ -30,6 +30,12 @@ table, which the wrapper computes with torch before the launch. In bf16
 mode A' (after the LayerNorm) and w are rounded to bf16, to nearest even,
 and their products summed in float32; a product of two bf16 values is exact
 in float32, so the plain version is ``gemm_plain`` on the rounded operands.
+
+``gemm_bf16_operands`` is the wrapper of the core's bf16-operand kernel (K1's
+serving body's apply, projection and project_out): ``a`` and ``w`` bf16 as
+stored (K a multiple of 8), no LayerNorm, float32 sums and a float32 output;
+counted under ``tc_gemm_bf16_operands``; its plain version is ``gemm_plain``
+on the operands widened.
 """
 
 from __future__ import annotations
@@ -162,4 +168,31 @@ def _launch(mode: str, a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.T
         )
     _kernels.check(err, "gemm_f32x3" if mode == "f32" else "gemm_bf16")
     _kernels.LAUNCHES["tc_gemm" if mode == "f32" else "tc_gemm_bf16"] += 1
+    return out
+
+
+def gemm_bf16_operands(a: torch.Tensor, w: torch.Tensor,
+                       resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The core's bf16-operand kernel on a CUDA tensor, ``gemm_plain`` of the
+    widened operands on a CPU tensor. Forward only; a and w bf16, resid and
+    the output float32."""
+    name = "gemm_bf16_operands"
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: a and w must be bfloat16, got {a.dtype}, {w.dtype}")
+    batch, M, N, K = _check(a.float(), w.float(), resid, None, name)
+    if a.device.type == "cpu":
+        return gemm_plain(a.float(), w.float(), resid)
+    if (K % 8 or a.stride(-1) != 1 or a.stride(-2) % 8 or (a.dim() == 3 and a.stride(0) % 8)
+            or not w.is_contiguous()):
+        raise ValueError(f"{name}: K and a's row strides must be multiples of 8, a's unit "
+                         f"along K, w contiguous")
+    with torch.cuda.device(a.device):
+        out = torch.empty(tuple(a.shape[:-1]) + (N,), device=a.device, dtype=torch.float32)
+        err = _kernels.library().tpuir_tc_gemm_bf16_operands(
+            a.data_ptr(), a.stride(0) if a.dim() == 3 else 0, a.stride(-2),
+            w.data_ptr(), w.stride(0) if w.dim() == 3 else 0,
+            resid.data_ptr() if resid is not None else None, out.data_ptr(), N, batch, M, N, K,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _kernels.check(err, name)
+    _kernels.LAUNCHES["tc_gemm_bf16_operands"] += 1
     return out

@@ -22,9 +22,10 @@ Restormer block through K1, TF32 off as in the engine (under
 serves it: Restormer on K1's serving body and bf16 convs, MaIR-CDN and
 MaIRUNet on their route's serving bodies). Per batch it prints
 the forward's milliseconds (CUDA events), its device time by stage (for
-Restormer, K1's launches by kernel: the LayerNorm statistics, its four 1x1
-products on the GEMM core, the two depthwise convs, the Gram pass, its
-sum, the softmax and the fold), its ten longest kernels, and the time of
+Restormer, K1's launches by kernel: the LayerNorm statistics, its 1x1
+products on the GEMM core, the depthwise convs (in serving fused with the
+products that feed them), the Gram pass, its sum, the softmax and the
+fold), its ten longest kernels, and the time of
 each full conv of the model and of each depthwise conv shape it runs
 (cuDNN; the mixers' dwconv off the stripe route) at the shape the forward
 gives it, called once on the batch and once per image. The last line is
@@ -64,8 +65,10 @@ MIXER_STAGES = (
 )
 # K1's launches (csrc/fused_block.cu), by kernel-name fragment: the products
 # on the GEMM core are told apart by their store type BlockOut<G, out, resid>
-# (the core's precision tag, F32x3 or Bf16, tells the bodies apart), the
-# depthwise convs by their gate (0 none, 1 exact GELU, 2 sigmoid GELU).
+# (the parity body's on gemm_kernel, the serving body's apply, projection and
+# project_out on gemm_bf16_kernel), the parity body's depthwise convs by their
+# gate (0 none, 1 exact GELU), the serving body's fused products and convs by
+# their A (bf16 x: qkv; float x2: project_in and the gate).
 BLOCK_STAGES = (
     ("K1 LayerNorm statistics", ("ln_stats_kernel",)),
     ("K1 qkv product (LN1 prologue)", ("BlockOut<1,",)),
@@ -74,12 +77,14 @@ BLOCK_STAGES = (
     ("K1 project_out product (+ residual)", ("BlockOut<4,",)),
     ("K1 serving: attention apply product", ("BlockOut<5,",)),
     ("K1 qkv depthwise conv", ("dwconv3x3_kernel<0>",)),
-    ("K1 gated depthwise conv", ("dwconv3x3_kernel<1>", "dwconv3x3_kernel<2>")),
-    ("K1 Gram partials", ("gram_partial_kernel",)),
-    ("K1 Gram sum", ("gram_reduce_kernel",)),
+    ("K1 gated depthwise conv", ("dwconv3x3_kernel<1>",)),
+    ("K1 serving: qkv product + depthwise conv", ("conv_product_kernel<__nv_bfloat16, false>",)),
+    ("K1 serving: project_in product + gated conv", ("conv_product_kernel<float, true>",)),
+    ("K1 Gram partials", ("gram_partial_kernel", "gram_mma_kernel")),
+    ("K1 Gram sum", ("gram_reduce_kernel", "gram_norms_reduce_kernel")),
     ("K1 softmax", ("attn_softmax_kernel",)),
     ("K1 fold into the projection", ("fold_proj_kernel",)),
-    ("K1 serving: x widened, blockdiag(A)", ("widen_kernel", "block_diag_kernel")),
+    ("K1 serving: weights rounded, blockdiag(A)", ("round_weights_kernel", "block_diag_kernel")),
 )
 # Library ops by the aten op that launched them (their self device time).
 LIBRARY_STAGES = (

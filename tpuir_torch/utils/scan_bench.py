@@ -1,6 +1,6 @@
 """Time the scan kernels (K2, K5, K3, K4) at the main paths' shapes.
 
-    python tpuir_torch/utils/scan_bench.py [--tree DIR] [--iters 5] [--sass FILE]
+    python tpuir_torch/utils/scan_bench.py [--tree DIR] [--iters 5]
                                            [--kernels K2,K5,K3,K4,K2s] [--accuracy]
 
 On the card, with CUDA events (one warm-up, then the mean of ``--iters``
@@ -18,12 +18,8 @@ MaIR-CDN@128, batch 8. K2, K4 and K5 share their scan passes
 
 ``--tree DIR`` imports ``tpuir_torch`` from another checkout (the parent
 commit unpacked under ``build/``, say) instead of this one, so that two
-trees can be timed in turns on one card, one process each. ``--sass FILE``
-prints, for each ``scan_chunk_kernel``, ``seq_scan_kernel`` and
-``simt_gemm_nt_kernel`` instance of the tree's kernel library (in each
-source that instantiates it), its SASS instruction count and its count of
-each opcode of ``SASS_OPS`` (``cuobjdump -sass``), and writes the SASS of
-K2's two passes at d_state 16 and of K3's one-pass scan to FILE.
+trees can be timed in turns on one card, one process each. The two trees'
+SASS is compared by ``utils/sass_diff.py``.
 
 K2 at MaIR-CDN@128 (shift 0), enc-1 and dec-1, K3 at both its levels, and
 K4, are also broken down by kernel (``torch.profiler``); for K3 each
@@ -154,44 +150,10 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-# SASS opcodes counted a scan kernel instance
-SASS_OPS = ("MUFU.EX2", "MUFU.LG2", "SHFL", "LDS", "STS", "BAR")
-
-
-def sass_counts(lib: str, out: str) -> dict:
-    """{scan kernel instance (``scan_chunk_kernel``, ``seq_scan_kernel``,
-    and the x_proj GEMM's ``simt_gemm_nt_kernel``): [instructions, then the
-    count of each of SASS_OPS]} from ``cuobjdump
-    -sass lib``; the SASS of K2's two passes at d_state 16 and of K3's
-    one-pass scan is written to ``out``."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
-    counts, name, kept = {}, None, []
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            kept_name = re.search("scan_chunk_kernel|seq_scan_kernel|simt_gemm_nt_kernel",
-                                  m.group(1))
-            name = m.group(1) if kept_name else None
-            if name:
-                counts[name] = [0] * (1 + len(SASS_OPS))
-        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[name][0] += 1
-            for i, op in enumerate(SASS_OPS):
-                counts[name][1 + i] += bool(re.search(rf"\b{re.escape(op)}\b", line))
-        if name and ("Li16ENS_12ImageIdsPath" in name or "seq_scan_kernel" in name):
-            kept.append(line)
-    with open(out, "w") as f:
-        f.write("\n".join(kept))
-    return counts
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", help="import tpuir_torch from this checkout")
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--sass", help="write cuobjdump -sass of the library here")
     ap.add_argument("--kernels", default="K2,K5,K3,K4",
                     help="comma-separated subset of K2,K5,K3,K4,K2s to time")
     ap.add_argument("--accuracy", action="store_true",
@@ -220,11 +182,6 @@ def main(argv=None) -> int:
     _kernels.library()
     print(f"tree {tree}: {os.path.relpath(lib, tree)}", flush=True)
     res = {"card": card, "tree": tree, "ms": {}}
-    if args.sass:
-        res["sass"] = sass_counts(lib, args.sass)
-        for name, (n, *ops) in res["sass"].items():
-            print(f"  SASS {n:5d} instructions, "
-                  + ", ".join(f"{c} {op}" for op, c in zip(SASS_OPS, ops)) + f"  {name}")
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)

@@ -11,21 +11,27 @@ kernel's own output of the stage before:
 
 * where the kernel's float32 arithmetic decides a bf16 operand or a value
   that is compared bit for bit (the one-pass LayerNorm statistics, the
-  LayerNorm applied in the GEMM core's prologue, the Gram pass's sums of
-  bf16 products in chunk order, q's and k's norms), that arithmetic is
-  emulated bit for bit (``fma32`` rounds a float32 FMA once), so each bf16
-  operand is the kernel's own and no rounding flips;
+  LayerNorm applied to the fused products' A, q's and k's squared-norm
+  partials an output tile and their sums, the bf16 roundings of the float32
+  q, k, v and gate), that arithmetic is emulated bit for bit (``fma32``
+  rounds a float32 FMA once), so each bf16 operand is the kernel's own and
+  no rounding flips;
 * every product stage is computed in float64 from those bf16 operands and
-  held to the GEMM core's card tolerance, |got - ref| <= 5e-5 + 1e-4 |ref|.
-  An operand left unrounded, or rounded elsewhere (attention folded into
-  the projection), moves a product by about 2^-9 of its terms, ten times
-  that tolerance;
-* the bf16 output must be the rounding of a value within that tolerance
-  of its float64 reference.
+  held to the GEMM core's card tolerance, |got - ref| <= 5e-5 + 1e-4 |ref|:
+  the fused stages (q | k | v from x, the gate from x2) through the float64
+  product, the 3x3 and the GELU; the Gram, whose terms cancel, within 5e-5
+  + 1e-4 sum |q| |k| of float64 sums of the stored bf16 q, k. An operand
+  left unrounded, or rounded elsewhere (attention folded into the
+  projection), moves a product by about 2^-9 of its terms, ten times that
+  tolerance;
+* a bf16 stage read as a product's operand (ao) and the bf16 output must
+  be the rounding of a value within that tolerance of its float64
+  reference.
 
 ``serving_stage_values`` runs the same stage functions in float32, each on
 its own previous stage: the body in plain PyTorch with the kernel's sum
-orders, which the CPU tests hold against tpuir and against the checks.
+orders where they decide a bit, which the CPU tests hold against tpuir and
+against the checks.
 
 The mixer's three bodies (``check_prologue_serving``, ``check_scan_serving``,
 ``check_epilogue_serving``) are held the same way, on the stages their
@@ -86,7 +92,7 @@ SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # the JAX package's scan tolerance (tests/tes
 # the recurrence body's y against its float64 sum from the emulated h, as a
 # share of sum_n |h C_n| + |D x|: its float32 sum rounds about 11 times
 RECUR_RTOL = 4e-6
-GRAM_CHUNK = 256  # pixels a Gram partial (csrc/fused_block.cu kGramChunk)
+TILE_H, TILE_W, RUN = 8, 16, 8  # csrc/fused_block.cu kTH, kTW, kRun: an output tile, a conv item
 EPS = torch.tensor(1e-5, dtype=torch.float32).item()  # 1e-5f, as the kernel adds it
 
 
@@ -155,30 +161,50 @@ def ln_prologue(a: torch.Tensor, stats: torch.Tensor, w: torch.Tensor, b, ln_bia
     return fma32(t, w.expand_as(t), (b if ln_bias else torch.zeros_like(w)).expand_as(t))
 
 
-def gram(qkv: torch.Tensor, heads: int):
-    """The Gram pass on the kernel's qkv (B, H, W, 3C), bit for bit: per
-    chunk of GRAM_CHUNK pixels an FMA chain in pixel order of q and k
-    rounded to bf16 (the products exact in float32), and of the unrounded
-    q^2 and k^2; the chunks summed in order; the norms sqrtf'd and clamped
-    at 1e-12. Returns (G (B, heads, hc, hc), norms (B, heads, 2, hc))."""
+def gram(qkv: torch.Tensor, heads: int, dtype: torch.dtype = torch.float32):
+    """q^T k per head of the bf16 q, k of qkv (B, H, W, 3C), summed in
+    ``dtype``, and the sum of |q| |k| (the scale its float32 sums round
+    against). Returns (G, scale), each (B, heads, hc, hc)."""
     B, H, W, C3 = qkv.shape
-    C, HW = C3 // 3, H * W
-    hc, nch = C // heads, -(-HW // GRAM_CHUNK)
-    t = F.pad(qkv.reshape(B, HW, 3, heads, hc)[:, :, :2],
-              (0, 0, 0, 0, 0, 0, 0, nch * GRAM_CHUNK - HW))
-    # (pixel of the chunk, B, heads, chunk, q | k, hc)
-    t = t.view(B, nch, GRAM_CHUNK, 2, heads, hc).permute(2, 0, 4, 1, 3, 5)
-    r = t.to(torch.bfloat16).float()
-    acc = torch.zeros(B, heads, nch, hc, hc, dtype=torch.float32, device=qkv.device)
-    sq = torch.zeros(B, heads, nch, 2, hc, dtype=torch.float32, device=qkv.device)
-    for pp in range(GRAM_CHUNK):
-        acc = acc + r[pp, :, :, :, 0, :, None] * r[pp, :, :, :, 1, None, :]
-        sq = fma32(t[pp], t[pp], sq)
-    g = torch.zeros(B, heads, hc, hc, dtype=torch.float32, device=qkv.device)
-    s = torch.zeros(B, heads, 2, hc, dtype=torch.float32, device=qkv.device)
-    for ch in range(nch):
-        g, s = g + acc[:, :, ch], s + sq[:, :, ch]
-    return g, _f32(s.double().sqrt()).clamp_min(1e-12)
+    C = C3 // 3
+    q, k = (qkv[..., i * C:(i + 1) * C].reshape(B, H * W, heads, C // heads).to(dtype)
+            for i in (0, 1))
+    return (torch.einsum("bphc,bphd->bhcd", q, k),
+            torch.einsum("bphc,bphd->bhcd", q.abs(), k.abs()))
+
+
+def norm_partials(qkv32: torch.Tensor) -> torch.Tensor:
+    """q's and k's squared norms an output tile, bit for bit as the fused
+    qkv kernel sums them from the float32 values qkv32 (B, H, W, 3C): an
+    FMA chain over each run of RUN pixels of a tile row (the kernel's conv
+    items), the tile's 2 * TILE_H runs summed from 0 row by row, run by run.
+    Returns (B, tiles, 2C), the tiles row by row."""
+    B, H, W, C3 = qkv32.shape
+    C2 = 2 * C3 // 3
+    ty, tx = -(-H // TILE_H), -(-W // TILE_W)
+    t = F.pad(qkv32[..., :C2], (0, 0, 0, tx * TILE_W - W, 0, ty * TILE_H - H))
+    t = t.reshape(B, ty, TILE_H, tx, TILE_W // RUN, RUN, C2)
+    runs = torch.zeros(B, ty, TILE_H, tx, TILE_W // RUN, C2, dtype=torch.float32,
+                       device=qkv32.device)
+    for i in range(RUN):  # pixels outside the image are zeros: fmaf(0, 0, s) = s
+        runs = fma32(t[..., i, :], t[..., i, :], runs)
+    tiles = torch.zeros(B, ty, tx, C2, dtype=torch.float32, device=qkv32.device)
+    for r in range(TILE_H):
+        for h in range(TILE_W // RUN):
+            tiles = tiles + runs[:, :, r, :, h]
+    return tiles.reshape(B, ty * tx, C2)
+
+
+def norms_from_partials(parts: torch.Tensor, heads: int) -> torch.Tensor:
+    """|q| and |k| from the tile partials (B, tiles, 2C), bit for bit: the
+    tiles summed in order from 0, sqrtf, clamped at 1e-12. Returns (B,
+    heads, 2, hc)."""
+    B, tiles, C2 = parts.shape
+    s = torch.zeros(B, C2, dtype=torch.float32, device=parts.device)
+    for i in range(tiles):
+        s = s + parts[:, i]
+    n = _f32(s.double().sqrt()).clamp_min(1e-12)
+    return n.view(B, 2, heads, C2 // 2 // heads).transpose(1, 2)
 
 
 def _dwconv(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -213,55 +239,56 @@ def stage_ao(qkv, attn, heads, dtype):
     """ao = bf16(v) . bf16(A)^T per head."""
     B, H, W, C3 = qkv.shape
     C = C3 // 3
-    v = _bf16(qkv[..., 2 * C:].reshape(B, H * W, heads, C // heads), dtype)
+    v = _bf16(qkv[..., 2 * C:].reshape(B, H * W, heads, C // heads).float(), dtype)
     ao = torch.einsum("bphd,bhcd->bphc", v, _bf16(attn, dtype))
     return ao.reshape(B, H, W, C)
 
 
 def stage_x2(xw, ao, p, dtype):
     """x2 = x + bf16(ao) . bf16(Wproj)^T."""
-    return xw.to(dtype) + _product(ao, p["attn.project_out.weight"], dtype)
+    return xw.to(dtype) + _product(ao.float(), p["attn.project_out.weight"], dtype)
 
 
-def stage_h1(x2, stats2, p, ln_bias, dtype):
-    """h1 = bf16(LN2(x2)) . bf16(Win)^T, LN2 from the kernel's statistics."""
+def stage_gate(x2, stats2, p, ln_bias, dtype):
+    """gate = a1 * sigmoid(1.702 a1) * a2, (a1, a2) = dw3x3(h1), h1 =
+    bf16(LN2(x2)) . bf16(Win)^T, LN2 from the kernel's statistics."""
     B, H, W, C = x2.shape
     y = ln_prologue(x2.reshape(-1, C), stats2, p["norm2.body.weight"], p.get("norm2.body.bias"),
                     ln_bias)
-    return _product(y, p["ffn.project_in.weight"], dtype).view(B, H, W, -1)
-
-
-def stage_gate(h1, p, dtype):
-    """gate = a1 * sigmoid(1.702 a1) * a2, (a1, a2) = dw3x3(h1)."""
-    a1, a2 = _dwconv(h1.to(dtype), p["ffn.dwconv.weight"]).chunk(2, dim=-1)
+    h1 = _product(y, p["ffn.project_in.weight"], dtype).view(B, H, W, -1)
+    a1, a2 = _dwconv(h1, p["ffn.dwconv.weight"]).chunk(2, dim=-1)
     return a1 * torch.sigmoid(1.702 * a1) * a2
 
 
 def stage_out(x2, gate, p, dtype):
     """x2 + bf16(gate) . bf16(Wout)^T, before the output's bf16 rounding."""
-    return x2.to(dtype) + _product(gate, p["ffn.project_out.weight"], dtype)
+    return x2.to(dtype) + _product(gate.float(), p["ffn.project_out.weight"], dtype)
 
 
 def serving_stage_values(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: int,
                          ln_bias: bool) -> Dict[str, torch.Tensor]:
     """The serving body in plain float32 PyTorch with the kernel's sum orders
-    where they decide a bit (LayerNorm statistics, Gram), stage by stage:
-    the dict ``ops/fused_block.serving_stages`` returns. x: (B, C, H, W)
-    bfloat16. On a card, turn TF32 off first."""
-    f32 = torch.float32
+    where they decide a bit (LayerNorm statistics, q's and k's norms), stage
+    by stage: the dict ``ops/fused_block.serving_stages`` returns. x: (B, C,
+    H, W) bfloat16. On a card, turn TF32 off first."""
+    f32, bf = torch.float32, torch.bfloat16
     B, C, H, W = x.shape
-    st = {"xw": x.permute(0, 2, 3, 1).float().contiguous()}
-    st["stats1"] = ln_stats(st["xw"].reshape(-1, C))
-    st["qkv"] = stage_qkv(st["xw"], st["stats1"], p, ln_bias, f32)
-    st["gram"], st["norms"] = gram(st["qkv"], heads)
+    xw = x.permute(0, 2, 3, 1).float().contiguous()
+    st = {"stats1": ln_stats(xw.reshape(-1, C))}
+    st["qkv32"] = stage_qkv(xw, st["stats1"], p, ln_bias, f32)
+    st["qkv"] = st["qkv32"].to(bf)
+    st["norm_parts"] = norm_partials(st["qkv32"])
+    st["norms"] = norms_from_partials(st["norm_parts"], heads)
+    st["gram"] = gram(st["qkv"], heads)[0]
     st["attn"] = stage_attn(st["gram"], st["norms"], p["attn.temperature"], f32)
-    st["ao"] = stage_ao(st["qkv"], st["attn"], heads, f32)
-    st["x2"] = stage_x2(st["xw"], st["ao"], p, f32)
+    st["ao"] = stage_ao(st["qkv"], st["attn"], heads, f32).to(bf)
+    st["x2"] = stage_x2(xw, st["ao"], p, f32)
     st["stats2"] = ln_stats(st["x2"].reshape(-1, C))
-    st["h1"] = stage_h1(st["x2"], st["stats2"], p, ln_bias, f32)
-    gate = stage_gate(st["h1"], p, f32)
-    st["gate"] = F.pad(gate, (0, -gate.shape[-1] % 4))  # rows of hp, as the kernel's
-    st["out"] = stage_out(st["x2"], gate, p, f32).to(torch.bfloat16).permute(0, 3, 1, 2)
+    gate = stage_gate(st["x2"], st["stats2"], p, ln_bias, f32)
+    st["gate32"] = F.pad(gate, (0, -gate.shape[-1] % 8))  # rows of hp, as the kernel's
+    st["gate"] = st["gate32"].to(bf)
+    st["out"] = stage_out(st["x2"], st["gate"][..., :gate.shape[-1]], p, f32).to(bf)
+    st["out"] = st["out"].permute(0, 3, 1, 2)
     return st
 
 
@@ -271,9 +298,11 @@ class Stage(NamedTuple):
     detail: str
 
 
-def _within(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got - ref| as a share of ATOL + RTOL |ref| (float64 ref)."""
-    return ((got.double() - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
+def _within(got: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor = None) -> float:
+    """max |got - ref| as a share of ATOL + RTOL |ref| (float64 ref), or of
+    ATOL + RTOL scale."""
+    scale = ref.abs() if scale is None else scale
+    return ((got.double() - ref).abs() / (ATOL + RTOL * scale)).max().item()
 
 
 def _differ(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -286,47 +315,48 @@ def check_serving_stages(x: torch.Tensor, p: Mapping[str, torch.Tensor], heads: 
     """Each stage of ``st`` (from ``ops/fused_block.serving_stages``, or
     ``serving_stage_values``) against its function of st's own previous
     stage: bit for bit where the module's docstring says so, else within
-    ATOL + RTOL |ref| of float64; the bf16 output as the rounding of a value
-    within that of its float64 reference. x: the block's bf16 input."""
-    f64 = torch.float64
+    ATOL + RTOL |ref| of float64 (the Gram: ATOL + RTOL sum |q| |k|); a bf16
+    stage as the rounding of a value within that of its float64 reference.
+    x: the block's bf16 input."""
+    f64, bf = torch.float64, torch.bfloat16
     B, C, H, W = x.shape
     hidden = p["ffn.project_out.weight"].shape[1]
     out: List[Stage] = []
 
     def exact(name, got, want):
-        n = _differ(got, want)
-        out.append(Stage(name, n == 0, f"{n} of {want.numel()} values differ"))
+        same = tuple(got.shape) == tuple(want.shape)
+        n = _differ(got, want) if same else want.numel()
+        out.append(Stage(name, same and n == 0, f"{n} of {want.numel()} values differ"
+                         + ("" if same else f"; shape {tuple(got.shape)}")))
 
-    def close(name, got, ref):
-        r = _within(got, ref)
-        out.append(Stage(name, r <= 1.0, f"max {r:.3f} of the tolerance"))
+    def close(name, got, ref, scale=None):
+        r = _within(got, ref, scale)
+        finite = bool(torch.isfinite(got).all().item())
+        out.append(Stage(name, r <= 1.0 and finite, f"max {r:.3f} of the tolerance"))
 
-    xh = x.permute(0, 2, 3, 1).float()
-    exact("x widened", st["xw"], xh)
-    exact("LN1 statistics", st["stats1"], ln_stats(st["xw"].reshape(-1, C)))
-    close("qkv", st["qkv"], stage_qkv(st["xw"], st["stats1"], p, ln_bias, f64))
-    g, norms = gram(st["qkv"], heads)
-    exact("Gram of bf16 q, k", st["gram"], g)
-    exact("norms of q, k", st["norms"], norms)
+    xw = x.permute(0, 2, 3, 1).float()
+    exact("LN1 statistics", st["stats1"], ln_stats(xw.reshape(-1, C)))
+    close("qkv", st["qkv32"], stage_qkv(xw, st["stats1"], p, ln_bias, f64))
+    exact("q, k, v rounded", st["qkv"], st["qkv32"].to(bf))
+    parts = norm_partials(st["qkv32"])
+    exact("norm partials", st["norm_parts"], parts)
+    exact("norms of q, k", st["norms"], norms_from_partials(st["norm_parts"], heads))
+    g, scale = gram(st["qkv"], heads, f64)
+    close("Gram of bf16 q, k", st["gram"], g, scale)
     close("attention", st["attn"], stage_attn(st["gram"], st["norms"], p["attn.temperature"], f64))
-    close("ao", st["ao"], stage_ao(st["qkv"], st["attn"], heads, f64))
-    close("x2", st["x2"], stage_x2(st["xw"], st["ao"], p, f64))
+    out.append(_rounded("ao", st["ao"], stage_ao(st["qkv"], st["attn"], heads, f64), ATOL, RTOL))
+    close("x2", st["x2"], stage_x2(xw, st["ao"], p, f64))
     exact("LN2 statistics", st["stats2"], ln_stats(st["x2"].reshape(-1, C)))
-    close("h1", st["h1"], stage_h1(st["x2"], st["stats2"], p, ln_bias, f64))
-    gate = st["gate"]
-    pads = int((gate[..., hidden:] != 0).sum().item())
-    r = _within(gate[..., :hidden], stage_gate(st["h1"], p, f64))
-    out.append(Stage("gate", r <= 1.0 and pads == 0,
+    gate32 = st["gate32"]
+    pads = int((gate32[..., hidden:] != 0).sum().item())
+    r = _within(gate32[..., :hidden], stage_gate(st["x2"], st["stats2"], p, ln_bias, f64))
+    finite = bool(torch.isfinite(gate32).all().item())
+    out.append(Stage("gate", r <= 1.0 and finite and pads == 0,
                      f"max {r:.3f} of the tolerance, {pads} pad values not 0"))
-    ref = stage_out(st["x2"], gate[..., :hidden], p, f64)
-    tol = ATOL + RTOL * ref.abs()
-    lo, hi = ((ref + s * tol).to(torch.bfloat16).double() for s in (-1, 1))
-    got = st["out"].permute(0, 2, 3, 1).double()
-    outside = int(((got < lo) | (got > hi) | ~torch.isfinite(got)).sum().item())
-    flips = int((got != ref.to(torch.bfloat16).double()).sum().item())
-    out.append(Stage("out", outside == 0,
-                     f"{outside} values not the rounding of one within the tolerance; "
-                     f"{flips} of {got.numel()} not bf16(float64 reference)"))
+    exact("gate rounded", st["gate"], gate32.to(bf))
+    ref = stage_out(st["x2"], st["gate"][..., :hidden], p, f64)
+    o = _rounded("out", st["out"].permute(0, 2, 3, 1), ref, ATOL, RTOL)
+    out.append(o)
     return out
 
 

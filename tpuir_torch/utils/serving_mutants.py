@@ -14,7 +14,7 @@ sources its fault reaches:
 * ``K1`` (the default): ``check_serving_stages`` on
   ``ops/fused_block.serving_stages`` at Restormer@256's level-3 and level-1
   block shapes (batch 8, BiasFree), as ``chip_smoke.py`` phase 12 builds
-  them;
+  them, and at level 2 with the LayerNorm bias;
 * ``mixer``: the checks of K6's, K2's and K7's serving bodies
   (``check_prologue_serving``, ``check_scan_serving``,
   ``check_epilogue_serving``) on their ``*_serving_stages`` at MaIR-CDN's
@@ -61,31 +61,66 @@ K3S, GEMM = "scan_fused_proj.cu", "simt_gemm.cuh"
 K2S, IDS = "nss_scan.cu", "../ops/scan_ids.py"
 
 # mutant -> [(source under csrc/, text, its replacement)]; each text occurs once
+_FOLD_BF16 = """// the attention folded into the projection, rounded to bf16
+__global__ void fold_proj_bf16_kernel(const float* __restrict__ attn,
+                                      const float* __restrict__ w_proj,
+                                      __nv_bfloat16* __restrict__ mt, int C, int heads) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= C * C) return;
+  const int o = idx / C, d = idx - o * C;
+  const int hc = C / heads;
+  const int h = d / hc, h0 = h * hc, dl = d - h0;
+  const float* A = attn + ((long long)b * heads + h) * hc * hc;
+  const float* wr = w_proj + (long long)o * C + h0;
+  float s = 0.f;
+  for (int cl = 0; cl < hc; ++cl) s = fmaf(wr[cl], A[cl * hc + dl], s);
+  mt[(long long)b * C * C + idx] = __float2bfloat16_rn(s);
+}
+
+int launch_gram_mma("""
 MUTANTS = {
     "none": [],
-    "two-pass LN1": [(FB, "launch_ln_stats(xf, st2, rows, C, true, st)",
-                      "launch_ln_stats(xf, st2, rows, C, false, st)")],
+    "two-pass LN1": [(FB, "launch_ln_stats(x, st2, rows, C, true, st)",
+                      "launch_ln_stats(x, st2, rows, C, false, st)")],
     "two-pass LN2": [(FB, "launch_ln_stats(x2, st2, rows, C, true, st)",
                       "launch_ln_stats(x2, st2, rows, C, false, st)")],
-    "qkv product unrounded": [(FB, "launch_product<1, tc::Bf16>", "launch_product<1, tc::F32x3>")],
-    "q unrounded": [(FB, "qr[i] = round_bf16(qr[i]);", "")],
-    "k unrounded": [(FB, "kr[i] = round_bf16(kr[i]);", "")],
-    "apply unrounded": [(FB, "launch_product<5, tc::Bf16>", "launch_product<5, tc::F32x3>")],
-    "projection unrounded": [(FB, "launch_product<2, tc::Bf16, __nv_bfloat16>",
-                              "launch_product<2, tc::F32x3, __nv_bfloat16>")],
-    "project_in unrounded": [(FB, "launch_product<3, tc::Bf16>", "launch_product<3, tc::F32x3>")],
-    "project_out unrounded": [(FB, "launch_product<4, tc::Bf16>", "launch_product<4, tc::F32x3>")],
-    "exact GELU": [(FB, "hp, kGeluSigmoid,", "hp, kGeluExact,")],
+    "qkv weight truncated": [(FB, "wq16[i] = __float2bfloat16_rn(w_qkv[i]);",
+                              "wq16[i] = __float2bfloat16_rz(w_qkv[i]);")],
+    "q and k stored truncated (the Gram's operands)": [
+        (FB, "= __float2bfloat16_rn(o);  // q, k: the Gram's operands",
+         "= __float2bfloat16_rz(o);  // q, k: the Gram's operands")],
+    "v stored truncated": [(FB, "= __float2bfloat16_rn(o);  // v: the apply's A",
+                            "= __float2bfloat16_rz(o);  // v: the apply's A")],
+    "norms taken from the rounded q": [
+        (FB, "nsq = fmaf(o, o, nsq);",
+         "{ const float r = __bfloat162float(__float2bfloat16_rn(o)); nsq = fmaf(r, r, nsq); }")],
+    "halo not zeroed outside the image": [
+        (FB, "in ? make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]) : make_float2(0.f, 0.f);",
+         "make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);")],
+    "attention truncated": [(FB, "bd[(long long)b * C * C + idx] = __float2bfloat16_rn(a);",
+                             "bd[(long long)b * C * C + idx] = __float2bfloat16_rz(a);")],
+    "projection weight truncated": [(FB, "wp16[i] = __float2bfloat16_rn(w_proj[i]);",
+                                     "wp16[i] = __float2bfloat16_rz(w_proj[i]);")],
+    "project_in weight truncated": [(FB, "wi16[i] = __float2bfloat16_rn(w_in[i]);",
+                                     "wi16[i] = __float2bfloat16_rz(w_in[i]);")],
+    "project_out weight truncated": [(FB, "wo16[i] = __float2bfloat16_rn(c < hidden",
+                                      "wo16[i] = __float2bfloat16_rz(c < hidden")],
+    "exact GELU": [(FB, "const float o = gelu_sigmoid(s0) * s1;",
+                    "const float o = gelu_exact(s0) * s1;")],
+    "gate stored truncated": [(FB, "= __float2bfloat16_rn(o);  // the gate",
+                               "= __float2bfloat16_rz(o);  // the gate")],
     "attention folded into the projection": [
+        (FB, "int launch_gram_mma(", _FOLD_BF16),
         (FB, "block_diag_kernel<<<dim3((C * C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(\n"
-             "        attn, bd, C, heads);",
-         "fold_proj_kernel<<<dim3((C * C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(\n"
-         "        attn, w_proj, bd, C, heads);"),
-        (FB, "launch_product<5, tc::Bf16>(v_bd, B, tc::NoPrologue{}, buf1, nullptr, C, st)",
-         "launch_product<2, tc::Bf16, __nv_bfloat16>(v_bd, B, tc::NoPrologue{}, x2, x, C, st)"),
-        (FB, "  if ((err = launch_product<2, tc::Bf16, __nv_bfloat16>(\n"
-             "           tc::Args{buf1, 0, C, w_proj, 0, rows, C, C}, 1, tc::NoPrologue{}, "
-             "x2, x, C, st)))\n    return err;\n", ""),
+             "        attn, bd16, C, heads);",
+         "fold_proj_bf16_kernel<<<dim3((C * C + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(\n"
+         "        attn, w_proj, bd16, C, heads);"),
+        (FB, "launch_product_bf16<5>(v_bd, B, act16, nullptr, C, st)",
+         "launch_product_bf16<2, __nv_bfloat16>(v_bd, B, x2, x, C, st)"),
+        (FB, "  if ((err = launch_product_bf16<2, __nv_bfloat16>(tc::ArgsBf16{act16, 0, C, wp16, 0, "
+             "rows, C, C},\n                                                   1, x2, x, C, st)))\n"
+             "    return err;\n", ""),
     ],
     "operands truncated": [(TC, 'asm("cvt.rn.bf16x2.f32 %0', 'asm("cvt.rz.bf16x2.f32 %0')],
     "output truncated": [
@@ -164,8 +199,11 @@ RECUR_MUTANTS = {
         (IDS, "starts[k, t:t + n * w:rp * w] = 1", "starts[k, t:t + n * w:rp * w] = w == scan_len")],
 }
 
-# (label, H = W, C, heads): Restormer@256's level 3 and level 1, batch 8
-SHAPES = [("level3", 64, 192, 4), ("level1", 256, 48, 1)]
+# (label, H = W, C, heads, LayerNorm bias): Restormer@256's level 3 and level 1,
+# batch 8, BiasFree, and level 2 WithBias (where a halo left unzeroed carries
+# the LayerNorm bias into the conv's padding)
+SHAPES = [("level3", 64, 192, 4, False), ("level1", 256, 48, 1, False),
+          ("level2 WithBias", 128, 96, 2, True)]
 # (label, B, H, W, K2's shifts): MaIR-CDN's mixer shapes
 MIXER_SHAPES = [("CDN@128 B=2", 2, 128, 128, (False, True)), ("96x72 B=1", 1, 96, 72, (True,))]
 # (kernel, B, H, W, MaIRUNet's stage whose block 0 gives K3's weights, or K5's shift)
@@ -182,13 +220,15 @@ from tpuir_torch.models.restormer import init_block_params
 from tpuir_torch.ops.fused_block import serving_stages
 from tpuir_torch.utils.serving_check import check_serving_stages
 dev, missed = torch.device("cuda", 0), {}
-for label, hw, C, heads in json.loads(sys.argv[1]):
-    p = {k: v.to(dev) for k, v in init_block_params(C, heads, False, C).items()}
+for label, hw, C, heads, ln_bias in json.loads(sys.argv[1]):
+    p = {k: v.to(dev) for k, v in init_block_params(C, heads, ln_bias, C).items()}
     x = torch.from_numpy(np.random.RandomState(hw).rand(8, hw, hw, C).astype(np.float32))
     x = x.to(dev).to(torch.bfloat16).permute(0, 3, 1, 2)
     with torch.inference_mode(), true_float32():
-        v = check_serving_stages(x, p, heads, False, serving_stages(x, p, heads, False))
+        v = check_serving_stages(x, p, heads, ln_bias, serving_stages(x, p, heads, ln_bias))
     missed[label] = {s.name: s.detail for s in v if not s.ok}
+    del p, x
+    torch.cuda.empty_cache()  # the copies check at once on one card
 print(json.dumps(missed))
 """
 
@@ -327,15 +367,22 @@ BODIES = {"K1": (MUTANTS, {}, _CHECK, SHAPES),
           "recur": (RECUR_MUTANTS, {}, _RECUR_CHECK, MIXER_SHAPES)}
 
 
-def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
+def planted_copy(d: str, edits) -> None:
+    """Copy tpuir_torch and this tree's built objects to ``d`` (so that the
+    copy recompiles only the sources its edits reach) and plant ``edits``
+    there."""
     from tpuir_torch.ops import _kernels
 
-    d = os.path.join(root, "".join(c if c.isalnum() else "_" for c in name))
     shutil.copytree(_PKG, os.path.join(d, "tpuir_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     # the copy's build directory, as its ops/_kernels.py places it
     shutil.copytree(_kernels.OBJ_DIR, os.path.join(d, "build", "tpuir_torch", "obj"))
     plant(os.path.join(d, "tpuir_torch"), edits)
+
+
+def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
+    d = os.path.join(root, "".join(c if c.isalnum() else "_" for c in name))
+    planted_copy(d, edits)
     r = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=d,
                        capture_output=True, text=True)
     if r.returncode:
