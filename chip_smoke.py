@@ -103,15 +103,18 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     requests, three rounds: 44 serving-body launches a chunk and no parity
     K1 launch, repeatable, within 2 uint8 LSB of the same path with plain
     serving blocks, PSNR within 0.05 dB of phase 3's parity outputs.
-13. MaIR-CDN's serving precision. The GEMM core's bf16 mode alone at K6's
-    in_proj and K7's out_proj shapes (beside ``torch.matmul`` in bf16); the
-    serving bodies of K6, K2 (shift off and on) and K7 at MaIR-CDN@128,
-    batch 8, and at the 96x72 tile, batch 1, on phase 4's seeded
-    activations (bf16 where the body takes bf16), each held stage by stage
-    against float64 functions of its own previous stage
-    (``utils/serving_check.py``: K6's in_proj halves and x, K2's x_dbl, y
-    and pooled, K7's gated rows and out_proj), bit for bit on repeat, timed
-    beside its plain version; the mutation controls for the three bodies
+13. MaIR-CDN's serving precision. The GEMM core's bf16-operand kernel
+    alone at K7's out_proj shape (beside ``torch.matmul`` in bf16), and
+    ``torch.matmul`` bf16 alone at K6's in_proj shape (K6 serving takes
+    in_proj fused with its depthwise conv); the serving bodies of K6, K2
+    (shift off and on) and K7 at MaIR-CDN@128, batch 8, and at the 96x72
+    tile, batch 1, on phase 4's seeded activations (bf16 where the body
+    takes bf16), each held stage by stage against float64 functions of its
+    own previous stage (``utils/serving_check.py``: K6's and K7's bf16
+    weight copies, K6's in_proj halves and x, K2's x_dbl, y and pooled,
+    K7's bf16 gated rows and out_proj), bit for bit on repeat, timed beside
+    its plain version and, K6 and K7, beside the recorded times of the
+    bodies they replaced (``SERVING_REPLACED_MS``); the mutation controls for the three bodies
     (``utils/serving_mutants.py --bodies mixer``: each fault in its own
     copy, built there; the check must reject the required ones and accept
     the unmutated copy, and prints its verdict on the reported ones); then
@@ -131,7 +134,9 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     phase 6's and phase 8's seeded weights and activations (bf16 where a
     body takes bf16): each held stage by stage (``utils/serving_check.py``:
     K3's x_dbl and float32 y, K5's x_dbl, bf16 y01 and y23 and pooled), bit
-    for bit on repeat, timed beside its plain version; their mutation
+    for bit on repeat, timed beside its plain version (K6 and K7 also beside
+    the recorded times of the bodies they replaced, by level and per
+    MaIRUNet@384 forward); their mutation
     controls (``utils/serving_mutants.py --bodies seq``); then, through the
     zoo with ``precision="serving"`` on the seeded weights of phases 5 and
     7, three rounds each: MaIRUNet on phase 7's 256x256, 481x321 and 120x90
@@ -285,6 +290,20 @@ BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
 # such, and to be timed again with gemm_bench.py --tree on another card.
 K1_SERVING_REPLACED_MS = {"level1": 2.760, "level2": 1.398, "level3": 0.772, "latent": 0.588,
                           "decoder1+refinement": 5.436, "forward": 85.263}
+# The same for the MaIR mixer's serving bodies of K6 (in_proj on the core's
+# old bf16 mode, then the depthwise conv: two launches, the float32 x half
+# through device memory) and K7 (float32 gated rows, out_proj on that mode):
+# ms a call at MaIR-CDN@128 and at each UNET_LEVELS shape (batch 8), and
+# per MaIRUNet@384 forward, as PERF.md section 6 records them (chip_smoke.py
+# phases 13 and 14 on an NVIDIA H100 80GB HBM3 at 700.00 W). Recorded
+# figures, printed beside this run's times as such.
+K6_SERVING_REPLACED_MS = {"MaIR-CDN@128": 0.531, "encoder1": 1.260,
+                          "decoder1+refinement": 2.557, "level2": 0.697, "level3": 0.422,
+                          "latent": 0.282, "forward": 41.19}
+K7_SERVING_REPLACED_MS = {"MaIR-CDN@128": 0.349, "encoder1": 0.927,
+                          "decoder1+refinement": 1.745, "level2": 0.472, "level3": 0.293,
+                          "latent": 0.204, "forward": 28.49}
+SERVING_REPLACED_MS = {"K6s": K6_SERVING_REPLACED_MS, "K7s": K7_SERVING_REPLACED_MS}
 SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
 SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
 # The bf16 recurrence (recur_bf16) is an opt-in mode that the JAX package keeps
@@ -1486,48 +1505,52 @@ def bound_bf16(nbytes, gemm_flops, flops, exps=0):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed, bf16_operands=False):
-    """The GEMM core alone at one product shape: its bf16 mode
-    (``ops/tc_gemm.gemm_bf16``: float32 operands, rounded at fragment load)
-    or, with ``bf16_operands``, its bf16-operand kernel
-    (``gemm_bf16_operands``: the operands already bf16). Held against
-    float64 products of the bf16 operands, and beside ``torch.matmul`` on
-    them in bf16 (a bf16 output): prints max |error|, its share of atol +
-    rtol * |ref| and TFLOP/s of each; fails if the core misses the
-    tolerance."""
+def gemm_bf16_yardstick(label, images, M, N, K, per_image, device, seed, core=True):
+    """The GEMM core's bf16-operand kernel alone at one product shape
+    (``ops/tc_gemm.gemm_bf16_operands``), held against float64 products of
+    its bf16 operands, and beside ``torch.matmul`` on them in bf16 (a bf16
+    output): prints max |error|, its share of atol + rtol * |ref| and
+    TFLOP/s of each; fails if the core misses the tolerance. With ``core``
+    False, ``torch.matmul`` alone: the library's time at a product shape
+    that no standalone kernel of the port takes."""
     import torch
 
-    from tpuir_torch.ops.tc_gemm import gemm_bf16, gemm_bf16_operands
+    from tpuir_torch.ops.tc_gemm import gemm_bf16_operands
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    a = torch.randn(images, M, K, device=device, generator=gen)
-    w = torch.randn(*((images,) if per_image else ()), N, K, device=device,
-                    generator=gen) * K ** -0.5
-    a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
-    what = "bf16-operand core" if bf16_operands else "bf16 core"
+    a16 = torch.randn(images, M, K, device=device, generator=gen).to(torch.bfloat16)
+    w16 = (torch.randn(*((images,) if per_image else ()), N, K, device=device,
+                       generator=gen) * K ** -0.5).to(torch.bfloat16)
+    tflop = 2 * images * M * N * K / 1e12
     with torch.inference_mode():
         mm = lambda: torch.matmul(a16, w16.transpose(-1, -2))  # noqa: E731
-        core = ((lambda: gemm_bf16_operands(a16, w16)) if bf16_operands
-                else (lambda: gemm_bf16(a, w)))
+        kern = lambda: gemm_bf16_operands(a16, w16)  # noqa: E731
         ref = torch.matmul(a16.double(), w16.double().transpose(-1, -2))
         stats = []
-        for fn in (core, mm):
+        for fn in (kern, mm) if core else (mm,):
             err = (fn().double() - ref).abs()
             stats.append((err.max().item(), (err / (ATOL + RTOL * ref.abs())).max().item()))
             del err
         del ref
-        core(), mm()
+        mm()
         t_mm = cuda_ms(mm, ITERS)
-        t_core = (cuda_ms(core, ITERS) + cuda_ms(core, ITERS)) / 2
+        if not core:
+            t_mm = (t_mm + cuda_ms(mm, ITERS)) / 2
+            print(f"  torch.matmul bf16 {label:26s} {images}x({M}x{K} . {N}x{K}^T) "
+                  f"{t_mm:.3f} ms {tflop / t_mm * 1e3:6.1f} TFLOP/s max|err| "
+                  f"{stats[0][0]:.2e} (bf16 out; the library's yardstick, no kernel of the "
+                  f"port's)", flush=True)
+            return
+        kern()
+        t_core = (cuda_ms(kern, ITERS) + cuda_ms(kern, ITERS)) / 2
         t_mm = (t_mm + cuda_ms(mm, ITERS)) / 2
-    tflop = 2 * images * M * N * K / 1e12
-    print(f"  {what} {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
+    print(f"  bf16-operand core {label:26s} {images}x({M}x{K} . {N}x{K}^T)  core {t_core:.3f} ms "
           f"{tflop / t_core * 1e3:6.1f} TFLOP/s max|err| {stats[0][0]:.2e} "
           f"({stats[0][1]:.3f} of tol)  torch.matmul bf16 {t_mm:.3f} ms "
           f"{tflop / t_mm * 1e3:6.1f} TFLOP/s max|err| {stats[1][0]:.2e} (bf16 out)", flush=True)
     if not stats[0][1] <= 1.0:
-        fail(f"the {what} misses atol {ATOL:g} + rtol {RTOL:g} against float64 products of "
-             f"its bf16 operands at {label}")
+        fail(f"the bf16-operand core misses atol {ATOL:g} + rtol {RTOL:g} against float64 "
+             f"products of its bf16 operands at {label}")
 
 
 def ulp2_ratio(got, want) -> float:
@@ -1553,7 +1576,7 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
     against the plain version (max|d|, and tpuir's block criteria, two bf16
     ulps and 1/20 of the serving-parity gap) is printed beside, for the
     record. Before each shape, the bf16 core alone at the body's five
-    product shapes (``gemm_bf16_yardstick`` with ``bf16_operands``); after,
+    product shapes (``gemm_bf16_yardstick``); after,
     the check's mutation controls (``mutant_controls("K1")``: 16 required
     faults). Returns (max |kernel -
     plain|, per-forward kernel ms, per-forward plain ms, bound ms, what
@@ -1578,7 +1601,7 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
         for name, hw, C, heads, count in shapes:
             for label, images, M, N, K, per_image in k1_serving_products(batch, hw, C):
                 gemm_bf16_yardstick(f"K1s {name} {label}", images, M, N, K, per_image, device,
-                                    SEED + K, bf16_operands=True)
+                                    SEED + K)
             for ln_bias in (False, True):
                 p = {k: v.to(device) for k, v in
                      init_block_params(C, heads, ln_bias, SEED + C).items()}
@@ -1783,16 +1806,17 @@ def mixer_serving_bodies(pro, scan, epi, px, images, shifts=(False, True)):
 
 
 def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITERS,
-                       plain_iters=ITERS, timing="turns"):
+                       plain_iters=ITERS, timing="turns", replaced=None):
     """One serving body held stage by stage: its stage entry ``stages()``
     twice, bit for bit, the wrapper ``kern()``'s output the stages' ``outs``,
     each stage within ``check`` (``utils/serving_check.py``); its output
     against ``plain()`` (max|d|, and tpuir's criterion of two bf16 ulps)
     printed for the record. ``timing``: "turns" (CUDA events, plain,
     kernel, kernel, plain), "once" (the plain version timed once, the
-    kernel over ``iters``) or None. Prints one line and the stages, fails on
-    a miss. Returns (max |kernel - plain|, ms, plain ms, bound ms, bound by)
-    from ``work``'s ``bound_bf16``."""
+    kernel over ``iters``) or None; ``replaced``: the recorded ms of the body
+    this one replaced, printed beside as such. Prints one line and the
+    stages, fails on a miss. Returns (max |kernel - plain|, ms, plain ms,
+    bound ms, bound by) from ``work``'s ``bound_bf16``."""
     import torch
 
     st = {k: v.clone() for k, v in stages().items()}
@@ -1823,6 +1847,8 @@ def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITER
     missed = [v.name for v in verdicts if not v.ok]
     times = (f"kernel {t_kern:.3f} ms  plain {t_plain:.3f} ms  bound {b_ms:.3f} ms ({b_by})"
              if timing else "(not timed)")
+    if timing and replaced is not None:
+        times += f"  (the replaced body, recorded on an H100 at 700 W: {replaced:.3f} ms)"
     print(f"{label:30s} stages {'ok' if not missed else 'MISS'}; against plain max|d| "
           f"{max_err:.3e}" + (f" ({ulps:.2f} x 2 bf16 ulps)" if ulps else "")
           + f"; repeat {'bit for bit' if repeat else 'DIFFERS'}  {times}", flush=True)
@@ -1847,8 +1873,10 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
     the same, each stage held to its float64 function of the kernel's own
     previous stage (``utils/serving_check.py``); the output against the
     plain version (max|d|, and tpuir's criterion of two bf16 ulps) printed
-    for the record. Before, the bf16 core alone at K6's in_proj and K7's
-    out_proj shapes (``gemm_bf16_yardstick``); after,
+    for the record; K6's and K7's times beside those of the bodies they
+    replaced (``SERVING_REPLACED_MS``). Before, the bf16-operand core alone
+    at K7's out_proj shape (K padded to 8) and ``torch.matmul`` bf16 at
+    K6's in_proj shape (``gemm_bf16_yardstick``); after,
     ``utils/serving_mutants.run_mutants("mixer")``. Returns {kernel: (max
     |kernel - plain|, ms, plain ms, bound ms, bound by)} per call at
     ``tile``, K2 the mean over both shifts."""
@@ -1856,6 +1884,7 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
 
     from tpuir_torch import zoo
     from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops.nss_epilogue import padded_inner
 
     cfg = zoo.MAIR_CDN_CONFIG
     dm = cfg["embed_dim"]
@@ -1864,9 +1893,9 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
     with torch.inference_mode(), true_float32():
         px = batch * tile * tile
         gemm_bf16_yardstick(f"K6s MaIR-CDN@{tile} in_proj", 1, px, 2 * di, dm, False, device,
-                            SEED)
-        gemm_bf16_yardstick(f"K7s MaIR-CDN@{tile} out_proj", 1, px, dm, di, False, device,
-                            SEED)
+                            SEED, core=False)
+        gemm_bf16_yardstick(f"K7s MaIR-CDN@{tile} out_proj", 1, px, dm,
+                            padded_inner(di, serving=True), False, device, SEED)
         for b, hw, timed in ((batch, (tile, tile), True), (1, rect, False)):
             pro, scan, epi = mixer_inputs(device, b, hw)
             px = b * hw[0] * hw[1]
@@ -1874,8 +1903,9 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
                  work) in mixer_serving_bodies(pro, scan, epi, px, b):
                 label = (f"{short} B={b} {hw[0]}x{hw[1]}"
                          + (f" shift={int(shift)}" if shift is not None else ""))
+                replaced = SERVING_REPLACED_MS.get(short, {}).get(f"MaIR-CDN@{tile}")
                 row = check_serving_body(label, stages, check, kern, plain, outs, work, iters,
-                                         plain_iters, "turns" if timed else None)
+                                         plain_iters, "turns" if timed else None, replaced)
                 prev = res.get(name)
                 if timed:
                     if prev and prev[1] is not None:  # K2: the mean over both shifts
@@ -2005,7 +2035,8 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
                 if label == "rect" and name != "nss_scan_serving":
                     continue  # the rectangular tile is K2a's case
                 row = check_serving_body(f"{short} B={b} {hh}x{ww} Di={di} N={n}", stages,
-                                         check, kern, plain, outs, work, 3, timing="once")
+                                         check, kern, plain, outs, work, 3, timing="once",
+                                         replaced=SERVING_REPLACED_MS.get(short, {}).get(label))
                 keep(name, row)
                 acc = fwd.setdefault(short, [0.0] * 6)
                 for i, v in enumerate(row[1:3] + work):
@@ -2014,9 +2045,12 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
             torch.cuda.empty_cache()
         for short, (ms, plain_ms, *work) in fwd.items():
             b_ms, b_by = bound_bf16(*work)
+            was = SERVING_REPLACED_MS.get(short, {}).get("forward")
             print(f"{short} per MaIRUNet@384 forward (batch {BATCH}, "
                   f"{sum(c for *_, c in levels)} calls): kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+                  f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})"
+                  + (f" (the replaced body, recorded on an H100 at 700 W: {was:.2f} ms)"
+                     if was else ""), flush=True)
 
         # K3 serving at the 481x321 request's two K3 levels, per forward chunk
         k3 = [0.0] * 6

@@ -2,9 +2,9 @@
 with ``mm_bf16=True, fast_gelu=True`` (interpret mode) on bf16 inputs, the
 wrapper's checks, the stage-by-stage check of ``utils/serving_check.py``
 (its emulations, and that it passes the body and catches each planted
-fault), the GEMM core's bf16 mode (``ops/tc_gemm.gemm_bf16``) and its
-bf16-operand kernel (``gemm_bf16_operands``, the serving body's apply,
-projection and project_out) against float64, and the CUDA kernels on a
+fault), the GEMM core's bf16-operand kernel (``ops/tc_gemm.
+gemm_bf16_operands``: the serving body's apply, projection and project_out,
+and K7 serving's out_proj) against float64, and the CUDA kernels on a
 card.
 
 Block-level criteria against tpuir on the CPU (the bf16 flips that two sum
@@ -39,13 +39,13 @@ from tpuir_torch.ops.fused_block import (
     fused_transformer_block_serving_plain,
     serving_stages,
 )
-from tpuir_torch.ops.tc_gemm import _ln_stats, gemm_bf16, gemm_bf16_operands, gemm_bf16_plain
+from tpuir_torch.ops.tc_gemm import gemm_bf16_operands
 from tpuir_torch.utils import k1s_phases, serving_mutants
 from tpuir_torch.utils import serving_check as sc
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEY = "fused_transformer_block_serving"
-# the bf16 core against float64 products of its rounded operands (the
+# the bf16-operand core against float64 products of its operands (the
 # parity core's card tolerance, tests/test_torch_gemm_core.py)
 ATOL, RTOL = 5e-5, 1e-4
 
@@ -376,18 +376,11 @@ def test_k1s_phases_apply_to_the_sources(name, tmp_path):
     serving_mutants.plant(str(tmp_path), k1s_phases.PHASES[name])
 
 
-# --- the GEMM core's bf16 mode ----------------------------------------------
+# --- the GEMM core's bf16-operand kernel ------------------------------------
 
-def _bf16_float64_reference(a, w, ln, resid):
-    """(float64 product of A' and w rounded to bf16, plus resid; the same of
-    their absolute values), A' computed as the core computes it:
-    ((a - mu) * rstd) in float32, then one rounding of that * weight + bias
-    (an FMA), with the wrapper's (mu, rstd) table."""
-    if ln is not None:
-        weight, bias = ln
-        mu, rstd = _ln_stats(a)
-        t = (a - mu if bias is not None else a) * rstd
-        a = (t.double() * weight.double() + (bias.double() if bias is not None else 0)).float()
+def _bf16_float64_reference(a, w, resid):
+    """(float64 product of a and w rounded to bf16, plus resid; the same of
+    their absolute values)."""
     a = a.to(torch.bfloat16).double()
     w = w.to(torch.bfloat16).double().transpose(-1, -2)
     out, scale = a @ w, a.abs() @ w.abs()
@@ -396,88 +389,44 @@ def _bf16_float64_reference(a, w, ln, resid):
     return out, scale
 
 
-def _gemm_operands(batch, M, N, K, per_image, ln, resid, seed, device="cpu", lda=None):
+def _gemm_operands(batch, M, N, K, per_image, resid, seed, device="cpu", lda=None):
     rng = np.random.RandomState(seed)
     t = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(device)  # noqa: E731
     a = t(rng.randn(batch, M, lda or K))[..., :K]
     w = t(rng.randn(*((batch,) if per_image else ()), N, K) / np.sqrt(K))
-    lnp = None
-    if ln:
-        lnp = (t(1 + 0.1 * rng.randn(K)), t(0.1 * rng.randn(K)) if ln == "bias" else None)
     r = t(rng.randn(batch, M, N)) if resid else None
-    return a, w, r, lnp
-
-
-@pytest.mark.parametrize("batch,M,N,K,per_image,ln,resid", [
-    (1, 37, 20, 16, False, None, False),  # the parity core's CPU cases
-    (2, 19, 12, 24, True, None, True),
-    (2, 23, 30, 16, False, "bias", False),
-    (1, 17, 9, 40, False, "no bias", True),
-])
-def test_gemm_bf16_plain_is_the_product_of_rounded_operands(batch, M, N, K, per_image, ln,
-                                                           resid):
-    a, w, r, lnp = _gemm_operands(batch, M, N, K, per_image, ln, resid, seed=M + N)
-    before = _kernels.LAUNCHES["tc_gemm_bf16"]
-    got = gemm_bf16(a, w, r, lnp)
-    assert _kernels.LAUNCHES["tc_gemm_bf16"] == before  # the plain version on a CPU tensor
-    assert torch.equal(got, gemm_bf16_plain(a, w, r, lnp))
-    want, scale = _bf16_float64_reference(a, w, lnp, r)
-    # float32 sums of exact products: within 1e-6 of the sum of |terms|
-    assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
+    return a, w, r
 
 
 # (batch, M, N, K, one weight an image, residual, row stride of A): the core's
-# bf16-operand kernel at the serving body's apply (v strided in q | k | v),
-# projection and project_out (K the gate's padded row) and ragged sizes
+# bf16-operand kernel at K1 serving's apply (v strided in q | k | v),
+# projection and project_out (K the gate's padded row), K7 serving's
+# out_proj (K d_inner rounded up to 8: MaIR-CDN's 234 and 33; MaIRUNet's
+# widths) and ragged sizes
 BF16_OPERAND_CASES = [
     (1, 37, 20, 16, False, False, None),
     (2, 19, 12, 24, True, True, 72),
     (1, 130, 48, 136, False, True, None),
+    (1, 67, 180, 240, False, False, None),
+    (1, 45, 20, 40, False, False, None),
+    (1, 33, 48, 96, False, False, None),
+    (1, 21, 384, 768, False, False, None),
 ]
 
 
 @pytest.mark.parametrize("batch,M,N,K,per_image,resid,lda", BF16_OPERAND_CASES)
 def test_gemm_bf16_operands_plain_is_the_product_of_its_operands(batch, M, N, K, per_image,
                                                                resid, lda):
-    a, w, r, _ = _gemm_operands(batch, M, N, K, per_image, None, resid, seed=M + K, lda=lda)
+    a, w, r = _gemm_operands(batch, M, N, K, per_image, resid, seed=M + K, lda=lda)
     a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
     before = _kernels.LAUNCHES["tc_gemm_bf16_operands"]
     got = gemm_bf16_operands(a16, w16, r)
     assert _kernels.LAUNCHES["tc_gemm_bf16_operands"] == before  # the plain version on a CPU tensor
-    want, scale = _bf16_float64_reference(a16.float(), w16.float(), None, r)
+    want, scale = _bf16_float64_reference(a16.float(), w16.float(), r)
     assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
 
 
 # --- the CUDA kernels, on a card --------------------------------------------
-
-# (batch, M, N, K, one weight an image, LayerNorm, residual, row stride of A)
-CARD_GEMM_CASES = [
-    (1, 1000, 37, 50, False, None, False, None),       # ragged M, N; 4-byte copies
-    (1, 777, 254, 48, False, "no bias", False, None),  # K1 level 1's project_in, BiasFree LN
-    (1, 515, 48, 127, False, None, True, None),        # K = h = 127, residual
-    (1, 260, 384, 1021, False, None, True, None),      # the latent's project_out
-    (3, 300, 96, 96, True, None, False, 288),          # one weight an image, strided rows (v)
-    (1, 333, 510, 96, False, "bias", False, None),     # WithBias LN
-    (1, 129, 2042, 384, False, "bias", False, None),   # the latent's project_in
-]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch,M,N,K,per_image,ln,resid,lda", CARD_GEMM_CASES)
-def test_gemm_bf16_matches_float64_on_card(cuda_device, batch, M, N, K, per_image, ln, resid,
-                                           lda):
-    a, w, r, lnp = _gemm_operands(batch, M, N, K, per_image, ln, resid, seed=N + K,
-                                  device=cuda_device, lda=lda)
-    before = _kernels.LAUNCHES["tc_gemm_bf16"]
-    with torch.inference_mode():
-        got = gemm_bf16(a, w, r, lnp)
-        torch.cuda.synchronize()
-        assert _kernels.LAUNCHES["tc_gemm_bf16"] == before + 1
-        again = gemm_bf16(a, w, r, lnp)
-        want, _ = _bf16_float64_reference(a, w, lnp, r)
-    assert torch.equal(got, again)
-    torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=RTOL)
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,M,N,K,per_image,resid,lda", [
@@ -485,10 +434,18 @@ def test_gemm_bf16_matches_float64_on_card(cuda_device, batch, M, N, K, per_imag
     (3, 300, 96, 96, True, False, 288),     # the apply: one weight an image, v strided
     (1, 777, 48, 128, False, True, None),   # level 1's project_out, h = 127 padded to 128
     (1, 260, 384, 1024, False, True, None),  # the latent's project_out
+    # K7 serving's out_proj, K = d_inner rounded up to 8
+    (1, 4099, 180, 240, False, False, None),  # MaIR-CDN, d_inner 234
+    (1, 3001, 48, 96, False, False, None),    # MaIRUNet's widths
+    (1, 2999, 96, 192, False, False, None),
+    (1, 1500, 192, 384, False, False, None),
+    (1, 777, 384, 768, False, False, None),
+    (1, 1001, 20, 40, False, False, None),    # d_inner 33
+    (1, 513, 10, 16, False, False, None),     # d_inner 12
 ])
 def test_gemm_bf16_operands_matches_float64_on_card(cuda_device, batch, M, N, K, per_image,
                                                     resid, lda):
-    a, w, r, _ = _gemm_operands(batch, M, N, K, per_image, None, resid, seed=N + K,
+    a, w, r = _gemm_operands(batch, M, N, K, per_image, resid, seed=N + K,
                                 device=cuda_device, lda=lda)
     a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
     if lda:  # a column slice of a wider bf16 tensor, as v is of q | k | v
@@ -500,7 +457,7 @@ def test_gemm_bf16_operands_matches_float64_on_card(cuda_device, batch, M, N, K,
         torch.cuda.synchronize()
         assert _kernels.LAUNCHES["tc_gemm_bf16_operands"] == before + 1
         again = gemm_bf16_operands(a16, w16, r)
-        want, _ = _bf16_float64_reference(a16.float(), w16.float(), None, r)
+        want, _ = _bf16_float64_reference(a16.float(), w16.float(), r)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.double(), want, atol=ATOL, rtol=RTOL)
 

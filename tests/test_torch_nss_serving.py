@@ -31,7 +31,8 @@ from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_serving
 from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
                                         nss_scan_serving_stages, scan_from_xdbl,
                                         scan_serving_values)
-from tpuir_torch.utils import serving_mutants
+from tpuir_torch.utils import k1s_phases, serving_mutants
+from tpuir_torch.utils.misc import bf16_padded_rows
 from tpuir_torch.utils.serving_check import (check_epilogue_serving, check_prologue_serving,
                                              check_scan_serving)
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -238,10 +239,59 @@ def test_serving_stage_entries_are_the_plain_versions_on_cpu():
     epi = _torch(_epilogue_operands(1, 8, 12, 12, 10, seed=1), bf16=("y", "z"))
     st = _unchanged(lambda: mixer_epilogue_serving_stages(**epi))
     assert torch.equal(st["out"], mixer_epilogue_serving_plain(**epi))
-    assert st["gated"].shape == (1, 8, 12, padded_inner(12))
+    assert st["gated"].shape == (1, 8, 12, padded_inner(12, serving=True))
+    assert st["gated"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("d", [33, 180, 384])
+def test_bf16_weight_copies_are_the_rounded_weights_with_zero_tails(d):
+    """The serving bodies' bf16 copies of W_in (rows of d_model) and W_out
+    (rows of d_inner), as the plain versions make them and the stage checks
+    hold the kernels' copies to: w rounded to bf16 to nearest even, rows
+    padded with zeros to a multiple of 8."""
+    rng = np.random.RandomState(d)
+    h = torch.from_numpy(rng.randn(1, 2, 3, d).astype(np.float32))
+    w_in = torch.from_numpy(rng.randn(2 * 5, d).astype(np.float32))
+    conv_w = torch.from_numpy(rng.randn(5, 1, 3, 3).astype(np.float32))
+    epi = _torch(_epilogue_operands(1, 2, 3, d, 7, seed=d), bf16=("y", "z"))
+    copies = {"W_in": (mixer_prologue_serving_stages(h, w_in, conv_w, torch.zeros(5))["w16"],
+                       w_in),
+              "W_out": (mixer_epilogue_serving_stages(**epi)["w16"], epi["w_out"])}
+    for name, (got, w) in copies.items():
+        width = -(-d // 8) * 8
+        assert got.dtype == torch.bfloat16 and got.shape == (w.shape[0], width), name
+        assert torch.equal(got[:, :d], w.to(torch.bfloat16)), name
+        assert bool((got[:, d:] == 0).all()), name
+        assert torch.equal(got, bf16_padded_rows(w)), name
 
 
 # --- the stage checks: the plain versions pass, planted faults do not -------
+
+
+def _dwconv_edge_fault(xpre, conv_w, conv_b, fault):
+    """dw3x3(xpre) + b as a kernel with a planted window fault computes it:
+    "edge read across rows", the left and right zero padding replaced by
+    the neighbouring rows' pixels (row y's column -1 is row y - 1's last,
+    column W row y + 1's first); "window shifted", the window's right column
+    at the last pixel of each 16-pixel tile column read one column left
+    (the pixel's own)."""
+    B, H, W, di = xpre.shape
+    t = xpre.permute(0, 3, 1, 2)
+    if fault == "edge read across rows":
+        flat = F.pad(t.reshape(B, di, H * W), (1, 1))  # zero before the first, after the last
+        left = flat[..., 0:H * W:W][..., :H]  # pixel y W - 1, row y's left neighbour
+        right = flat[..., W + 1::W][..., :H]  # pixel (y + 1) W, row y's right neighbour
+        wide = torch.cat([left[..., None], t, right[..., None]], -1)
+        return F.conv2d(wide, conv_w, conv_b, padding=(1, 0), groups=di).permute(0, 2, 3, 1)
+    p = F.pad(t, (1, 1, 1, 1))
+    right = p[..., 2:].clone()
+    edge = torch.arange(W) % 16 == 15
+    right[..., edge] = p[..., 1:-1][..., edge]
+    out = conv_b.view(1, -1, 1, 1).expand(B, di, H, W).clone()
+    for d in range(3):
+        for e, cols in enumerate((p[..., :-2], p[..., 1:-1], right)):
+            out = out + conv_w[:, 0, d, e].view(1, -1, 1, 1) * cols[:, :, d:d + H]
+    return out.permute(0, 2, 3, 1)
 
 
 def _planted_prologue(fault, h, w_in, conv_w, conv_b):
@@ -254,9 +304,14 @@ def _planted_prologue(fault, h, w_in, conv_w, conv_b):
     w = w_in if fault == "W_in unrounded" else w_in.to(torch.bfloat16).float()
     xz = F.linear(a, w)
     xpre = xz[..., :di].contiguous()
-    x = F.silu(F.conv2d(xpre.permute(0, 3, 1, 2), conv_w, conv_b, padding=1, groups=di))
-    return {"xpre": xpre, "x": x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
-            "z": xz[..., di:].to(torch.bfloat16).contiguous()}
+    if fault in ("edge read across rows", "window shifted"):
+        x = _dwconv_edge_fault(xpre, conv_w, conv_b, fault)
+    else:
+        x = F.conv2d(xpre.permute(0, 3, 1, 2), conv_w, conv_b, padding=1,
+                     groups=di).permute(0, 2, 3, 1)
+    z = xz[..., di:].contiguous()
+    return {"w16": st["w16"], "xpre": xpre, "x": F.silu(x).to(torch.bfloat16).contiguous(),
+            "z": _truncate_bf16(z) if fault == "z truncated" else z.to(torch.bfloat16)}
 
 
 def _truncate_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -288,14 +343,19 @@ def _planted_epilogue(fault, ops):
         return st
     di = ops["y"].shape[-1]
     g = gated_rows_serving(ops["y"], ops["gates"], ops["z"], ops["ln_w"], ops["ln_b"])
+    if fault == "gated rows truncated":
+        gated = F.pad(_truncate_bf16(g), (0, st["gated"].shape[-1] - di))
+        return {"w16": st["w16"], "gated": gated,
+                "out": F.linear(gated[..., :di].float(), st["w16"][:, :di].float())}
     a = g if fault == "gated rows unrounded" else g.to(torch.bfloat16).float()
     w = ops["w_out"] if fault == "W_out unrounded" else ops["w_out"].to(torch.bfloat16).float()
-    return {"gated": st["gated"], "out": F.linear(a[..., :di], w)}
+    return {"w16": st["w16"], "gated": st["gated"], "out": F.linear(a[..., :di], w)}
 
 
-@pytest.mark.parametrize("fault", ["none", "h unrounded", "W_in unrounded"])
+@pytest.mark.parametrize("fault", ["none", "h unrounded", "W_in unrounded",
+                                   "edge read across rows", "z truncated", "window shifted"])
 def test_prologue_stage_check_on_cpu(fault):
-    h, w_in, conv_w, conv_b = map(torch.from_numpy, _prologue_operands(1, 8, 8, 40, 36, seed=2))
+    h, w_in, conv_w, conv_b = map(torch.from_numpy, _prologue_operands(1, 8, 20, 40, 36, seed=2))
     v = check_prologue_serving(h, w_in, conv_w, conv_b,
                                _planted_prologue(fault, h, w_in, conv_w, conv_b))
     assert all(s.ok for s in v) == (fault == "none"), v
@@ -309,7 +369,8 @@ def test_scan_stage_check_on_cpu(fault, shift):
     assert all(s.ok for s in v) == (fault == "none"), v
 
 
-@pytest.mark.parametrize("fault", ["none", "gated rows unrounded", "W_out unrounded"])
+@pytest.mark.parametrize("fault", ["none", "gated rows unrounded", "W_out unrounded",
+                                   "gated rows truncated"])
 def test_epilogue_stage_check_on_cpu(fault):
     ops = _torch(_epilogue_operands(1, 8, 8, 34, 20, seed=4), bf16=("y", "z"))
     v = check_epilogue_serving(**ops, st=_planted_epilogue(fault, ops))
@@ -327,6 +388,16 @@ def test_mixer_serving_mutants_apply_to_the_sources(name, tmp_path):
     serving_mutants.plant(str(tmp_path), edits)
 
 
+@pytest.mark.parametrize("name", list(k1s_phases.K6S_PHASES))
+def test_k6s_phases_apply_to_the_sources(name, tmp_path):
+    """The phase-removal timings of K6's serving kernel
+    (``utils/k1s_phases.py --body K6s``) still take each phase out of the
+    current source, on a copy."""
+    shutil.copytree(os.path.join(os.path.dirname(_kernels.__file__), "..", "csrc"),
+                    tmp_path / "csrc")
+    serving_mutants.plant(str(tmp_path), k1s_phases.K6S_PHASES[name])
+
+
 # --- the CUDA kernels against the stage checks, on a card -------------------
 
 
@@ -336,10 +407,13 @@ def _same(a: dict, b: dict) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,dm,di", [(2, 32, 24, 180, 234), (2, 16, 16, 20, 28),
-                                         (1, 9, 13, 33, 65)])
+                                         (1, 9, 13, 33, 65), (1, 12, 12, 384, 768),
+                                         (2, 41, 48, 192, 384)])
 def test_prologue_serving_kernel_on_card(cuda_device, B, H, W, dm, di):
     """Every stage within its check, bit for bit on repeat, the wrapper's
-    output the stage entry's, one launch under its own name."""
+    output the stage entry's, one launch under its own name (MaIR-CDN's
+    widths, odd ones, MaIRUNet's latent and a ragged level at d_model 192:
+    the shared memory's two sizes)."""
     h, w_in, conv_w, conv_b = (torch.from_numpy(a).to(cuda_device)
                                for a in _prologue_operands(B, H, W, dm, di, seed=di))
     st = mixer_prologue_serving_stages(h, w_in, conv_w, conv_b)

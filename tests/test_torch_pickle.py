@@ -2,7 +2,6 @@
 
 import numpy as np
 import pytest
-from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -42,10 +42,11 @@
 // The serving body (tpuir_mixer_epilogue_bf16; the TPU kernel with
 // serving=True) reads y and z in bf16 (widened exactly), takes the gated sum
 // and the LayerNorm in float32 with the one-pass variance, max(E[s^2] -
-// mu^2, 0), writes the float32 gated rows as before, and runs out_proj on
-// the core's bf16 mode, which rounds the gated rows and W_out to bf16 at
-// fragment load and sums in float32; the output stays float32. y and z move
-// half the bytes (the combine reads 4 + 1 rows of bf16 a pixel).
+// mu^2, 0), and stores the gated rows rounded to bf16 (nearest even), as the
+// JAX kernel rounds them for out_proj, padded with zeros to Di rounded up to
+// 8 values; out_proj then runs on the core's bf16-operand kernel with a bf16
+// copy of W_out padded alike (tc::round_rows_bf16), and the output stays
+// float32. y, z and the gated rows move half the bytes of the parity body's.
 //
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
@@ -54,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_gemm.cuh"
 
@@ -110,18 +113,39 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
     *p = v[0];
 }
 
+__device__ __forceinline__ __nv_bfloat16 gated_bf16(float v) {
+  return __float2bfloat16_rn(v);  // the gated rows' rounding
+}
+
+// VW values rounded to bf16 at p (VW * 2-byte aligned).
+template <int VW>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    __nv_bfloat162 a = __halves2bfloat162(gated_bf16(v[0]), gated_bf16(v[1]));
+    __nv_bfloat162 b = __halves2bfloat162(gated_bf16(v[2]), gated_bf16(v[3]));
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) =
+        __halves2bfloat162(gated_bf16(v[0]), gated_bf16(v[1]));
+  } else {
+    *p = gated_bf16(v[0]);
+  }
+}
+
 // One warp a pixel. A lane holds V groups of VW consecutive channels, group
 // g = lane + 32 i at channels VW g .. VW g + VW - 1 (Di a multiple of VW, the
 // pointers and rows aligned to VW values, ldg <= 32 V VW), so that it loads
 // and stores VW values at a time.
 // y (B, 4, HW, Di) and z (B, HW, Di) of TI (float32, or bf16 in the serving
-// body), gates (B, 4, Di); gated (B, HW, ldg) float32 with columns [Di, ldg)
-// set to 0. The variance is the mean of squared deviations (two passes, the
-// parity body) or, ONE_PASS (the serving body), max(E[s^2] - mu^2, 0).
+// body), gates (B, 4, Di); gated (B, HW, ldg) of TI (float32, or rounded to
+// bf16) with columns [Di, ldg) set to 0. The variance is the mean of squared
+// deviations (two passes, the parity body) or, ONE_PASS (the serving body),
+// max(E[s^2] - mu^2, 0).
 template <int VW, int V, class TI, bool ONE_PASS>
-__global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
+__device__ __forceinline__ void combine_norm_gate(
     const TI* __restrict__ y, const float* __restrict__ gates, const TI* __restrict__ z,
-    const float* __restrict__ ln_w, const float* __restrict__ ln_b, float* __restrict__ gated,
+    const float* __restrict__ ln_w, const float* __restrict__ ln_b, TI* __restrict__ gated,
     long long M, int HW, int Di, int ldg) {
   const long long m = (long long)blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -175,7 +199,7 @@ __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
   }
   const float rstd = 1.0f / sqrtf(var + 1e-5f);
   const TI* zp = z + m * Di;
-  float* out = gated + m * ldg;
+  TI* out = gated + m * ldg;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int d = (lane + 32 * i) * VW;
@@ -196,23 +220,54 @@ __global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
   }
 }
 
+// The kernels: the parity body's (float32) and the serving body's (bf16).
+template <int VW, int V, class TI, bool ONE_PASS>
+__global__ void __launch_bounds__(kRowThreads) combine_norm_gate_kernel(
+    const TI* __restrict__ y, const float* __restrict__ gates, const TI* __restrict__ z,
+    const float* __restrict__ ln_w, const float* __restrict__ ln_b, float* __restrict__ gated,
+    long long M, int HW, int Di, int ldg) {
+  combine_norm_gate<VW, V, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, ldg);
+}
+
+template <int VW, int V, bool ONE_PASS>
+__global__ void __launch_bounds__(kRowThreads) combine_norm_gate_bf16_kernel(
+    const __nv_bfloat16* __restrict__ y, const float* __restrict__ gates,
+    const __nv_bfloat16* __restrict__ z, const float* __restrict__ ln_w,
+    const float* __restrict__ ln_b, __nv_bfloat16* __restrict__ gated, long long M, int HW,
+    int Di, int ldg) {
+  combine_norm_gate<VW, V, __nv_bfloat16, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di,
+                                                   ldg);
+}
+
+// The combine kernel with V groups a lane.
+template <int VW, int V, class TI, bool ONE_PASS>
+void launch_combine_v(const TI* y, const float* gates, const TI* z, const float* ln_w,
+                      const float* ln_b, TI* gated, long long M, int HW, int Di, int dp,
+                      cudaStream_t st) {
+  const unsigned blocks = (unsigned)((M + kRowThreads / 32 - 1) / (kRowThreads / 32));
+  if constexpr (std::is_same_v<TI, float>)
+    combine_norm_gate_kernel<VW, V, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
+        y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
+  else
+    combine_norm_gate_bf16_kernel<VW, V, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
+        y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
+}
+
 // The combine kernel for Di: VW values a load where Di and every pointer
 // allow it, and V groups a lane for the padded width dp.
 template <int VW, class TI, bool ONE_PASS>
 void launch_combine(const TI* y, const float* gates, const TI* z, const float* ln_w,
-                    const float* ln_b, float* gated, long long M, int HW, int Di, int dp,
+                    const float* ln_b, TI* gated, long long M, int HW, int Di, int dp,
                     cudaStream_t st) {
-  const unsigned blocks = (unsigned)((M + kRowThreads / 32 - 1) / (kRowThreads / 32));
   const int groups = (dp + VW - 1) / VW;  // of VW values, a row
   if (groups <= 32 * 8 / VW)
-    combine_norm_gate_kernel<VW, 8 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
-        y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
+    launch_combine_v<VW, 8 / VW, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
   else if (groups <= 32 * 16 / VW)
-    combine_norm_gate_kernel<VW, 16 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
-        y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
+    launch_combine_v<VW, 16 / VW, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp,
+                                                st);
   else
-    combine_norm_gate_kernel<VW, 32 / VW, TI, ONE_PASS><<<blocks, kRowThreads, 0, st>>>(
-        y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp);
+    launch_combine_v<VW, 32 / VW, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp,
+                                                st);
 }
 
 bool aligned(const void* p, int bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
@@ -227,20 +282,24 @@ __global__ void __launch_bounds__(kRowThreads) pad_weight_kernel(const float* __
   dst[i] = c < cols ? src[(long long)r * cols + c] : 0.f;
 }
 
-// The gated rows, then out_proj in precision Prec: y and z of TI, the
+// The gated rows, then out_proj: the parity body (TI float: float32 rows
+// padded to 4 values, w_out copied so padded where it must be, the 3xTF32
+// core) or the serving body (TI bf16: rows rounded to bf16 and padded to 8,
+// W_out's bf16 copy padded alike in w_pad, the bf16-operand core); the
 // variance one-pass or not.
-template <class Prec, class TI, bool ONE_PASS>
+template <class TI, bool ONE_PASS>
 int epilogue(const TI* y, const float* gates, const TI* z, const float* ln_w, const float* ln_b,
-             const float* w_out, float* gated, float* w_pad, float* out, int B, int HW, int Di,
-             int Dm, cudaStream_t st) {
+             const float* w_out, TI* gated, TI* w_pad, float* out, int B, int HW, int Di, int Dm,
+             cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same_v<TI, __nv_bfloat16>;
   if (B <= 0 || HW <= 0 || Di <= 0 || Di > 1024 || Dm <= 0) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * HW;
   if (M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int dp = (Di + 3) / 4 * 4;
+  const int dp = kBf16 ? (Di + 7) / 8 * 8 : (Di + 3) / 4 * 4;
   // VW values a load: every pointer and row aligned to VW values of its type
   constexpr int kIn = (int)sizeof(TI);
-  const void* ins[2] = {y, z};
-  const void* f32s[4] = {gates, ln_w, ln_b, gated};
+  const void* ins[3] = {y, z, gated};
+  const void* f32s[3] = {gates, ln_w, ln_b};
   bool a4 = Di % 4 == 0, a2 = Di % 2 == 0;
   for (const void* q : ins) a4 = a4 && aligned(q, 4 * kIn), a2 = a2 && aligned(q, 2 * kIn);
   for (const void* q : f32s) a4 = a4 && aligned(q, 16), a2 = a2 && aligned(q, 8);
@@ -252,17 +311,23 @@ int epilogue(const TI* y, const float* gates, const TI* z, const float* ln_w, co
     launch_combine<1, TI, ONE_PASS>(y, gates, z, ln_w, ln_b, gated, M, HW, Di, dp, st);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  const float* w = w_out;
-  if (dp != Di) {  // w_out's rows padded alike, so that the core copies 16 bytes at a time
-    const unsigned pad_blocks = (unsigned)(((long long)Dm * dp + kRowThreads - 1) / kRowThreads);
-    pad_weight_kernel<<<pad_blocks, kRowThreads, 0, st>>>(w_out, w_pad, Dm, Di, dp);
-    if ((err = (int)cudaGetLastError())) return err;
-    w = w_pad;
+  const tc::StoreOut store{out, nullptr, Dm, tc::pairs_aligned(out, nullptr, Dm)};
+  if constexpr (kBf16) {
+    if ((err = tc::round_rows_bf16(w_out, w_pad, Dm, Di, dp, st))) return err;
+    const tc::ArgsBf16 p{gated, 0, dp, w_pad, 0, (int)M, Dm, dp};
+    return tc::launch_tc_gemm_bf16(p, 1, store, st);
+  } else {
+    const float* w = w_out;
+    if (dp != Di) {  // w_out's rows padded alike, so that the core copies 16 bytes at a time
+      const unsigned pad_blocks =
+          (unsigned)(((long long)Dm * dp + kRowThreads - 1) / kRowThreads);
+      pad_weight_kernel<<<pad_blocks, kRowThreads, 0, st>>>(w_out, w_pad, Dm, Di, dp);
+      if ((err = (int)cudaGetLastError())) return err;
+      w = w_pad;
+    }
+    const tc::Args p{gated, 0, dp, w, 0, (int)M, Dm, dp};
+    return tc::launch_tc_gemm(p, 1, tc::NoPrologue{}, store, st);
   }
-  const tc::Args p{gated, 0, dp, w, 0, (int)M, Dm, dp};
-  return tc::launch_tc_gemm<Prec>(
-      p, 1, tc::NoPrologue{}, tc::StoreOut{out, nullptr, Dm, tc::pairs_aligned(out, nullptr, Dm)},
-      st);
 }
 
 }  // namespace
@@ -278,18 +343,19 @@ int tpuir_mixer_epilogue_f32(const float* y, const float* gates, const float* z,
                              const float* ln_w, const float* ln_b, const float* w_out,
                              float* gated, float* w_pad, float* out, int B, int HW, int Di,
                              int Dm, void* stream) {
-  return epilogue<tc::F32x3, float, false>(y, gates, z, ln_w, ln_b, w_out, gated, w_pad, out, B,
-                                           HW, Di, Dm, (cudaStream_t)stream);
+  return epilogue<float, false>(y, gates, z, ln_w, ln_b, w_out, gated, w_pad, out, B, HW, Di, Dm,
+                                (cudaStream_t)stream);
 }
 
-// The serving body: y and z bf16, the rest as tpuir_mixer_epilogue_f32
-// (gated float32 scratch, float32 output).
+// The serving body: y and z bf16; scratch, with Dp = Di rounded up to a
+// multiple of 8: gated >= B*H*W*Dp bf16, w16 >= Dm*Dp bf16 (W_out's copy),
+// both 16-byte aligned; the rest as tpuir_mixer_epilogue_f32.
 int tpuir_mixer_epilogue_bf16(const __nv_bfloat16* y, const float* gates,
                               const __nv_bfloat16* z, const float* ln_w, const float* ln_b,
-                              const float* w_out, float* gated, float* w_pad, float* out, int B,
-                              int HW, int Di, int Dm, void* stream) {
-  return epilogue<tc::Bf16, __nv_bfloat16, true>(y, gates, z, ln_w, ln_b, w_out, gated, w_pad,
-                                                 out, B, HW, Di, Dm, (cudaStream_t)stream);
+                              const float* w_out, __nv_bfloat16* gated, __nv_bfloat16* w16,
+                              float* out, int B, int HW, int Di, int Dm, void* stream) {
+  return epilogue<__nv_bfloat16, true>(y, gates, z, ln_w, ln_b, w_out, gated, w16, out, B, HW,
+                                       Di, Dm, (cudaStream_t)stream);
 }
 
 }  // extern "C"

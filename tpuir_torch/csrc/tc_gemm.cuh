@@ -9,9 +9,10 @@
 // when w_batch != 0 (K1's folded projection). A' is A, or A under a per-row
 // LayerNorm (LnPrologue). epi stores two neighbouring outputs of a row.
 //
-// Products, chosen by the precision tag Prec:
+// Products, in the precision tag Prec (F32x3, the one precision of this
+// kernel; the tag gives the k depth of a tensor-core step):
 //
-// F32x3 (float32 parity, the default). Each float32 operand x is split as
+// F32x3 (float32 parity). Each float32 operand x is split as
 // hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is exact; rna:
 // cvt.rna.tf32.f32's round to nearest, ties away from zero), and a.b is taken as
 // a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the two small products first, on
@@ -20,28 +21,21 @@
 // bounds the split's error; the card tests hold it to float64). No product is
 // taken in plain TF32.
 //
-// Bf16 (the serving bodies of K6 and K7). Each operand is rounded to bf16 with
-// cvt.rn.bf16x2.f32 (round to nearest even, as the JAX kernels'
-// astype(bfloat16)) on its way from shared memory to the fragments, and each
-// k16 step is one mma.sync.m16n8k16 bf16 product with float32 accumulators.
-// A bf16 x bf16 product is exact in float32, so the result is the float32 sum
-// of the rounded operands' products. The staged tiles stay float32.
-//
-// Bf16 operands (launch_tc_gemm_bf16, K1's serving body): A and W are bf16 in
-// device memory (a product's operands stored already rounded), staged as
-// bf16 tiles by 16-byte cp.async (8 values), fragments read by ldmatrix, one
-// m16n8k16 bf16 mma.sync a k16 step with float32 accumulators. No operand is
-// rounded here. Its own kernel, gemm_bf16_kernel: the F32x3 and Bf16
-// instances above are not touched by it.
+// Bf16 operands (launch_tc_gemm_bf16, the serving bodies of K1 and K7): A and
+// W are bf16 in device memory (a product's operands stored already rounded;
+// a weight rounded to a bf16 copy by round_rows_bf16), staged as bf16 tiles
+// by 16-byte cp.async (8 values), fragments read by ldmatrix, one m16n8k16
+// bf16 mma.sync a k16 step with float32 accumulators. No operand is rounded
+// here. Its own kernel, gemm_bf16_kernel.
 //
 // What bounds it on this card: 3xTF32 costs three tensor-core products and
 // the two splits, so its ceiling is the TF32 rate over 3 (494.7 / 3 TFLOP/s)
 // and, with the splits on the ALU, below that; at K1's level 1 and K6's
 // widths (K 48-384) a product moves 4 (K + N) bytes a row for 2 K N flops,
 // so the short-K products sit near the 3.35 TB/s line and the rest on the
-// tensor-core line. Bf16 issues a sixth of the mma instructions and no
-// splits, but stages the same float32 tiles: at K 48-96 it is no faster
-// than 3xTF32 (PERF.md); bf16 tiles, ldmatrix and wgmma are untried.
+// tensor-core line. The bf16-operand kernel moves half those bytes and
+// issues a sixth of the mma instructions; at short K it is latency-bound
+// (PERF.md).
 //
 // Design:
 //   * Block tile 128 x BN x 32, BN in {48, 96, 128} picked per call for the
@@ -54,10 +48,6 @@
 //     floats, so the fragment reads (row g = lane / 4, column t = lane % 4)
 //     hit 32 distinct banks.
 //   * Fragment columns: m16n8k8 TF32 reads columns (t, t + 4) of a k8 step.
-//     m16n8k16 bf16 packs k-slots (2t, 2t + 1) and (2t + 8, 2t + 9) into a
-//     register; the core gives those slots the staged columns (t, t + 4) and
-//     (t + 8, t + 12) of the k16 step, in A and W alike. The product's sum
-//     over k is the same; the reads stay on 32 distinct banks.
 //   * The LayerNorm is applied to A on its way from shared memory to the
 //     fragments, with each row's (mean, rstd) read once into registers and
 //     the LayerNorm weight and bias staged in shared memory.
@@ -67,7 +57,7 @@
 //     5-10% slower on K1 and K6 (PERF.md).
 //
 // Everything is in namespace tc; the caller defines its epilogue and launches
-// through launch_tc_gemm.
+// through launch_tc_gemm or launch_tc_gemm_bf16.
 
 #pragma once
 
@@ -75,16 +65,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace tc {
 
-// The precision tags: the k depth of one tensor-core step.
+// The precision tag: the k depth of one tensor-core step.
 struct F32x3 {
   static constexpr int kStep = 8;
-};
-struct Bf16 {
-  static constexpr int kStep = 16;
 };
 
 constexpr int kThreads = 256;
@@ -310,41 +295,23 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Args p, Pro pro, Epi 
         }
         return v;
       };
-      if constexpr (std::is_same_v<Prec, Bf16>) {
-        uint32_t af[2][4];
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {  // row g + 8 (j & 1), columns t + 8 (j >> 1) + (0, 4)
-            const int r = (j & 1) * 8 + g, c = 2 * (j >> 1);
-            af[mi][j] = pack_bf16(a_at(mi, r, c), a_at(mi, r, c + 1));
-          }
+        for (int j = 0; j < 4; ++j)  // a_j: row g + 8 (j & 1), column t + 4 (j >> 1)
+          split_tf32(a_at(mi, (j & 1) * 8 + g, j >> 1), ah[mi][j], al[mi][j]);
 #pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
-          const uint32_t b0 = pack_bf16(wr[0], wr[4]), b1 = pack_bf16(wr[8], wr[12]);
+      for (int ni = 0; ni < NT; ++ni) {
+        const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(wr[0], bh0, bl0);
+        split_tf32(wr[4], bh1, bl1);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
-        }
-      } else {
-        uint32_t ah[2][4], al[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)  // a_j: row g + 8 (j & 1), column t + 4 (j >> 1)
-            split_tf32(a_at(mi, (j & 1) * 8 + g, j >> 1), ah[mi][j], al[mi][j]);
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const float* wr = ws + (ni * 8 + g) * kBKP + kk + t;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(wr[0], bh0, bl0);
-          split_tf32(wr[4], bh1, bl1);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
-            mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
-            mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
-          }
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
+          mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
+          mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
         }
       }
     }
@@ -398,7 +365,7 @@ int launch_bn(const Args& p, int batch, const Pro& pro, const Epi& epi, cudaStre
 }
 
 // Launch the product of p over `batch` images (gridDim.y) on st, in precision
-// Prec (F32x3 or Bf16); returns the first CUDA error (0 = success).
+// Prec (F32x3); returns the first CUDA error (0 = success).
 // epi(row, n, v0, v1, two) stores output (row, n) and, when two, (row, n + 1);
 // n is even.
 template <class Prec = F32x3, class Pro, class Epi>
@@ -602,6 +569,31 @@ int launch_tc_gemm_bf16(const ArgsBf16& p, int batch, const Epi& epi, cudaStream
     default:
       return launch_bf16_bn<128>(p, batch, epi, st);
   }
+}
+
+// w16 (rows, ld) = bf16(w (rows, cols)), each value rounded to nearest even
+// (the JAX kernels' astype(bfloat16)), columns [cols, ld) zero: a weight as
+// the bf16-operand products take it, in rows that 16-byte copies can read
+// (ld a multiple of 8). Templates, so that only a source that launches it
+// compiles the kernel.
+template <int kT>
+__global__ void __launch_bounds__(kT) round_rows_bf16_kernel(const float* __restrict__ w,
+                                                             __nv_bfloat16* __restrict__ w16,
+                                                             int rows, int cols, int ld) {
+  const long long i = (long long)blockIdx.x * kT + threadIdx.x;
+  if (i >= (long long)rows * ld) return;
+  const int r = (int)(i / ld), c = (int)(i - (long long)r * ld);
+  w16[i] = __float2bfloat16_rn(c < cols ? w[(long long)r * cols + c] : 0.f);  // weight copy
+}
+
+template <int kT = 256>
+int round_rows_bf16(const float* w, __nv_bfloat16* w16, int rows, int cols, int ld,
+                    cudaStream_t st) {
+  if (rows <= 0 || cols <= 0 || ld < cols || ld % 8) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)rows * ld;
+  round_rows_bf16_kernel<kT><<<(unsigned)((n + kT - 1) / kT), kT, 0, st>>>(w, w16, rows, cols,
+                                                                          ld);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }

@@ -49,7 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "nss_scan": 0, "mixer_epilogue": 0, "mixer_prologue_serving": 0, "nss_scan_serving": 0,
     "mixer_epilogue_serving": 0, "nss_scan_recur_serving": 0, "selective_scan_fused_proj": 0,
     "selective_scan_fused_proj_serving": 0, "nss_scan_fused": 0, "nss_scan_fused_serving": 0,
-    "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0, "tc_gemm_bf16": 0,
+    "selective_scan": 0, "rate_probe": 0, "tc_gemm": 0,
     "tc_gemm_bf16_operands": 0,
 }
 
@@ -167,7 +167,7 @@ def library() -> ctypes.CDLL:
         lib.tpuir_fused_block_partials_numel.restype = ctypes.c_longlong
         lib.tpuir_mixer_prologue_f32.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.tpuir_mixer_prologue_f32.restype = ci
-        lib.tpuir_mixer_prologue_bf16.argtypes = lib.tpuir_mixer_prologue_f32.argtypes
+        lib.tpuir_mixer_prologue_bf16.argtypes = [vp] * 8 + [ci] * 5 + [vp]
         lib.tpuir_mixer_prologue_bf16.restype = ci
         lib.tpuir_nss_scan_scratch_numel.argtypes = [ci] * 5
         lib.tpuir_nss_scan_scratch_numel.restype = ctypes.c_longlong
@@ -203,8 +203,6 @@ def library() -> ctypes.CDLL:
         lib.tpuir_tc_gemm_f32.argtypes = ([vp, ll, ci, vp, ll, vp, vp, ci, vp, vp, vp]
                                           + [ci] * 5 + [vp])
         lib.tpuir_tc_gemm_f32.restype = ci
-        lib.tpuir_tc_gemm_bf16.argtypes = lib.tpuir_tc_gemm_f32.argtypes
-        lib.tpuir_tc_gemm_bf16.restype = ci
         lib.tpuir_tc_gemm_bf16_operands.argtypes = [vp, ll, ci, vp, ll, vp, vp] + [ci] * 5 + [vp]
         lib.tpuir_tc_gemm_bf16_operands.restype = ci
         lib.tpuir_cuda_error_string.argtypes = [ci]

@@ -6,12 +6,13 @@ out_proj. The kernel is ``tpuir_torch/csrc/nss_epilogue.cu``: the gated
 rows, then out_proj on the tensor-core GEMM core, in its two bodies:
 float32 parity (``tpuir_mixer_epilogue_f32``, 3xTF32) and serving
 (``tpuir_mixer_epilogue_bf16``, the TPU kernel with ``serving=True``: bf16
-y and z, the one-pass LayerNorm variance, out_proj of bf16-rounded gated
-rows and W_out summed in float32, a float32 output); its source note gives
-what bounds it on the card and what the design does about that. It takes
-K2's output in image layout, so there is no half-block select. The wrapper
+y and z, the one-pass LayerNorm variance, the gated rows stored rounded to
+bf16, out_proj of those and a bf16 copy of W_out on the core's bf16-operand
+kernel, summed in float32, a float32 output); its source note gives what
+bounds it on the card and what the design does about that. It takes K2's
+output in image layout, so there is no half-block select. The wrapper
 allocates the kernel's scratch: the gated rows and a copy of ``w_out``,
-both ``padded_inner(d_inner)`` floats wide.
+both ``padded_inner(d_inner, serving)`` values wide.
 
 ``mixer_epilogue`` is the wrapper: it checks its inputs and raises on
 anything the kernel does not take. On a CUDA tensor it launches the kernel
@@ -20,14 +21,13 @@ for the serving body, ``mixer_epilogue_serving``; on a CPU tensor, and only
 there, it runs ``mixer_epilogue_plain`` or ``mixer_epilogue_serving_plain``,
 the same math in plain PyTorch, which is also what the kernel is held
 against on the card. ``mixer_epilogue_serving_stages`` returns the serving
-body's gated rows beside its output, for the stage-by-stage check of
-``utils/serving_check.py``.
+body's W_out copy and gated rows beside its output, for the stage-by-stage
+check of ``utils/serving_check.py``.
 
 Shapes: y (B, 4, H, W, d_inner) and z (B, H, W, d_inner) contiguous,
 float32 or, serving, bf16; gates (B, 4, d_inner), ln_w and ln_b
 (d_inner,), ``w_out`` (d_model, d_inner) (an ``nn.Linear`` weight), all
-float32. Returns (B, H, W, d_model) float32. The serving kernel rounds
-W_out on its way to the tensor cores, so no bf16 weight copy is made.
+float32. Returns (B, H, W, d_model) float32.
 """
 
 from __future__ import annotations
@@ -38,15 +38,17 @@ import torch
 import torch.nn.functional as F
 
 from tpuir_torch.ops import _kernels
-from tpuir_torch.utils.misc import bf16_rounded
+from tpuir_torch.utils.misc import bf16_padded_rows, bf16_rounded
 
 MAX_INNER = 1024  # 32 channels a lane at most in the per-pixel warp
 
 
-def padded_inner(di: int) -> int:
+def padded_inner(di: int, serving: bool = False) -> int:
     """The row width of the gated rows and of the padded out_proj weight:
-    d_inner rounded up to a multiple of 4 floats, for 16-byte copies."""
-    return -(-di // 4) * 4
+    d_inner rounded up to a multiple of 4 floats or, serving, of 8 bf16
+    values, for 16-byte copies."""
+    q = 8 if serving else 4
+    return -(-di // q) * q
 
 
 def _check(y, gates, z, ln_w, ln_b, w_out, serving: bool) -> None:
@@ -105,13 +107,16 @@ def gated_rows_serving(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
 def epilogue_serving_values(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
                             ln_w: torch.Tensor, ln_b: torch.Tensor,
                             w_out: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The serving body in plain float32 PyTorch, stage by stage: ``gated``
-    (B, H, W, padded_inner(d_inner)), zero-padded as the kernel's scratch,
-    and ``out`` = bf16(gated) . bf16(W_out)^T summed in float32."""
-    gated = gated_rows_serving(y, gates, z, ln_w, ln_b)
-    out = F.linear(bf16_rounded(gated), bf16_rounded(w_out))
-    return {"gated": F.pad(gated, (0, padded_inner(gated.shape[-1]) - gated.shape[-1])),
-            "out": out}
+    """The serving body in plain float32 PyTorch, stage by stage: ``w16``
+    (W_out's bf16 copy, ``bf16_padded_rows``), ``gated`` (B, H, W,
+    padded_inner(d_inner, serving=True)) rounded to bf16 and zero-padded as
+    the kernel's scratch, and ``out`` = bf16(gated) . bf16(W_out)^T summed
+    in float32."""
+    di = y.shape[-1]
+    gated = gated_rows_serving(y, gates, z, ln_w, ln_b).to(torch.bfloat16)
+    out = F.linear(gated.float(), bf16_rounded(w_out))
+    return {"w16": bf16_padded_rows(w_out),
+            "gated": F.pad(gated, (0, padded_inner(di, serving=True) - di)), "out": out}
 
 
 def mixer_epilogue_serving_plain(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
@@ -123,24 +128,25 @@ def mixer_epilogue_serving_plain(y: torch.Tensor, gates: torch.Tensor, z: torch.
 
 
 def _launch(y, gates, z, ln_w, ln_b, w_out, serving: bool) -> Dict[str, torch.Tensor]:
-    """One launch of a body on y's card: {gated, out}."""
+    """One launch of a body on y's card: {w16 (serving), gated, out}."""
     params = (y, gates, z, ln_w, ln_b, w_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         raise RuntimeError("mixer_epilogue: the CUDA kernel has no backward")
     B, _, H, W, di = y.shape
     dm = w_out.shape[0]
-    dp = padded_inner(di)
+    dp = padded_inner(di, serving)
     lib = _kernels.library()
     fn = lib.tpuir_mixer_epilogue_bf16 if serving else lib.tpuir_mixer_epilogue_f32
+    rows = torch.bfloat16 if serving else torch.float32
     with torch.cuda.device(y.device):
-        gated = torch.empty(B, H, W, dp, device=y.device, dtype=torch.float32)
-        w_pad = torch.empty(dm, dp, device=y.device, dtype=torch.float32)
+        gated = torch.empty(B, H, W, dp, device=y.device, dtype=rows)
+        w_pad = torch.empty(dm, dp, device=y.device, dtype=rows)
         out = torch.empty(B, H, W, dm, device=y.device, dtype=torch.float32)
         err = fn(y.data_ptr(), gates.data_ptr(), z.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                  w_out.data_ptr(), gated.data_ptr(), w_pad.data_ptr(), out.data_ptr(), B, H * W,
                  di, dm, torch.cuda.current_stream(y.device).cuda_stream)
     _kernels.check(err, "mixer_epilogue_serving" if serving else "mixer_epilogue")
-    return {"gated": gated, "out": out}
+    return {"w16": w_pad, "gated": gated, "out": out} if serving else {"gated": gated, "out": out}
 
 
 def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: torch.Tensor,
@@ -160,10 +166,11 @@ def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: 
 def mixer_epilogue_serving_stages(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
                                   ln_w: torch.Tensor, ln_b: torch.Tensor,
                                   w_out: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The serving kernel's output and its gated rows from one launch on y's
-    card, for a check (``utils/serving_check.py``); counts no launch:
-    ``gated`` (B, H, W, padded_inner(d_inner)) float32 and ``out``. On a CPU
-    tensor, and only there, the same stages of the plain version."""
+    """The serving kernel's output and its intermediates from one launch on
+    y's card, for a check (``utils/serving_check.py``); counts no launch:
+    ``w16`` (W_out's bf16 copy, rows padded to 8), ``gated`` (B, H, W,
+    padded_inner(d_inner, serving=True)) bf16 and ``out``. On a CPU tensor,
+    and only there, the same stages of the plain version."""
     _check(y, gates, z, ln_w, ln_b, w_out, True)
     if y.device.type == "cpu":
         return epilogue_serving_values(y, gates, z, ln_w, ln_b, w_out)

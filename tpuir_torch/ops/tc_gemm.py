@@ -1,21 +1,19 @@
 """The tensor-core GEMM core of K1, K6 and K7, alone, for measurement.
 
-``gemm_f32x3`` and ``gemm_bf16`` are the wrappers of
+``gemm_f32x3`` and ``gemm_bf16_operands`` are the wrappers of
 ``tpuir_torch/csrc/tc_gemm.cu``: the core of ``csrc/tc_gemm.cuh``
-(``mma.sync``, a ``cp.async`` ring) in its two precisions, 3xTF32 (float32
-parity) and bf16 products with float32 sums (K6's and K7's serving bodies), with its
-LayerNorm prologue and its row store. K1 (``csrc/fused_block.cu``), K6
-(``csrc/nss_prologue.cu``) and K7 (``csrc/nss_epilogue.cu``) call the core
-from C; the port's models never call these wrappers. They exist so that the
-core's accuracy and rate can be held against float64 and ``torch.matmul``
-at the shapes of those kernels' products (``chip_smoke.py`` phases 2, 4, 6
-and 12, ``tests/test_torch_gemm_core.py``,
-``tests/test_torch_fused_block_serving.py``).
+(``mma.sync``, a ``cp.async`` ring) in 3xTF32 (float32 parity), with its
+LayerNorm prologue and its row store, and its bf16-operand kernel. K1
+(``csrc/fused_block.cu``), K6 (``csrc/nss_prologue.cu``) and K7
+(``csrc/nss_epilogue.cu``) call the core from C; the port's models never
+call these wrappers. They exist so that the core's accuracy and rate can be
+held against float64 and ``torch.matmul`` at the shapes of those kernels'
+products (``chip_smoke.py`` phases 2, 4, 6, 12 and 13,
+``tests/test_torch_gemm_core.py``, ``tests/test_torch_fused_block_serving.py``).
 
-On a CUDA tensor each launches the kernel on the current stream and counts
-the launch under ``tc_gemm`` or ``tc_gemm_bf16``; on a CPU tensor, and only
-there, it runs its plain version, ``gemm_plain`` (``gemm_bf16_plain``: the
-same on bf16-rounded operands), the same function in plain PyTorch:
+On a CUDA tensor ``gemm_f32x3`` launches the kernel on the current stream
+and counts the launch under ``tc_gemm``; on a CPU tensor, and only there, it
+runs its plain version, ``gemm_plain``, the same function in plain PyTorch:
 
     out[z, m, n] = resid[z, m, n] + sum_k A'[z, m, k] * w[z, n, k]
 
@@ -26,16 +24,14 @@ contiguous in the output's shape. ``ln`` is None or (weight (K,), bias (K,)
 or None): A' = (A - mu) * rstd * weight + bias with a bias, and
 A * rstd * weight without (Restormer's WithBias and BiasFree LayerNorms,
 biased variance, eps 1e-5). The core reads each row's (mu, rstd) from a
-table, which the wrapper computes with torch before the launch. In bf16
-mode A' (after the LayerNorm) and w are rounded to bf16, to nearest even,
-and their products summed in float32; a product of two bf16 values is exact
-in float32, so the plain version is ``gemm_plain`` on the rounded operands.
+table, which the wrapper computes with torch before the launch.
 
 ``gemm_bf16_operands`` is the wrapper of the core's bf16-operand kernel (K1's
-serving body's apply, projection and project_out): ``a`` and ``w`` bf16 as
-stored (K a multiple of 8), no LayerNorm, float32 sums and a float32 output;
-counted under ``tc_gemm_bf16_operands``; its plain version is ``gemm_plain``
-on the operands widened.
+serving body's apply, projection and project_out, K7's serving out_proj):
+``a`` and ``w`` bf16 as stored (K a multiple of 8), no LayerNorm, float32
+sums and a float32 output; counted under ``tc_gemm_bf16_operands``; its
+plain version is ``gemm_plain`` on the operands widened (a product of two
+bf16 values is exact in float32).
 """
 
 from __future__ import annotations
@@ -111,41 +107,18 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor] =
     return resid + out if resid is not None else out
 
 
-def _round_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).float()
-
-
-def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor] = None,
-                    ln: LnArgs = None) -> torch.Tensor:
-    """The core's bf16 mode in plain PyTorch: ``gemm_plain`` on A' and w
-    rounded to bf16. On a card, turn TF32 off first for a float32 reference."""
-    if ln is not None:
-        a = _layer_norm(a, ln)
-    return gemm_plain(_round_bf16(a), _round_bf16(w), resid)
-
-
 def gemm_f32x3(a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor] = None,
                ln: LnArgs = None) -> torch.Tensor:
     """The core on a CUDA tensor, ``gemm_plain`` on a CPU tensor. Forward only."""
     _check(a, w, resid, ln)
     if a.device.type == "cpu":
         return gemm_plain(a, w, resid, ln)
-    return _launch("f32", a, w, resid, ln)
+    return _launch(a, w, resid, ln)
 
 
-def gemm_bf16(a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor] = None,
-              ln: LnArgs = None) -> torch.Tensor:
-    """The core's bf16 mode on a CUDA tensor, ``gemm_bf16_plain`` on a CPU
-    tensor. Forward only; operands and output float32."""
-    _check(a, w, resid, ln, "gemm_bf16")
-    if a.device.type == "cpu":
-        return gemm_bf16_plain(a, w, resid, ln)
-    return _launch("bf16", a, w, resid, ln)
-
-
-def _launch(mode: str, a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor],
+def _launch(a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.Tensor],
             ln: LnArgs) -> torch.Tensor:
-    """Launch the core in ``mode`` ("f32": 3xTF32, "bf16") on checked CUDA inputs."""
+    """Launch the core on checked CUDA inputs."""
     batch = a.shape[0] if a.dim() == 3 else 1
     M, K = a.shape[-2:]
     N = w.shape[-2]
@@ -158,7 +131,7 @@ def _launch(mode: str, a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.T
             stats = torch.cat([mu, rstd], -1).contiguous()
             ln_w = ln[0].data_ptr()
             ln_b = ln[1].data_ptr() if ln[1] is not None else None
-        err = getattr(lib, f"tpuir_tc_gemm_{mode}")(
+        err = lib.tpuir_tc_gemm_f32(
             a.data_ptr(), a.stride(0) if a.dim() == 3 else 0, a.stride(-2),
             w.data_ptr(), w.stride(0) if w.dim() == 3 else 0,
             resid.data_ptr() if resid is not None else None, out.data_ptr(), N,
@@ -166,8 +139,8 @@ def _launch(mode: str, a: torch.Tensor, w: torch.Tensor, resid: Optional[torch.T
             int(ln is not None and ln[1] is not None), batch, M, N, K,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
-    _kernels.check(err, "gemm_f32x3" if mode == "f32" else "gemm_bf16")
-    _kernels.LAUNCHES["tc_gemm" if mode == "f32" else "tc_gemm_bf16"] += 1
+    _kernels.check(err, "gemm_f32x3")
+    _kernels.LAUNCHES["tc_gemm"] += 1
     return out
 
 

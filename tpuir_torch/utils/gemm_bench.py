@@ -1,7 +1,8 @@
 """Time K1, K6, K7 and the three models' forwards at the main paths' shapes.
 
     python tpuir_torch/utils/gemm_bench.py [--tree DIR] [--iters 5] [--no-forwards]
-                                           [--kernels core,K1,K1s,K6,K7] [--trace-dir DIR]
+                                           [--kernels core,K1,K1s,K6,K6s,K7,K7s]
+                                           [--forwards LABELS] [--trace-dir DIR]
 
 On the card, with CUDA events (one warm-up, then the mean of ``--iters``
 calls) on seeded operands with TF32 off, it times K1
@@ -15,11 +16,13 @@ bytes, the bytes a second it reached), with the Restormer@256 serving
 forward among the forwards; K6
 (``mixer_prologue``) and K7 (``mixer_epilogue``) at MaIR-CDN@128 (batch 8)
 and at the five level shapes of MaIRUNet's 384x384 tile (batch 8) and per
-forward; and one batch-8 forward of Restormer@256, MaIR-CDN@128 and
-MaIRUNet@384 (full width and depth, weights drawn from a seed, every block
-on its kernels, and Restormer@256 in serving precision; left out with
-``--no-forwards``, chosen by label prefix with ``--forwards``); ``--kernels`` keeps
-only the parts it names. K1, K6 and K7 take their
+forward, in parity and (``K6s``, ``K7s``) in serving precision, the serving
+bodies also by kernel at each shape (``MIXER_BYTES``); and one batch-8
+forward of Restormer@256, MaIR-CDN@128 and MaIRUNet@384 (full width and
+depth, weights drawn from a seed, every block on its kernels), each also in
+serving precision (MaIR's with TF32 at PyTorch's defaults, as the engine
+serves it); left out with ``--no-forwards``, chosen by label prefix with
+``--forwards``; ``--kernels`` keeps only the parts it names. K1, K6 and K7 take their
 products in the 3xTF32 arithmetic of the tensor-core GEMM core
 (``csrc/tc_gemm.cuh``); where the tree has it (``ops/tc_gemm.py``), the
 core alone is timed first at a few of their product shapes, in TFLOP/s.
@@ -34,6 +37,7 @@ as one JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -80,6 +84,16 @@ K1S_BYTES = [
     ("BlockOut<2, float, __nv_bfloat16> >(tc::ArgsBf16", lambda px, C, h: px * 8 * C),
     ("BlockOut<4, __nv_bfloat16, float> >(tc::ArgsBf16", lambda px, C, h: px * (6 * C + 2 * h)),
 ]
+# Bytes one launch of a MaIR serving kernel moves, by a fragment of its name,
+# from (pixels, d_model, d_inner): K6's fused kernel (h in, x and z out;
+# halo re-reads from L2 not counted), K7's combine (four bf16 directions and
+# z in, the bf16 gated rows out, padded to 8) and out_proj (the gated rows
+# in, float32 out).
+MIXER_BYTES = [
+    ("prologue_bf16_kernel", lambda px, dm, di: px * (4 * dm + 4 * di)),
+    ("combine_norm_gate_kernel", lambda px, dm, di: px * (10 * di + 2 * (-(-di // 8) * 8))),
+    ("gemm_bf16_kernel", lambda px, dm, di: px * (2 * (-(-di // 8) * 8) + 4 * dm)),
+]
 # the core alone: (label, M, N, K), one weight, unit-scale A, fan-in-scaled W
 CORE_SHAPES = [("K1 level1 qkv", 524288, 144, 48), ("K1 decoder1 qkv", 524288, 288, 96),
                ("K1 decoder1 ffn_in", 524288, 510, 96), ("K1 decoder1 ffn_out", 524288, 96, 255),
@@ -114,10 +128,11 @@ def trace_args(path: str) -> dict:
     return out
 
 
-def k1s_by_kernel(fn, label, px, C, h, trace_dir):
-    """Profile two calls of fn (K1's serving body); print each kernel's
-    device ms a call, launches a call, registers, shared bytes, blocks an SM
-    and, where K1S_BYTES counts it, GB/s. Returns {kernel: ms a call}."""
+def by_kernel(fn, label, px, dims, table, trace_dir):
+    """Profile two calls of fn; print each kernel's device ms a call,
+    launches a call, registers, shared bytes, blocks an SM and, where
+    ``table`` ((name fragment, bytes from (px, *dims)) pairs) counts it,
+    GB/s. Returns {kernel: ms a call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,13 +145,13 @@ def k1s_by_kernel(fn, label, px, C, h, trace_dir):
             fn()
         torch.cuda.synchronize()
     os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, f"k1s_{label}.json")
+    path = os.path.join(trace_dir, f"{label}.json".replace(" ", "_"))
     prof.export_chrome_trace(path)
     args = trace_args(path)
     out = {}
     for name, (ms, n) in sorted(kernel_times(prof).items(), key=lambda kv: -kv[1][0]):
         ms, n = ms / 2, n // 2
-        nb = next((f(px, C, h) for frag, f in K1S_BYTES if frag in name), None)
+        nb = next((f(px, *dims) for frag, f in table if frag in name), None)
         rate = f" {nb * n / ms / 1e6:7.1f} GB/s" if nb else ""
         regs, smem, blocks = next((v for k, v in args.items() if k[:60] == name[:60]),
                                   (None, None, None))
@@ -156,9 +171,9 @@ def main(argv=None) -> int:
                          "(comma-separated; default all)")
     ap.add_argument("--kernels", default="core,K1,K6,K7",
                     help="the parts to time, of core (the GEMM core alone), K1, K1s (K1's "
-                         "serving body), K6, K7")
+                         "serving body), K6, K6s, K7, K7s (their serving bodies)")
     ap.add_argument("--trace-dir", default="build/gemm_bench",
-                    help="where K1s's by-kernel traces go")
+                    help="where the serving bodies' by-kernel traces go")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree
                     else str(Path(__file__).resolve().parents[2]))
@@ -223,58 +238,81 @@ def main(argv=None) -> int:
                 torch.bfloat16).permute(0, 3, 1, 2)
             call = lambda: fused_transformer_block(x, p, heads, False, serving=True)  # noqa: E731
             fwd += count * timed(f"K1s {label} [{count}]", call)
-            res["ms"][f"K1s {label} by kernel"] = k1s_by_kernel(
-                call, label, BATCH * hw * hw, C, int(C * 2.66), args.trace_dir)
+            res["ms"][f"K1s {label} by kernel"] = by_kernel(
+                call, f"k1s_{label}", BATCH * hw * hw, (C, int(C * 2.66)), K1S_BYTES,
+                args.trace_dir)
             del p, x
         if "K1s" in parts:
             res["ms"]["K1s per Restormer@256 forward"] = fwd
             print(f"K1s per Restormer@256 forward (batch {BATCH}): {fwd:.3f} ms", flush=True)
 
-        def k6(t, dm, di):
+        def k6(t, dm, di, serving=False):
             ops = (f(BATCH, t, t, dm), f(2 * di, dm, scale=dm ** -0.5),
                    f(di, 1, 3, 3, scale=0.3), f(di, scale=0.05))
-            return lambda: mixer_prologue(*ops)
+            return lambda: mixer_prologue(*ops, serving=serving)
 
-        def k7(t, dm, di):
+        def k7(t, dm, di, serving=False):
+            io = torch.bfloat16 if serving else torch.float32
             gates = torch.from_numpy(rng.rand(BATCH, 4, di).astype(np.float32)).to(dev)
-            ops = dict(y=f(BATCH, 4, t, t, di, scale=0.5), gates=gates,
-                       z=f(BATCH, t, t, di, scale=0.5), ln_w=1.0 + f(di, scale=0.2),
+            ops = dict(y=f(BATCH, 4, t, t, di, scale=0.5).to(io), gates=gates,
+                       z=f(BATCH, t, t, di, scale=0.5).to(io), ln_w=1.0 + f(di, scale=0.2),
                        ln_b=f(di, scale=0.1), w_out=f(dm, di, scale=di ** -0.5))
-            return lambda: mixer_epilogue(**ops)
+            return lambda: mixer_epilogue(**ops, serving=serving)
 
-        for name, call in (("K6", k6), ("K7", k7)):
+        for name, call in (("K6", k6), ("K6s", k6), ("K7", k7), ("K7s", k7)):
             if name not in parts:
                 continue
+            serving = name.endswith("s")
             label, t, dm, di = CDN
-            timed(f"{name} {label}", call(t, dm, di))
+            fn = call(t, dm, di, serving)
+            timed(f"{name} {label}", fn)
+            if serving:
+                res["ms"][f"{name} {label} by kernel"] = by_kernel(
+                    fn, f"{name}_{label}", BATCH * t * t, (dm, di), MIXER_BYTES, args.trace_dir)
             fwd = 0.0
             for label, t, dm, di, calls in UNET_LEVELS:
-                fwd += calls * timed(f"{name} MaIRUNet {label} [{calls}]", call(t, dm, di))
+                fn = call(t, dm, di, serving)
+                fwd += calls * timed(f"{name} MaIRUNet {label} [{calls}]", fn)
+                if serving:
+                    res["ms"][f"{name} MaIRUNet {label} by kernel"] = by_kernel(
+                        fn, f"{name}_{label}", BATCH * t * t, (dm, di), MIXER_BYTES,
+                        args.trace_dir)
+                del fn
+                torch.cuda.empty_cache()
             res["ms"][f"{name} per MaIRUNet@384 forward"] = fwd
             print(f"{name} per MaIRUNet@384 forward (batch {BATCH}): {fwd:.3f} ms", flush=True)
             torch.cuda.empty_cache()
 
-        nets = [("Restormer@256", 256, lambda: restormer.Restormer(**RESTORMER_CONFIG, fused=True),
-                 lambda: restormer.init_state_dict(RESTORMER_CONFIG, seed=0)),
-                ("Restormer@256 serving", 256,
-                 lambda: restormer.Restormer(**RESTORMER_CONFIG, fused=True, serving=True),
-                 lambda: restormer.init_state_dict(RESTORMER_CONFIG, seed=0)),
-                ("MaIR-CDN@128", 128, lambda: mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True),
-                 lambda: mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=0)),
-                ("MaIRUNet@384", 384,
-                 lambda: mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True),
-                 lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0))]
-        keep = tuple(f for f in args.forwards.split(",") if f) or ("",)
-        for label, tile, build, weights in [] if args.no_forwards else nets:
-            if not label.startswith(keep):
-                continue
-            net = build()
-            net.load_state_dict(weights())
-            net = net.to(dev).eval().requires_grad_(False)
-            x = torch.from_numpy(rng.rand(BATCH, 3, tile, tile).astype(np.float32)).to(dev)
+    # (label, tile, model, weights, TF32 pinned off): MaIR's serving forwards
+    # run with TF32 at PyTorch's defaults, as the engine serves them
+    nets = [("Restormer@256", 256, lambda: restormer.Restormer(**RESTORMER_CONFIG, fused=True),
+             lambda: restormer.init_state_dict(RESTORMER_CONFIG, seed=0), True),
+            ("Restormer@256 serving", 256,
+             lambda: restormer.Restormer(**RESTORMER_CONFIG, fused=True, serving=True),
+             lambda: restormer.init_state_dict(RESTORMER_CONFIG, seed=0), True),
+            ("MaIR-CDN@128", 128, lambda: mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True),
+             lambda: mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=0), True),
+            ("MaIR-CDN@128 serving", 128,
+             lambda: mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, serving=True),
+             lambda: mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=0), False),
+            ("MaIRUNet@384", 384,
+             lambda: mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True),
+             lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0), True),
+            ("MaIRUNet@384 serving", 384,
+             lambda: mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, serving=True),
+             lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0), False)]
+    keep = tuple(f for f in args.forwards.split(",") if f) or ("",)
+    for label, tile, build, weights, pin in [] if args.no_forwards else nets:
+        if not label.startswith(keep):
+            continue
+        net = build()
+        net.load_state_dict(weights())
+        net = net.to(dev).eval().requires_grad_(False)
+        x = torch.from_numpy(rng.rand(BATCH, 3, tile, tile).astype(np.float32)).to(dev)
+        with torch.inference_mode(), true_float32() if pin else contextlib.nullcontext():
             timed(f"forward {label} batch {BATCH}", lambda: net(x))
-            del net, x
-            torch.cuda.empty_cache()
+        del net, x
+        torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0
 

@@ -22,3 +22,10 @@ def bf16_rounded(t: torch.Tensor) -> torch.Tensor:
     """t rounded to bf16 (nearest even), in t's dtype: a serving body's
     product operand, as the JAX kernels' ``astype(bfloat16)`` rounds it."""
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_padded_rows(w: torch.Tensor) -> torch.Tensor:
+    """A float32 weight (rows, cols) as a serving kernel copies it for its
+    bf16 products (``csrc/tc_gemm.cuh:round_rows_bf16``): rounded to bf16
+    (nearest even) in rows of cols rounded up to 8 values, zeros past cols."""
+    return torch.nn.functional.pad(w, (0, -w.shape[-1] % 8)).to(torch.bfloat16)

@@ -44,14 +44,18 @@ import torch
 
 # Kernel-name fragments of the mixer kernels, by stage. K6's in_proj
 # (SplitXZ) and K7's out_proj (tc::StoreOut, which kernel names spell
-# tc::Store<float, float>) run on the tensor-core core, told apart by their
-# epilogue types; the x_proj of K2, K3 and K5 on the SIMT
+# tc::Store<float, float>; in serving on the bf16-operand kernel) run on the
+# tensor-core core, told apart by their epilogue types; K6's serving body is
+# one kernel (prologue_bf16_kernel) after its weight's bf16 copy
+# (round_rows_bf16_kernel, K7 serving's too); the x_proj of K2, K3 and K5 on the SIMT
 # GEMM (simt_gemm_nt_kernel); the scan passes' path type tells K2's
 # (ImageIdsPath) from K5's (StripePath), and the serving bodies' (the
 # Bf16 paths). K3 packs its x_proj weight and scans in one pass.
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
+    ("K6 serving: in_proj + dwconv + SiLU", ("prologue_bf16_kernel",)),
+    ("K6, K7 serving: bf16 weight copies", ("round_rows_bf16_kernel",)),
     ("K2 scan passes", ("ImageIdsPath",)),
     ("K2 serving scan passes", ("ImageIdsBf16Path",)),
     ("K5 scan passes", ("StripePath",)),

@@ -39,7 +39,9 @@ wrappers' ``*_serving_stages`` entries return; none of their float32
 arithmetic decides a bf16 operand that a later stage of the same body
 reads back from the kernel, so nothing is emulated bit for bit:
 
-* K6: ``xpre`` (the x half of in_proj) and the z half against float64 sums
+* K6: the bf16 copy of W_in (rows padded to 8) bit for bit against
+  ``utils/misc.bf16_padded_rows``; ``xpre`` (the x half of in_proj, which
+  the kernel writes only for a check) and the z half against float64 sums
   of bf16(h) . bf16(W_in); x against silu(dw3x3(xpre) + b) in float64 from
   the kernel's own xpre; x and z (bf16) each the rounding of a value within
   the product tolerance of its float64 reference;
@@ -49,9 +51,11 @@ reads back from the kernel, so nothing is emulated bit for bit:
   rounding of a value within the scan tolerance (SCAN_ATOL + SCAN_RTOL |ref|,
   the JAX package's scan tolerance) of it, pooled within SCAN_ATOL +
   SCAN_RTOL sum|y| of its float64 sum;
-* K7: the gated rows against float64 from the bf16 y and z (one-pass
-  variance), the output against float64 sums of bf16(gated) . bf16(W_out)
-  from the kernel's own gated rows.
+* K7: the bf16 copy of W_out bit for bit as K6's of W_in; the gated rows
+  (bf16) the rounding of a value within the product tolerance of their
+  float64 value from the bf16 y and z (one-pass variance), their padding
+  zero; the output against float64 sums of gated . bf16(W_out) from the
+  kernel's own gated rows.
 
 K2's bf16-recurrence body (``check_nss_scan_recur_serving``, on the stages
 of ``ops/nss_stripe.nss_scan_recur_stages``) is the one whose float32
@@ -382,16 +386,28 @@ def _rounded(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol:
                  f"tolerance; {flips} of {g.numel()} not bf16(float64 reference)")
 
 
+def _copy(name: str, got: torch.Tensor, want: torch.Tensor) -> Stage:
+    """A stage that must equal ``want`` bit for bit, shape and dtype too."""
+    same = tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype
+    n = _differ(got, want) if same else want.numel()
+    return Stage(name, same and n == 0, f"{n} of {want.numel()} values differ"
+                 + ("" if same else f"; {got.dtype} {tuple(got.shape)}"))
+
+
 def check_prologue_serving(h: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor,
                            conv_b: torch.Tensor, st: Mapping[str, torch.Tensor]) -> List[Stage]:
-    """K6's serving stages ``st`` (``ops/nss_prologue.mixer_prologue_serving_stages``)
-    against float64: in_proj's halves from bf16(h) . bf16(W_in), x from the
-    kernel's own xpre. h: the block's float32 LayerNorm output."""
+    """K6's serving stages ``st`` (``ops/nss_prologue.mixer_prologue_serving_stages``):
+    W_in's bf16 copy bit for bit; against float64, in_proj's halves from
+    bf16(h) . bf16(W_in), x from the kernel's own xpre. h: the block's
+    float32 LayerNorm output."""
+    from tpuir_torch.utils.misc import bf16_padded_rows
+
     f64 = torch.float64
     di = conv_w.shape[0]
     xz = _product(h, w_in, f64)
     conv = _dwconv(st["xpre"].double(), conv_w) + conv_b.double()
-    return [_close("in_proj x half", st["xpre"], xz[..., :di]),
+    return [_copy("W_in bf16 copy", st["w16"], bf16_padded_rows(w_in)),
+            _close("in_proj x half", st["xpre"], xz[..., :di]),
             _rounded("x", st["x"], F.silu(conv), ATOL, RTOL),
             _rounded("z", st["z"], xz[..., di:], ATOL, RTOL)]
 
@@ -423,18 +439,24 @@ def check_scan_serving(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tens
 def check_epilogue_serving(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,
                            ln_w: torch.Tensor, ln_b: torch.Tensor, w_out: torch.Tensor,
                            st: Mapping[str, torch.Tensor]) -> List[Stage]:
-    """K7's serving stages ``st`` (``ops/nss_epilogue.mixer_epilogue_serving_stages``)
-    against float64: the gated rows from the bf16 y and z, the output from
-    bf16 of the kernel's own gated rows. y, z: the body's bf16 inputs."""
+    """K7's serving stages ``st`` (``ops/nss_epilogue.mixer_epilogue_serving_stages``):
+    W_out's bf16 copy bit for bit; against float64, the bf16 gated rows
+    from the bf16 y and z, the output from the kernel's own gated rows. y,
+    z: the body's bf16 inputs."""
     from tpuir_torch.ops.nss_epilogue import gated_rows_serving
+    from tpuir_torch.utils.misc import bf16_padded_rows
 
     di = y.shape[-1]
     gated = st["gated"]
     pads = int((gated[..., di:] != 0).sum().item())
     ref = gated_rows_serving(y, gates, z, ln_w, ln_b, torch.float64)
-    g = _close("gated rows", gated[..., :di], ref)
-    return [Stage(g.name, g.ok and pads == 0, f"{g.detail}, {pads} pad values not 0"),
-            _close("out_proj", st["out"], _product(gated[..., :di], w_out, torch.float64))]
+    g = _rounded("gated rows", gated[..., :di], ref, ATOL, RTOL)
+    bf = gated.dtype == torch.bfloat16
+    return [_copy("W_out bf16 copy", st["w16"], bf16_padded_rows(w_out)),
+            Stage(g.name, g.ok and pads == 0 and bf, f"{g.detail}; {pads} pad values not 0; "
+                  f"{gated.dtype}"),
+            _close("out_proj", st["out"], _product(gated[..., :di].float(), w_out,
+                                                   torch.float64))]
 
 
 # --- the scans off the stripe route: K3 (sequence route), K5 (fused route) --

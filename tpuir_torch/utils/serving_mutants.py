@@ -133,13 +133,20 @@ MUTANTS = {
 # the mixer's serving bodies (K6, K2, K7): faults the check must reject
 MIXER_MUTANTS = {
     "none": [],
-    "K6 in_proj unrounded (h, W_in)": [(PRO, "return prologue<tc::Bf16>(",
-                                        "return prologue<tc::F32x3>(")],
+    "K6 halo read across the left/right image edge": [
+        (PRO, "const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;",
+         "const bool in = yy >= 0 && yy < H && yy * W + xx >= 0 && yy * W + xx < H * W;")],
+    "K6 z stored truncated": [(PRO, "return __float2bfloat16_rn(v);  // z's rounding",
+                               "return __float2bfloat16_rz(v);  // z's rounding")],
+    "K6 3x3 window off by one column at the tile edge": [
+        (PRO, "column(xl + i + 2, r);", "column(min(xl + i + 2, kTW), r);")],
     "K2 x_proj W_xp unrounded": [(GEMM, "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
     "K2 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
-    "K7 out_proj unrounded (gated rows, W_out)": [
-        (EPI, "epilogue<tc::Bf16, __nv_bfloat16, true>",
-         "epilogue<tc::F32x3, __nv_bfloat16, true>")],
+    "K7 gated rows stored truncated": [
+        (EPI, "return __float2bfloat16_rn(v);  // the gated rows' rounding",
+         "return __float2bfloat16_rz(v);  // the gated rows' rounding")],
+    "K6+K7 weight copies truncated": [
+        (TC, "w16[i] = __float2bfloat16_rn(c < cols", "w16[i] = __float2bfloat16_rz(c < cols")],
 }
 # faults whose verdict is printed, not required
 MIXER_REPORTED = {
@@ -150,8 +157,8 @@ MIXER_REPORTED = {
     "K2 pooled from the rounded y": [
         (SCAN, "if (kImageRows<Path>) pool += out;",
          "if (kImageRows<Path>) pool += kBf16Io<Path> ? scan_round_bf16(out) : out;")],
-    "K7 two-pass LayerNorm": [(EPI, "epilogue<tc::Bf16, __nv_bfloat16, true>",
-                               "epilogue<tc::Bf16, __nv_bfloat16, false>")],
+    "K7 two-pass LayerNorm": [(EPI, "epilogue<__nv_bfloat16, true>(",
+                               "epilogue<__nv_bfloat16, false>(")],
 }
 
 # the serving bodies off the stripe route (K3, K5): faults the check must reject
