@@ -113,8 +113,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     own previous stage (``utils/serving_check.py``: K6's and K7's bf16
     weight copies, K6's in_proj halves and x, K2's x_dbl, y and pooled,
     K7's bf16 gated rows and out_proj), bit for bit on repeat, timed beside
-    its plain version and, K6 and K7, beside the recorded times of the
-    bodies they replaced (``SERVING_REPLACED_MS``); the mutation controls for the three bodies
+    its plain version and beside the recorded times of the bodies they
+    replaced (``SERVING_REPLACED_MS``); the mutation controls for the three bodies
     (``utils/serving_mutants.py --bodies mixer``: each fault in its own
     copy, built there; the check must reject the required ones and accept
     the unmutated copy, and prints its verdict on the reported ones); then
@@ -134,7 +134,7 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     phase 6's and phase 8's seeded weights and activations (bf16 where a
     body takes bf16): each held stage by stage (``utils/serving_check.py``:
     K3's x_dbl and float32 y, K5's x_dbl, bf16 y01 and y23 and pooled), bit
-    for bit on repeat, timed beside its plain version (K6 and K7 also beside
+    for bit on repeat, timed beside its plain version (K6, K2 and K7 also beside
     the recorded times of the bodies they replaced, by level and per
     MaIRUNet@384 forward); their mutation
     controls (``utils/serving_mutants.py --bodies seq``); then, through the
@@ -303,7 +303,14 @@ K6_SERVING_REPLACED_MS = {"MaIR-CDN@128": 0.531, "encoder1": 1.260,
 K7_SERVING_REPLACED_MS = {"MaIR-CDN@128": 0.349, "encoder1": 0.927,
                           "decoder1+refinement": 1.745, "level2": 0.472, "level3": 0.293,
                           "latent": 0.204, "forward": 28.49}
-SERVING_REPLACED_MS = {"K6s": K6_SERVING_REPLACED_MS, "K7s": K7_SERVING_REPLACED_MS}
+# and of K2's (the chunked passes of csrc/chunk_scan.cuh on bf16 x and y: two
+# exponentials a state update, a thread a channel), also at the 384x328 tile
+# (batch 2), as PERF.md section 6 records them
+K2S_REPLACED_MS = {"MaIR-CDN@128": 2.935, "encoder1": 4.826, "decoder1+refinement": 11.916,
+                   "level2": 3.071, "level3": 2.465, "latent": 2.405, "rect": 1.215,
+                   "forward": 200.32}
+SERVING_REPLACED_MS = {"K6s": K6_SERVING_REPLACED_MS, "K2s": K2S_REPLACED_MS,
+                       "K7s": K7_SERVING_REPLACED_MS}
 SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
 SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
 # The bf16 recurrence (recur_bf16) is an opt-in mode that the JAX package keeps
@@ -1873,7 +1880,7 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
     the same, each stage held to its float64 function of the kernel's own
     previous stage (``utils/serving_check.py``); the output against the
     plain version (max|d|, and tpuir's criterion of two bf16 ulps) printed
-    for the record; K6's and K7's times beside those of the bodies they
+    for the record; K6's, K2's and K7's times beside those of the bodies they
     replaced (``SERVING_REPLACED_MS``). Before, the bf16-operand core alone
     at K7's out_proj shape (K padded to 8) and ``torch.matmul`` bf16 at
     K6's in_proj shape (``gemm_bf16_yardstick``); after,

@@ -22,15 +22,17 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, nss_stripe
 from tpuir_torch.ops.nss_epilogue import (epilogue_serving_values, gated_rows_serving,
                                           mixer_epilogue, mixer_epilogue_serving_plain,
                                           mixer_epilogue_serving_stages, padded_inner)
 from tpuir_torch.ops.nss_prologue import (mixer_prologue, mixer_prologue_serving_plain,
                                           mixer_prologue_serving_stages, prologue_serving_values)
-from tpuir_torch.ops.nss_stripe import (nss_scan, nss_scan_serving_plain,
+from tpuir_torch.ops.nss_stripe import (WALK_LANES, WALK_ONE_CHUNK_SHARE, WALK_TILE, WALK_WAVES,
+                                        nss_scan, nss_scan_serving_plain,
                                         nss_scan_serving_stages, scan_from_xdbl,
-                                        scan_serving_values)
+                                        scan_serving_values, serving_chunks, state_ceiling,
+                                        unpack_walk_rows, walk_blocks, walk_row)
 from tpuir_torch.utils import k1s_phases, serving_mutants
 from tpuir_torch.utils.misc import bf16_padded_rows
 from tpuir_torch.utils.serving_check import (check_epilogue_serving, check_prologue_serving,
@@ -388,6 +390,55 @@ def test_mixer_serving_mutants_apply_to_the_sources(name, tmp_path):
     serving_mutants.plant(str(tmp_path), edits)
 
 
+# --- the serving walk's chunks and packed rows ------------------------------
+
+# (label, B, H = W, d, N): MaIR-CDN@128 and MaIRUNet@384's five levels, batch 8
+WALK_SHAPES = [("MaIR-CDN@128", 8, 128, 234, 16), ("enc-1", 8, 384, 96, 4),
+               ("dec-1", 8, 384, 192, 8), ("level-2", 8, 192, 192, 8),
+               ("level-3", 8, 96, 384, 16), ("latent", 8, 48, 768, 32)]
+
+
+@pytest.mark.parametrize("sms,resident", [(132, 4), (132, 5), (114, 4), (16, 8)])
+@pytest.mark.parametrize("label,B,hw,d,n", WALK_SHAPES + [("tiny", 1, 8, 6, 3)])
+def test_serving_chunk_rule(label, B, hw, d, n, sms, resident):
+    """The walk's chunk count on a card of ``sms`` SMs that holds
+    ``resident`` of its blocks an SM: chunks of whole tiles but the last,
+    covering L once; no more chunks than L has tiles; one chunk where one
+    chunk's blocks fill WALK_ONE_CHUNK_SHARE of the card, else the most
+    whose blocks fill WALK_WAVES waves of it (or every tile its own chunk)."""
+    L = hw * hw
+    chunks, chunk = serving_chunks(B, L, d, n, sms, resident)
+    assert chunk > 0 and chunk % WALK_TILE == 0
+    assert (chunks - 1) * chunk < L <= chunks * chunk
+    tiles = -(-L // WALK_TILE)
+    assert 1 <= chunks <= tiles
+    cb = 4 * 32 // WALK_LANES[state_ceiling(n)]  # channels a block
+    blocks, card = B * 4 * -(-d // cb), resident * sms
+    assert walk_blocks(B, d, n) == blocks
+    if blocks >= WALK_ONE_CHUNK_SHARE * card:
+        assert chunks == 1
+    else:
+        assert chunks * blocks <= WALK_WAVES * card
+        # one tile less a chunk would take more chunks than the waves hold
+        assert chunks == tiles or -(-L // (chunk - WALK_TILE)) * blocks > WALK_WAVES * card
+    if (sms, resident) == (132, 4):  # the H100 at the walk's 4 blocks an SM
+        assert (chunks == 1) == (label in ("MaIR-CDN@128", "level-3", "latent")), (label, chunks)
+
+
+@pytest.mark.parametrize("n,r", [(3, 2), (4, 3), (8, 6), (16, 12), (32, 24)])
+def test_walk_rows_unpack(n, r):
+    """The serving kernel's packed x_dbl rows [dt_r (R, zeros to R4) | B
+    (MAXN) | C (MAXN)] unpack to (B, L, 4, R + 2N) in order."""
+    r4, maxn, cs = walk_row(n, r)
+    assert r4 % 4 == 0 and r4 - 4 < r <= r4 and maxn >= n and cs == r4 + 2 * maxn
+    want = torch.randn(2, 5, 4, r + 2 * n)
+    packed = torch.zeros(2, 5, 4, cs)
+    packed[..., :r] = want[..., :r]
+    packed[..., r4:r4 + n] = want[..., r:r + n]
+    packed[..., r4 + maxn:r4 + maxn + n] = want[..., r + n:]
+    assert torch.equal(unpack_walk_rows(packed, n, r), want)
+
+
 @pytest.mark.parametrize("name", list(k1s_phases.K6S_PHASES))
 def test_k6s_phases_apply_to_the_sources(name, tmp_path):
     """The phase-removal timings of K6's serving kernel
@@ -396,6 +447,18 @@ def test_k6s_phases_apply_to_the_sources(name, tmp_path):
     shutil.copytree(os.path.join(os.path.dirname(_kernels.__file__), "..", "csrc"),
                     tmp_path / "csrc")
     serving_mutants.plant(str(tmp_path), k1s_phases.K6S_PHASES[name])
+
+
+@pytest.mark.parametrize("body,name", [(b, n) for b in ("K2s", "passes", "K2s-layouts")
+                                       for n in k1s_phases.BODIES[b]])
+def test_k2s_phases_apply_to_the_sources(body, name, tmp_path):
+    """The phase-removal timings of K2's serving walk and of the chunked
+    passes, and the walk's layout choices (``utils/k1s_phases.py --body
+    K2s|passes|K2s-layouts``), still apply to the current sources, on a copy."""
+    pkg = os.path.join(os.path.dirname(_kernels.__file__), "..")
+    for sub in ("csrc", "ops"):
+        shutil.copytree(os.path.join(pkg, sub), tmp_path / sub)
+    serving_mutants.plant(str(tmp_path), k1s_phases.BODIES[body][name])
 
 
 # --- the CUDA kernels against the stage checks, on a card -------------------
@@ -430,12 +493,22 @@ def test_prologue_serving_kernel_on_card(cuda_device, B, H, W, dm, di):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [False, True])
-@pytest.mark.parametrize("B,H,W,d,n,r", [(2, 32, 32, 234, 16, 12), (1, 24, 16, 234, 16, 12),
-                                         (2, 16, 24, 40, 8, 3), (2, 8, 8, 6, 3, 2),
-                                         (1, 16, 16, 96, 32, 6)])
-def test_scan_serving_kernel_on_card(cuda_device, shift, B, H, W, d, n, r):
+@pytest.mark.parametrize("B,H,W,d,n,r,chunk", [
+    (2, 32, 32, 234, 16, 12, None), (1, 24, 16, 234, 16, 12, None), (2, 16, 24, 40, 8, 3, None),
+    (2, 8, 8, 6, 3, 2, None), (1, 16, 16, 96, 32, 6, None),
+    # one chunk (N 16, 32) and several (N 4, 8) on an H100
+    (8, 16, 16, 768, 16, 12, None), (8, 16, 16, 768, 32, 24, None),
+    (8, 64, 64, 96, 4, 3, None), (4, 48, 48, 192, 8, 6, None), (8, 32, 32, 234, 16, 12, None),
+    # forced to 14 chunks of 96 positions, the last of 48
+    (1, 36, 36, 234, 16, 12, 96)])
+def test_scan_serving_kernel_on_card(cuda_device, monkeypatch, shift, B, H, W, d, n, r, chunk):
     """Every stage within its check, bit for bit on repeat, the wrapper's
-    output the stage entry's, one launch under its own name."""
+    output the stage entry's, one launch under its own name; at the walk's
+    own chunk count or, with ``chunk``, at that many positions a chunk."""
+    if chunk is not None:
+        L = H * W
+        assert -(-L // chunk) >= 3 and L % chunk
+        monkeypatch.setattr(nss_stripe, "serving_chunks", lambda *a: (-(-L // chunk), chunk))
     ops = _torch(_scan_operands(B, H, W, d, n, r, seed=d + n), cuda_device, bf16=("x",))
     st = nss_scan_serving_stages(**ops, shift=shift)
     st = {k: v.clone() for k, v in st.items()}

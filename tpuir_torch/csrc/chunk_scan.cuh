@@ -1,8 +1,9 @@
 // The chunked selective scan of MaIR's mixer in float32 on Hopper (sm_90a),
-// shared by K2 (nss_scan.cu), K5 (nss_fused.cu) and K4 (selective_scan.cu);
-// K3 (scan_fused_proj.cu) takes its helpers (exp2_mufu, softplus, and
-// scan_widen and scan_round_bf16 for its serving body) and scans its short
-// gathered sequences in one pass of its own.
+// shared by K2's parity body (nss_scan.cu), K5 (nss_fused.cu) and K4
+// (selective_scan.cu); K3 (scan_fused_proj.cu) and K2's serving body take
+// its helpers (exp2_mufu, softplus, scan_widen, scan_round_bf16, the carry
+// chain and the partial sums) and walk their sequences with a channel's
+// states across lanes (seq_lanes.cuh).
 //
 // Per sequence bk = (b, k) and channel d, over the L positions t of the
 // sequence, with u the position's input:
@@ -66,18 +67,16 @@
 //   ImageIdsPath (K2): position t of direction k is image pixel
 //     p = ids[k][t]; x (B, L, D) and y (B, 4, L, D) are in image order,
 //     x_dbl (B, L, 4, C) pixel-major (one GEMM over all pixels).
-//   ImageIdsBf16Path (K2's serving body): as ImageIdsPath, with x read and
-//     y stored in bf16 (y rounded to nearest even; the chunk sums of y for
-//     pooled taken from the float32 y before it is rounded), and dt_proj's
+//   StripePath (K5): as ImageIdsPath, but the pixel is computed from t
+//     (nss_pixel below) instead of read from a table, and directions 2 and
+//     3 write y in the transposed (W, H) image layout.
+//   StripeBf16Path (K5's serving body): StripePath with x read and y stored
+//     in bf16 (y rounded to nearest even; the chunk sums of y for pooled
+//     taken from the float32 y before it is rounded), and dt_proj's
 //     operands rounded to bf16 in shared memory (W_dt where it is staged,
 //     each tile's dt columns of x_dbl once the tile has landed), so that
 //     each dt product is exact in float32 (the JAX kernel's bf16 x bf16
 //     dt_proj). B, C and the scan stay float32.
-//   StripePath (K5): as ImageIdsPath, but the pixel is computed from t
-//     (nss_pixel below) instead of read from a table, and directions 2 and
-//     3 write y in the transposed (W, H) image layout.
-//   StripeBf16Path (K5's serving body): StripePath with ImageIdsBf16Path's
-//     bf16 x and y, rounded dt_proj operands and pooled from the float32 y.
 //   DeltaPath (K4): x (the u of mamba's selective_scan_fn), delta and y
 //     (B, K, L, D) in sequence order for any K; B and C (B, K, L, N) are
 //     staged in place of the x_dbl row (R = 0) and dt comes from delta.
@@ -106,10 +105,6 @@ enum class PathKind { kImageIds, kStripe, kDelta };
 struct ImageIdsPath {
   static constexpr PathKind kKind = PathKind::kImageIds;
   using io_t = float;
-};
-struct ImageIdsBf16Path {
-  static constexpr PathKind kKind = PathKind::kImageIds;
-  using io_t = __nv_bfloat16;
 };
 struct StripePath {
   static constexpr PathKind kKind = PathKind::kStripe;

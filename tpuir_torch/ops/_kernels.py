@@ -173,8 +173,12 @@ def library() -> ctypes.CDLL:
         lib.tpuir_nss_scan_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_nss_scan_f32.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         lib.tpuir_nss_scan_f32.restype = ci
-        lib.tpuir_nss_scan_bf16.argtypes = lib.tpuir_nss_scan_f32.argtypes
+        lib.tpuir_nss_scan_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
         lib.tpuir_nss_scan_bf16.restype = ci
+        lib.tpuir_nss_scan_bf16_scratch_numel.argtypes = [ci] * 6
+        lib.tpuir_nss_scan_bf16_scratch_numel.restype = ctypes.c_longlong
+        lib.tpuir_nss_scan_bf16_resident_blocks.argtypes = [ci] * 2
+        lib.tpuir_nss_scan_bf16_resident_blocks.restype = ci
         lib.tpuir_nss_scan_recur_bf16.argtypes = [vp] * 12 + [ci] * 6 + [vp]
         lib.tpuir_nss_scan_recur_bf16.restype = ci
         lib.tpuir_nss_scan_recur_scratch_numel.argtypes = [ci] * 6

@@ -16,6 +16,13 @@ through the NSS id table of ``ops/scan_ids.py`` and writes y to each path
 position's image pixel, so it returns y directly in image layout: there are
 no half-block buffers to recombine.
 
+The serving kernel walks each chunk of each sequence once with a channel's
+states across the lanes of a warp; ``serving_chunks`` picks the chunk count
+per call from the shape, the card's SM count and the walk's resident blocks
+an SM (one chunk where one chunk's walks fill a quarter of the card), and
+its x_dbl scratch holds rows packed as the walk stages them (``walk_row``),
+which ``nss_scan_serving_stages`` unpacks.
+
 ``nss_scan`` is the wrapper: it checks its inputs and raises on anything
 the kernel does not take. On a CUDA tensor it launches the kernel on the
 current stream and counts the launch, under ``nss_scan``, for the serving
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import functools
 import math
 
 import torch
@@ -55,6 +63,61 @@ MAX_STATE = 32  # the kernel keeps a channel's states in registers (8, 16 or 32 
 MAX_RANK = 64   # dt rank R: W_dt is staged in shared memory
 VERT_P = 16     # tpuir's mixer's vert_p: level-1 subchunks of 16 // scan_len rows
 LOG2E = math.log2(math.e)
+
+# The serving body's walk (csrc/nss_scan.cu: nss_walk_kernel): positions a
+# staged tile, warps a block, and the lanes a channel's states take by their
+# register ceiling (WalkLanes, G lanes x S states: N 4 as 4 x 1, 8 as 2 x 4,
+# 16 as 4 x 4, 32 as 8 x 4).
+WALK_TILE = 32
+WALK_BLOCK_WARPS = 4
+WALK_LANES = {4: 4, 8: 2, 16: 4, 32: 8}
+# The walk is latency-bound: a chunk after the first costs its walk twice
+# (the end state, then y), against more blocks at once. One walk ran faster
+# than two chunks at MaIR-CDN@128, whose blocks are about half of the
+# card's resident ones; at enc-1 and dec-1 (0.15-0.18 of the card) a wave
+# of chunks ran 1.4-1.7 times as fast as half a wave, and two waves 2-5%
+# faster than one (utils/k1s_phases.py --body K2s-layouts, PERF.md §6).
+WALK_ONE_CHUNK_SHARE = 0.25
+WALK_WAVES = 2
+
+
+def state_ceiling(N: int) -> int:
+    """The register ceiling of N states: 4, 8, 16 or 32."""
+    return next(m for m in (4, 8, 16, 32) if N <= m)
+
+
+def walk_blocks(B: int, d: int, N: int) -> int:
+    """Blocks of one chunk of the serving walk: B * 4 sequences of d channels."""
+    return B * 4 * -(-d // (WALK_BLOCK_WARPS * 32 // WALK_LANES[state_ceiling(N)]))
+
+
+def serving_chunks(B: int, L: int, d: int, N: int, sms: int, resident: int) -> Tuple[int, int]:
+    """(chunks, positions a chunk) of the serving body's walk over each of
+    the B * 4 sequences of L positions, d channels and N states on a card of
+    ``sms`` SMs that holds ``resident`` of its blocks an SM: one chunk where
+    one chunk's blocks fill WALK_ONE_CHUNK_SHARE of the card, else the most
+    chunks whose blocks fill WALK_WAVES waves of it; no more than L has
+    tiles, each chunk whole tiles but the last."""
+    blocks, card = walk_blocks(B, d, N), resident * sms
+    n = 1 if blocks >= card * WALK_ONE_CHUNK_SHARE else min(
+        WALK_WAVES * card // blocks, -(-L // WALK_TILE))
+    chunk = -(-L // n)
+    chunk = -(-chunk // WALK_TILE) * WALK_TILE
+    return -(-L // chunk), chunk
+
+
+def walk_row(N: int, R: int) -> Tuple[int, int, int]:
+    """(R4, MAXN, CS) of the serving walk's packed x_dbl rows
+    (csrc/nss_scan.cu: WalkRow): [dt_r (R, zeros to R4) | B (MAXN) | C
+    (MAXN)], CS floats."""
+    r4, maxn = (R + 3) & ~3, state_ceiling(N)
+    return r4, maxn, r4 + 2 * maxn
+
+
+def unpack_walk_rows(xd: torch.Tensor, N: int, R: int) -> torch.Tensor:
+    """The serving walk's packed x_dbl (B, L, 4, CS) as (B, L, 4, R + 2N)."""
+    r4, maxn, _ = walk_row(N, R)
+    return torch.cat([xd[..., :R], xd[..., r4:r4 + N], xd[..., r4 + maxn:r4 + maxn + N]], -1)
 
 
 def check_scan_weights(fn: str, x, x_proj_w, dt_w, A, D, delta_bias,
@@ -327,14 +390,28 @@ def nss_scan_recur_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Te
     return st["y"], st["pooled"]
 
 
+@functools.lru_cache(maxsize=None)
+def walk_capacity(device: torch.device, N: int, R: int) -> Tuple[int, int]:
+    """(SMs, blocks of the serving walk an SM holds) on ``device``."""
+    with torch.cuda.device(device):
+        resident = _kernels.library().tpuir_nss_scan_bf16_resident_blocks(N, R)
+    if resident <= 0:
+        raise RuntimeError(f"nss_scan: no block of the serving walk fits an SM ({resident})")
+    return torch.cuda.get_device_properties(device).multi_processor_count, resident
+
+
 def _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R,
             serving, recur=False, carries=False) -> Dict[str, torch.Tensor]:
-    """One launch of a body on x's card: {x_dbl, y, pooled}, and with
+    """One launch of a body on x's card: {x_dbl (B, L, 4, R + 2N; the
+    serving walk's packed rows, B, L, 4, CS), y, pooled}, and with
     ``carries`` the recurrence body's level-2 carries."""
     params = (x, x_proj_w, dt_w, A, D, delta_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         raise RuntimeError("nss_scan: the CUDA kernel has no backward")
     B, H, W, d = x.shape
+    if serving and not recur and d % 2:
+        raise ValueError(f"nss_scan: the serving kernel stages x two channels a copy and "
+                         f"needs an even d, got {d}")
     L = H * W
     sl = scan_len // 2 if shift else 0
     lib = _kernels.library()
@@ -353,15 +430,24 @@ def _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R,
                 x.data_ptr(), ids.data_ptr(), off.data_ptr(), x_proj_w.data_ptr(),
                 dt_w.data_ptr(), A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
                 pooled.data_ptr(), scratch.data_ptr(), cc.data_ptr(), S, B, L, d, N, R, stream)
+        elif serving:
+            _, chunk = serving_chunks(B, L, d, N, *walk_capacity(x.device, N, R))
+            scratch = torch.empty(lib.tpuir_nss_scan_bf16_scratch_numel(B, L, d, N, R, chunk),
+                                  device=x.device, dtype=torch.float32)
+            err = lib.tpuir_nss_scan_bf16(
+                x.data_ptr(), ids.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(),
+                A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
+                pooled.data_ptr(), scratch.data_ptr(), B, L, d, N, R, chunk, stream)
         else:
-            fn = lib.tpuir_nss_scan_bf16 if serving else lib.tpuir_nss_scan_f32
             scratch = torch.empty(lib.tpuir_nss_scan_scratch_numel(B, L, d, N, R),
                                   device=x.device, dtype=torch.float32)
-            err = fn(x.data_ptr(), ids.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(),
-                     A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
-                     pooled.data_ptr(), scratch.data_ptr(), B, L, d, N, R, stream)
+            err = lib.tpuir_nss_scan_f32(
+                x.data_ptr(), ids.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(),
+                A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
+                pooled.data_ptr(), scratch.data_ptr(), B, L, d, N, R, stream)
     _kernels.check(err, _launch_name(serving, recur))
-    xdbl = scratch[:B * L * 4 * (R + 2 * N)].view(B, L, 4, R + 2 * N)
+    cs = walk_row(N, R)[2] if serving and not recur else R + 2 * N
+    xdbl = scratch[:B * L * 4 * cs].view(B, L, 4, cs)
     out = {"x_dbl": xdbl, "y": y, "pooled": pooled}
     if carries:
         out["carries"] = cc
@@ -400,12 +486,15 @@ def nss_scan_serving_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch
                             scan_len: int = 4, shift: bool = False) -> Dict[str, torch.Tensor]:
     """The serving kernel's outputs and its scratch from one launch on x's
     card, for a check (``utils/serving_check.py``); counts no launch:
-    ``x_dbl`` (B, L, 4, R + 2N) float32, ``y`` (bf16) and ``pooled``. On a
-    CPU tensor, and only there, the same stages of the plain version."""
+    ``x_dbl`` (B, L, 4, R + 2N) float32 (the kernel's packed rows unpacked),
+    ``y`` (bf16) and ``pooled``. On a CPU tensor, and only there, the same
+    stages of the plain version."""
     N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, True)
     if x.device.type == "cpu":
         return scan_serving_values(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
-    return _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, True)
+    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, True)
+    out["x_dbl"] = unpack_walk_rows(out["x_dbl"], N, R)
+    return out
 
 
 def nss_scan_recur_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,

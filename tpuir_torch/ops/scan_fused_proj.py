@@ -42,7 +42,7 @@ from typing import Dict, Tuple
 import torch
 
 from tpuir_torch.ops import _kernels
-from tpuir_torch.ops.nss_stripe import check_scan_weights, seq_scan_from_xdbl
+from tpuir_torch.ops.nss_stripe import check_scan_weights, seq_scan_from_xdbl, state_ceiling
 from tpuir_torch.ops.selective_scan import selective_scan
 from tpuir_torch.utils.misc import bf16_rounded
 
@@ -99,7 +99,7 @@ def _packed_row(N: int, R: int) -> Tuple[int, int, int]:
     B (MAXN) | C (MAXN)], CS floats a row, a multiple of 4 whose quarter is
     odd."""
     r4 = (R + 3) & ~3
-    maxn = next(m for m in (4, 8, 16, 32) if N <= m)
+    maxn = state_ceiling(N)
     cs = r4 + 2 * maxn
     return r4, maxn, cs if (cs // 4) % 2 else cs + 4
 

@@ -2,6 +2,7 @@
 
     python tpuir_torch/utils/scan_bench.py [--tree DIR] [--iters 5]
                                            [--kernels K2,K5,K3,K4,K2s] [--accuracy]
+                                           [--no-breakdown]
 
 On the card, with CUDA events (one warm-up, then the mean of ``--iters``
 calls) on seeded, fan-in-scaled operands with TF32 off, it times K2
@@ -12,18 +13,21 @@ tile at batch 8, with their calls a forward; K3
 (batch 2) and per forward chunk; K4 (``selective_scan_kernel``) at
 MaIR-CDN's shape and at MaIRUNet's latent; with ``K2s`` in ``--kernels``,
 K2's serving body (``nss_scan(..., serving=True)``, bf16 x) at
-MaIR-CDN@128, batch 8. K2, K4 and K5 share their scan passes
-(``csrc/chunk_scan.cuh``). ``--kernels`` keeps only the ones it names
-(default: all but K2s).
+MaIR-CDN@128, batch 8 (both shifts), at the five MaIRUNet levels (batch 8,
+with their calls a forward) and at the 384x328 tile (batch 2), each broken
+down by kernel with its occupancy, and the walk's chunk count where the
+tree's wrapper has ``serving_chunks``. K2's parity body, K4 and K5 share
+their scan passes (``csrc/chunk_scan.cuh``). ``--kernels`` keeps only the
+ones it names (default: all but K2s).
 
 ``--tree DIR`` imports ``tpuir_torch`` from another checkout (the parent
 commit unpacked under ``build/``, say) instead of this one, so that two
 trees can be timed in turns on one card, one process each. The two trees'
 SASS is compared by ``utils/sass_diff.py``.
 
-K2 at MaIR-CDN@128 (shift 0), enc-1 and dec-1, K3 at both its levels, and
-K4, are also broken down by kernel (``torch.profiler``); for K3 each
-kernel's registers a thread (``ptxas -v`` in the build log, where this
+K2 at MaIR-CDN@128 (shift 0), enc-1 and dec-1, K3 at both its levels, K2s
+at every shape, and K4, are also broken down by kernel (``torch.profiler``);
+for K3 and K2s each kernel's registers a thread (``ptxas -v`` in the build log, where this
 process built the library), block size and shared memory (the profiler's
 trace), and the blocks of it an SM holds at once, from those
 (``resident_blocks``). ``--accuracy`` also holds K3 at both levels against
@@ -50,6 +54,8 @@ UNET_LEVELS = [("enc-1", 384, 96, 4, 3, 4), ("dec-1", 384, 192, 8, 6, 8),
                ("level-2", 192, 192, 8, 6, 12), ("level-3", 96, 384, 16, 12, 12),
                ("latent", 48, 768, 32, 24, 8)]
 CDN = ("MaIR-CDN@128", 128, 234, 16, 12)
+# K2a's case: the 481x321 request's 384x328 tiles at MaIRUNet's level 1, batch 2
+RECT = ("384x328", 384, 328, 96, 4, 3, 2)
 # K3 on the 481x321 request: (label, H, W, d_inner, d_state, dt rank, calls a chunk), batch 2
 K3_LEVELS = [("level-3 96x82", 96, 82, 384, 16, 12, 12),
              ("latent 48x41", 48, 41, 768, 32, 24, 8)]
@@ -77,18 +83,10 @@ def short_name(name: str) -> str:
     return re.sub(r"\(anonymous namespace\)::|^void |\(.*$", "", name)
 
 
-def ptxas_registers(log: str) -> dict:
-    """{short kernel name: registers a thread} from nvcc's ``-Xptxas=-v``
-    output, the names demangled by ``c++filt`` (or the toolkit's
-    ``cu++filt``); empty if neither is found."""
-    regs, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name] = int(m.group(1))
+def _demangled(regs: dict) -> dict:
+    """{short kernel name: registers} from {mangled name: registers}, the
+    names demangled by ``c++filt`` (or the toolkit's ``cu++filt``); empty if
+    neither is found."""
     tool = shutil.which("c++filt") or shutil.which("cu++filt") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cu++filt")
     if not regs or not os.path.exists(tool):
@@ -97,6 +95,39 @@ def ptxas_registers(log: str) -> dict:
     plain = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
                            check=True).stdout.splitlines()
     return {short_name(p): regs[n] for n, p in zip(names, plain)}
+
+
+def ptxas_registers(log: str) -> dict:
+    """{short kernel name: registers a thread} from nvcc's ``-Xptxas=-v``
+    output."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return _demangled(regs)
+
+
+def library_registers(lib: str) -> dict:
+    """{short kernel name: registers a thread} of a built kernel library, from
+    ``cuobjdump -res-usage`` (for a library this process did not build)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True).stdout
+    regs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"REG:(\d+)", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return _demangled(regs)
 
 
 def launch_shapes(prof) -> dict:
@@ -116,6 +147,48 @@ def launch_shapes(prof) -> dict:
             threads = int(np.prod(args["block"]))
             out[e["name"]] = (threads, int(args.get("shared memory", 0)))
     return out
+
+
+def k2s_shapes(scan_ops, timed, nss_stripe, res, split=True) -> None:
+    """K2's serving body at MaIR-CDN@128 (batch 8, both shifts), MaIRUNet's
+    five levels (batch 8) and the 384x328 tile (batch 2), each broken down
+    by kernel with its occupancy where ``split``; its ms a MaIRUNet@384
+    forward."""
+    import torch
+
+    chunks = getattr(nss_stripe, "serving_chunks", None)  # absent on a tree before the walk
+
+    def ops_at(b, hh, ww, di, n, r):
+        ops = scan_ops(b, hh, ww, di, n, r)
+        if chunks:
+            sms, resident = nss_stripe.walk_capacity(ops[0].device, n, r)
+            walk = chunks(b, hh * ww, di, n, sms, resident)
+            res.setdefault("chunks", {})[f"{b}x{hh}x{ww} Di={di} N={n}"] = walk
+            print(f"    walk chunks, positions a chunk: {walk} ({resident} blocks an SM)",
+                  flush=True)
+        return (ops[0].to(torch.bfloat16),) + ops[1:]
+
+    label, t, di, n, r = CDN
+    ops = ops_at(8, t, t, di, n, r)
+    both = [timed(f"K2s {label} shift={s}",
+                  lambda s=s: nss_stripe.nss_scan(*ops, shift=bool(s), serving=True),
+                  split=split, occupancy=True) for s in (0, 1)]
+    res["ms"][f"K2s {label}"] = sum(both) / 2
+    del ops
+    fwd = 0.0
+    for label, t, di, n, r, calls in UNET_LEVELS:
+        ops = ops_at(8, t, t, di, n, r)
+        fwd += calls * timed(f"K2s MaIRUNet {label} [{calls}]",
+                             lambda: nss_stripe.nss_scan(*ops, serving=True), split=split,
+                             occupancy=True)
+        del ops
+        torch.cuda.empty_cache()
+    res["ms"]["K2s per MaIRUNet@384 forward"] = fwd
+    print(f"K2s per MaIRUNet@384 forward (batch 8): {fwd:.3f} ms", flush=True)
+    label, hh, ww, di, n, r, b = RECT
+    ops = ops_at(b, hh, ww, di, n, r)
+    timed(f"K2s {label} B={b}", lambda: nss_stripe.nss_scan(*ops, serving=True), split=split,
+          occupancy=True)
 
 
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # the scan's card tolerance (tests/test_torch_scan_fused.py)
@@ -158,6 +231,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of K2,K5,K3,K4,K2s to time")
     ap.add_argument("--accuracy", action="store_true",
                     help="K3 against its plain version and both against float64")
+    ap.add_argument("--no-breakdown", action="store_true",
+                    help="K2s: time the calls only, no breakdown by kernel")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(","))
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree
@@ -169,6 +244,7 @@ def main(argv=None) -> int:
         return 1
     from tpuir_torch.core.engine import true_float32
     from tpuir_torch.ops import _kernels
+    from tpuir_torch.ops import nss_stripe
     from tpuir_torch.ops.nss_fused import nss_scan_fused
     from tpuir_torch.ops.nss_stripe import nss_scan
     from tpuir_torch.ops.scan_fused_proj import selective_scan_fused_proj
@@ -193,7 +269,7 @@ def main(argv=None) -> int:
                 f(4, di, r, scale=r ** -0.5), -torch.exp(f(4, di, n, scale=0.3)),
                 f(4, di, scale=0.3), f(4, di, scale=0.3))
 
-    regs = ptxas_registers(_kernels.build_log)
+    regs = ptxas_registers(_kernels.build_log) or library_registers(lib)
 
     def timed(label, fn, split=False, occupancy=False):
         ms = cuda_ms(fn, args.iters)
@@ -202,7 +278,11 @@ def main(argv=None) -> int:
         if split:  # device ms of each kernel of one call, from torch.profiler
             _, prof = trace_fn(fn)
             shapes = launch_shapes(prof) if occupancy else {}
-            for name, (kms, _) in kernel_times(prof).items():
+            kernels = kernel_times(prof)
+            # what the trace does not list (it can miss a call's first kernel)
+            print(f"    {ms - sum(k for k, _ in kernels.values()):9.3f} ms  (not in the trace)",
+                  flush=True)
+            for name, (kms, _) in kernels.items():
                 short = short_name(name)
                 res["ms"][f"{label}: {short}"] = kms
                 extra = ""
@@ -226,14 +306,9 @@ def main(argv=None) -> int:
             both = [timed(f"{name} {label} shift={s}", lambda s=s: fn(*ops, shift=bool(s)),
                           split=s == 0) for s in (0, 1)]
             res["ms"][f"{name} {label}"] = sum(both) / 2
-        if "K2s" in want:
-            ops = scan_ops(8, t, t, di, n, r)
-            ops = (ops[0].to(torch.bfloat16),) + ops[1:]
-            both = [timed(f"K2s {label} shift={s}",
-                          lambda s=s: nss_scan(*ops, shift=bool(s), serving=True), split=s == 0)
-                    for s in (0, 1)]
-            res["ms"][f"K2s {label}"] = sum(both) / 2
         del ops
+        if "K2s" in want:
+            k2s_shapes(scan_ops, timed, nss_stripe, res, split=not args.no_breakdown)
         fwd = {name: 0.0 for name, _ in stripe}
         for label, t, di, n, r, calls in UNET_LEVELS if stripe else ():
             ops = scan_ops(8, t, t, di, n, r)

@@ -141,7 +141,17 @@ MIXER_MUTANTS = {
     "K6 3x3 window off by one column at the tile edge": [
         (PRO, "column(xl + i + 2, r);", "column(min(xl + i + 2, kTW), r);")],
     "K2 x_proj W_xp unrounded": [(GEMM, "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
-    "K2 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
+    "K2 y truncated": [
+        (K2S, "__floats2bfloat162_rn(y0, y1);  // y's rounding",
+         "__halves2bfloat162(__float2bfloat16_rz(y0), __float2bfloat16_rz(y1));")],
+    "K2 carry of the previous chunk dropped": [
+        (K2S, "h[s] = FINAL && c > 0 && live ? a.hstate[state + n] : 0.f;  // the chained carry",
+         "h[s] = 0.f;")],
+    "K2 one state lane left out of the butterfly sum": [
+        (K2S, "      sum_over_lanes<G>(p, lane);\n",
+         "      if (g == G - 1)\n"
+         "        for (int j = 0; j < T; ++j) p[j] = 0.f;\n"
+         "      sum_over_lanes<G>(p, lane);\n")],
     "K7 gated rows stored truncated": [
         (EPI, "return __float2bfloat16_rn(v);  // the gated rows' rounding",
          "return __float2bfloat16_rz(v);  // the gated rows' rounding")],
@@ -151,12 +161,12 @@ MIXER_MUTANTS = {
 # faults whose verdict is printed, not required
 MIXER_REPORTED = {
     "K2 dt operands unrounded": [
-        (SCAN, "wdt_s[r * bw + tid] = kBf16Io<Path> ? scan_round_bf16(w) : w;",
-         "wdt_s[r * bw + tid] = w;"),
-        (SCAN, "xt[p * CS + j] = scan_round_bf16(xt[p * CS + j]);", "(void)xt;")],
+        (K2S, "wdt[e] = scan_round_bf16(w);  // dt_proj's operand", "wdt[e] = w;"),
+        (K2S, "        x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);\n"
+              "        x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);\n", "")],
     "K2 pooled from the rounded y": [
-        (SCAN, "if (kImageRows<Path>) pool += out;",
-         "if (kImageRows<Path>) pool += kBf16Io<Path> ? scan_round_bf16(out) : out;")],
+        (K2S, "pool0 += y0, pool1 += y1;",
+         "pool0 += scan_round_bf16(y0), pool1 += scan_round_bf16(y1);")],
     "K7 two-pass LayerNorm": [(EPI, "epilogue<__nv_bfloat16, true>(",
                                "epilogue<__nv_bfloat16, false>(")],
 }
@@ -174,7 +184,7 @@ SEQ_MUTANTS = {
     "K3 y through bf16": [
         (K3S, "fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]);",
          "scan_round_bf16(fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]));")],
-    "K5 y truncated": MIXER_MUTANTS["K2 y truncated"],
+    "K5 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
 }
 # faults whose verdict is printed, not required
 SEQ_REPORTED = {
@@ -182,8 +192,12 @@ SEQ_REPORTED = {
         (K3S, "wdt[e] = kBf16 ? scan_round_bf16(w) : w;", "wdt[e] = w;"),
         (K3S, "x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);", ""),
         (K3S, "x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);", ""),
-        *MIXER_REPORTED["K2 dt operands unrounded"]],
-    "K5 pooled from the rounded y": MIXER_REPORTED["K2 pooled from the rounded y"],
+        (SCAN, "wdt_s[r * bw + tid] = kBf16Io<Path> ? scan_round_bf16(w) : w;",
+         "wdt_s[r * bw + tid] = w;"),
+        (SCAN, "xt[p * CS + j] = scan_round_bf16(xt[p * CS + j]);", "(void)xt;")],
+    "K5 pooled from the rounded y": [
+        (SCAN, "if (kImageRows<Path>) pool += out;",
+         "if (kImageRows<Path>) pool += kBf16Io<Path> ? scan_round_bf16(out) : out;")],
 }
 
 # K2's bf16-recurrence body: faults the check must reject
@@ -374,16 +388,15 @@ BODIES = {"K1": (MUTANTS, {}, _CHECK, SHAPES),
           "recur": (RECUR_MUTANTS, {}, _RECUR_CHECK, MIXER_SHAPES)}
 
 
-def planted_copy(d: str, edits) -> None:
-    """Copy tpuir_torch and this tree's built objects to ``d`` (so that the
-    copy recompiles only the sources its edits reach) and plant ``edits``
-    there."""
-    from tpuir_torch.ops import _kernels
-
-    shutil.copytree(_PKG, os.path.join(d, "tpuir_torch"),
+def planted_copy(d: str, edits, pkg: str = _PKG) -> None:
+    """Copy the package ``pkg`` (default: this tree's tpuir_torch) and the
+    objects built beside it to ``d`` (so that the copy recompiles only the
+    sources its edits reach) and plant ``edits`` there."""
+    shutil.copytree(pkg, os.path.join(d, "tpuir_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     # the copy's build directory, as its ops/_kernels.py places it
-    shutil.copytree(_kernels.OBJ_DIR, os.path.join(d, "build", "tpuir_torch", "obj"))
+    shutil.copytree(os.path.join(os.path.dirname(pkg), "build", "tpuir_torch", "obj"),
+                    os.path.join(d, "build", "tpuir_torch", "obj"))
     plant(os.path.join(d, "tpuir_torch"), edits)
 
 
