@@ -136,7 +136,8 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     K3's x_dbl and float32 y, K5's x_dbl, bf16 y01 and y23 and pooled), bit
     for bit on repeat, timed beside its plain version (K6, K2 and K7 also beside
     the recorded times of the bodies they replaced, by level and per
-    MaIRUNet@384 forward); their mutation
+    MaIRUNet@384 forward; K5 at MaIR-CDN@128 and 384x328 beside its
+    replaced body's, ``K5S_REPLACED_MS``); their mutation
     controls (``utils/serving_mutants.py --bodies seq``); then, through the
     zoo with ``precision="serving"`` on the seeded weights of phases 5 and
     7, three rounds each: MaIRUNet on phase 7's 256x256, 481x321 and 120x90
@@ -309,8 +310,12 @@ K7_SERVING_REPLACED_MS = {"MaIR-CDN@128": 0.349, "encoder1": 0.927,
 K2S_REPLACED_MS = {"MaIR-CDN@128": 2.935, "encoder1": 4.826, "decoder1+refinement": 11.916,
                    "level2": 3.071, "level3": 2.465, "latent": 2.405, "rect": 1.215,
                    "forward": 200.32}
+# and of K5's (the same passes along the stripe arithmetic): ms a call at
+# MaIR-CDN@128 (batch 8, the mean over both shifts) and at the 384x328 tile
+# (batch 2, MaIRUNet's level-1 widths)
+K5S_REPLACED_MS = {"MaIR-CDN@128": 2.918, "rect": 1.186}
 SERVING_REPLACED_MS = {"K6s": K6_SERVING_REPLACED_MS, "K2s": K2S_REPLACED_MS,
-                       "K7s": K7_SERVING_REPLACED_MS}
+                       "K7s": K7_SERVING_REPLACED_MS, "K5s": K5S_REPLACED_MS}
 SERVING_LSB = 2  # serving path against its plain-block twin, in uint8 LSB
 SERVING_PSNR_DB = 0.05  # serving against parity, per request (BASELINE.json's contract)
 # The bf16 recurrence (recur_bf16) is an opt-in mode that the JAX package keeps
@@ -2089,10 +2094,10 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
         # K5 serving: MaIR-CDN@128 (timed in turns), 96x72, and the 384x328 tile
         cdn = []
         unet_w = mixer_weights(sd, f"{rect[2]}.0.self_attention.", device)[0]
-        k5_cases = [(cdn_batch, (tile, tile), None, (False, True), "turns"),
-                    (1, (96, 72), None, (False, True), None),
-                    (2, rect[:2], unet_w, (False,), "once")]
-        for b, (hh, ww), w, shifts, timing in k5_cases:
+        k5_cases = [(cdn_batch, (tile, tile), None, (False, True), "turns", f"MaIR-CDN@{tile}"),
+                    (1, (96, 72), None, (False, True), None, None),
+                    (2, rect[:2], unet_w, (False,), "once", "rect")]
+        for b, (hh, ww), w, shifts, timing, key in k5_cases:
             scan = (mixer_inputs(device, b, (hh, ww))[1] if w is None
                     else scan_operands(w, b, (hh, ww), SEED))
             x = scan.pop("x").to(bf)
@@ -2106,7 +2111,8 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
                     lambda: nss_scan_fused(x, **scan, shift=shift, serving=True),
                     lambda: nss_scan_fused_serving_plain(x, **scan, shift=shift),
                     lambda st: (st["y01"], st["y23"], st["pooled"]),
-                    serving_k5_work(b * hh * ww, di, n, r), 3, 1, timing)
+                    serving_k5_work(b * hh * ww, di, n, r), 3, 1, timing,
+                    replaced=K5S_REPLACED_MS.get(key))
                 keep("nss_scan_fused_serving", row)
                 if hh == tile and ww == tile:
                     cdn.append(row)

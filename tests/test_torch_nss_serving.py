@@ -392,21 +392,26 @@ def test_mixer_serving_mutants_apply_to_the_sources(name, tmp_path):
 
 # --- the serving walk's chunks and packed rows ------------------------------
 
-# (label, B, H = W, d, N): MaIR-CDN@128 and MaIRUNet@384's five levels, batch 8
-WALK_SHAPES = [("MaIR-CDN@128", 8, 128, 234, 16), ("enc-1", 8, 384, 96, 4),
-               ("dec-1", 8, 384, 192, 8), ("level-2", 8, 192, 192, 8),
-               ("level-3", 8, 96, 384, 16), ("latent", 8, 48, 768, 32)]
+# (label, B, H, W, d, N): MaIR-CDN@128 and MaIRUNet@384's five levels, batch
+# 8, then K5's tiles of the 481x321 request on the fused route, batch 2
+# (384x328 at both level-1 widths, 192x164 at level 2)
+WALK_SHAPES = [("MaIR-CDN@128", 8, 128, 128, 234, 16), ("enc-1", 8, 384, 384, 96, 4),
+               ("dec-1", 8, 384, 384, 192, 8), ("level-2", 8, 192, 192, 192, 8),
+               ("level-3", 8, 96, 96, 384, 16), ("latent", 8, 48, 48, 768, 32),
+               ("K5 384x328 enc-1", 2, 384, 328, 96, 4), ("K5 384x328 dec-1", 2, 384, 328, 192, 8),
+               ("K5 192x164", 2, 192, 164, 192, 8)]
 
 
 @pytest.mark.parametrize("sms,resident", [(132, 4), (132, 5), (114, 4), (16, 8)])
-@pytest.mark.parametrize("label,B,hw,d,n", WALK_SHAPES + [("tiny", 1, 8, 6, 3)])
-def test_serving_chunk_rule(label, B, hw, d, n, sms, resident):
-    """The walk's chunk count on a card of ``sms`` SMs that holds
-    ``resident`` of its blocks an SM: chunks of whole tiles but the last,
-    covering L once; no more chunks than L has tiles; one chunk where one
-    chunk's blocks fill WALK_ONE_CHUNK_SHARE of the card, else the most
-    whose blocks fill WALK_WAVES waves of it (or every tile its own chunk)."""
-    L = hw * hw
+@pytest.mark.parametrize("label,B,H,W,d,n", WALK_SHAPES + [("tiny", 1, 8, 8, 6, 3)])
+def test_serving_chunk_rule(label, B, H, W, d, n, sms, resident):
+    """The walk's chunk count (K2's and K5's serving bodies) on a card of
+    ``sms`` SMs that holds ``resident`` of its blocks an SM: chunks of whole
+    tiles but the last, covering L once; no more chunks than L has tiles;
+    one chunk where one chunk's blocks fill WALK_ONE_CHUNK_SHARE of the
+    card, else the most whose blocks fill WALK_WAVES waves of it (or every
+    tile its own chunk)."""
+    L = H * W
     chunks, chunk = serving_chunks(B, L, d, n, sms, resident)
     assert chunk > 0 and chunk % WALK_TILE == 0
     assert (chunks - 1) * chunk < L <= chunks * chunk
@@ -449,12 +454,27 @@ def test_k6s_phases_apply_to_the_sources(name, tmp_path):
     serving_mutants.plant(str(tmp_path), k1s_phases.K6S_PHASES[name])
 
 
-@pytest.mark.parametrize("body,name", [(b, n) for b in ("K2s", "passes", "K2s-layouts")
+def test_pass_phases_time_a_body_that_runs_the_passes(tmp_path):
+    """``k1s_phases.py --body passes`` times K5's serving body on a tree
+    whose serving body runs the chunked passes, else the parity bodies of K2
+    and K5; the walk's bodies are timed through their own serving body."""
+    src = tmp_path / "tpuir_torch" / "csrc"
+    src.mkdir(parents=True)
+    (src / "chunk_scan.cuh").write_text("struct StripeBf16Path {};\n")
+    assert k1s_phases.scan_kernels("passes", str(tmp_path)) == "K5s"
+    here = os.path.join(os.path.dirname(_kernels.__file__), "..", "..")
+    assert k1s_phases.scan_kernels("passes", here) == "K2,K5"
+    assert [k1s_phases.scan_kernels(b, here) for b in ("K2s", "K5s", "K2s-layouts")] == [
+        "K2s", "K5s", "K2s"]
+
+
+@pytest.mark.parametrize("body,name", [(b, n) for b in ("K2s", "K5s", "passes", "K2s-layouts")
                                        for n in k1s_phases.BODIES[b]])
 def test_k2s_phases_apply_to_the_sources(body, name, tmp_path):
-    """The phase-removal timings of K2's serving walk and of the chunked
-    passes, and the walk's layout choices (``utils/k1s_phases.py --body
-    K2s|passes|K2s-layouts``), still apply to the current sources, on a copy."""
+    """The phase-removal timings of the serving walk (through K2's or K5's
+    body) and of the chunked passes, and the walk's layout choices
+    (``utils/k1s_phases.py --body K2s|K5s|passes|K2s-layouts``), still apply
+    to the current sources, on a copy."""
     pkg = os.path.join(os.path.dirname(_kernels.__file__), "..")
     for sub in ("csrc", "ops"):
         shutil.copytree(os.path.join(pkg, sub), tmp_path / sub)

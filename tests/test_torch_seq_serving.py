@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from tpuir_torch.models.mair import silu_bf16
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, nss_fused
 from tpuir_torch.ops.nss_fused import (fused_serving_values, nss_scan_fused,
                                        nss_scan_fused_serving_plain,
                                        nss_scan_fused_serving_stages)
@@ -217,6 +217,17 @@ def test_seq_serving_stage_entries_are_the_plain_versions_on_cpu():
     assert st["x_dbl"].shape == (1, 96, 4, 2 + 2 * 3)
 
 
+def test_fused_serving_takes_an_odd_d_on_cpu():
+    """Only the card's serving walk needs an even d: on a CPU tensor the
+    serving body's plain version takes an odd one, stage entry and wrapper
+    alike."""
+    fused = _torch(_fused_operands(1, 8, 8, 7, 3, 2, seed=2), bf16=("x",))
+    st = _unchanged(lambda: nss_scan_fused_serving_stages(**fused))
+    y01, y23, pooled = _unchanged(lambda: nss_scan_fused(**fused, serving=True))
+    assert torch.equal(y01, st["y01"]) and torch.equal(y23, st["y23"])
+    assert y01.shape == (1, 2, 8, 8, 7) and st["x_dbl"].shape == (1, 64, 4, 2 + 2 * 3)
+
+
 # --- the stage checks: the plain versions pass, planted faults do not -------
 
 
@@ -291,7 +302,9 @@ def test_seq_serving_mutants_apply_to_the_sources(name, tmp_path):
 
 @pytest.mark.parametrize("name,rebuilt", [
     ("K3 y through bf16", {"scan_fused_proj.cu"}),
-    ("K5 y truncated", {"nss_fused.cu", "nss_scan.cu", "scan_fused_proj.cu", "selective_scan.cu"}),
+    ("K5 y truncated", {"nss_fused.cu", "nss_scan.cu"}),
+    ("K5 shifted lead stripe taken at full width",
+     {"nss_fused.cu", "nss_scan.cu", "scan_fused_proj.cu", "selective_scan.cu"}),
     ("K3+K5 x_proj W_xp unrounded", {"nss_fused.cu", "nss_scan.cu", "scan_fused_proj.cu"}),
 ])
 def test_mutant_copies_recompile_only_what_their_fault_reaches(monkeypatch, tmp_path, name,
@@ -353,12 +366,23 @@ def test_seq_scan_serving_kernel_on_card(cuda_device, B, L, d, n, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [False, True])
-@pytest.mark.parametrize("B,H,W,d,n,r", [(2, 32, 32, 234, 16, 12), (1, 24, 16, 234, 16, 12),
-                                         (2, 16, 24, 40, 8, 3), (2, 8, 8, 6, 3, 2),
-                                         (1, 16, 16, 96, 32, 6)])
-def test_fused_scan_serving_kernel_on_card(cuda_device, shift, B, H, W, d, n, r):
+@pytest.mark.parametrize("B,H,W,d,n,r,chunk", [
+    (2, 32, 32, 234, 16, 12, None), (1, 24, 16, 234, 16, 12, None), (2, 16, 24, 40, 8, 3, None),
+    (2, 8, 8, 6, 3, 2, None), (1, 16, 16, 96, 32, 6, None),
+    # one chunk (N 16, 32) and several (N 4, 8) on an H100, square and not
+    (8, 16, 16, 768, 16, 12, None), (8, 16, 24, 768, 32, 24, None),
+    (8, 64, 64, 96, 4, 3, None), (4, 48, 40, 192, 8, 6, None), (8, 32, 32, 234, 16, 12, None),
+    # forced to 17 chunks of 96 positions, the last of 48
+    (1, 36, 44, 234, 16, 12, 96)])
+def test_fused_scan_serving_kernel_on_card(cuda_device, monkeypatch, shift, B, H, W, d, n, r,
+                                           chunk):
     """Every stage within its check, bit for bit on repeat, the wrapper's
-    output the stage entry's, one launch under its own name."""
+    output the stage entry's, one launch under its own name; at the walk's
+    own chunk count or, with ``chunk``, at that many positions a chunk."""
+    if chunk is not None:
+        L = H * W
+        assert -(-L // chunk) >= 3 and L % chunk
+        monkeypatch.setattr(nss_fused, "serving_chunks", lambda *a: (-(-L // chunk), chunk))
     ops = _torch(_fused_operands(B, H, W, d, n, r, seed=d + n), cuda_device, bf16=("x",))
     st = nss_scan_fused_serving_stages(**ops, shift=shift)
     st = {k: v.clone() for k, v in st.items()}
@@ -370,5 +394,19 @@ def test_fused_scan_serving_kernel_on_card(cuda_device, shift, B, H, W, d, n, r)
     assert _kernels.LAUNCHES["nss_scan_fused"] == before["nss_scan_fused"]
     assert _same(st, again)
     assert all(torch.equal(o, st[k]) for o, k in zip(out, ("y01", "y23", "pooled")))
+    assert st["x_dbl"].shape == (B, H * W, 4, r + 2 * n)
     v = check_fused_scan_serving(**ops, scan_len=4, shift=shift, st=st)
     assert all(s.ok for s in v), v
+
+
+@pytest.mark.cuda
+def test_fused_scan_serving_needs_an_even_d_on_card(cuda_device):
+    """The serving walk stages x two channels a copy: an odd d raises on the
+    card, before any launch; the parity body takes it."""
+    ops = _torch(_fused_operands(1, 8, 8, 7, 3, 2, seed=0), cuda_device)
+    nss_scan_fused(**ops)
+    ops["x"] = ops["x"].to(torch.bfloat16)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        nss_scan_fused(**ops, serving=True)
+    assert _kernels.LAUNCHES == before

@@ -24,7 +24,7 @@
 // update on the MUFU pipe: its floor is 0.95 ms at the measured exp2 rate,
 // and the passes are bound by that pipe (chunk_scan.cuh).
 //
-// What the design does about it:
+// What the parity body's design does about it:
 //   * x_dbl depends only on (pixel, k), not on the path, so it is one SIMT
 //     GEMM over all pixels first (x . W_xp^T, 4*(R+2N) columns), as in K2;
 //     the TPU kernel projects inside the scan's staging instead. dt is
@@ -43,13 +43,36 @@
 //     the 8-sublane pooled buffer are TPU layouts with no counterpart here.
 //
 // The serving body (tpuir_nss_scan_fused_bf16; the TPU kernel with
-// serving=True) is the same launches on bf16 x and y, as K2's serving body
-// (nss_scan.cu): x_proj on x widened and W_xp rounded to bf16 at load, x_dbl
-// float32 in scratch; the scan on StripeBf16Path (chunk_scan.cuh): dt_proj's
-// operands rounded in shared memory, B, C, softplus, the recurrence and D*x
-// float32, y stored rounded to nearest even, pooled summed from the float32
-// y.
-//
+// serving=True) computes the same function on bf16 x and y, with K2's
+// serving roundings (nss_scan.cu): x_dbl the float32 sum of exact bf16
+// products (x, and W_xp rounded at load), dt_proj's operands rounded to bf16,
+// B, C, softplus, the recurrence and D*x float32, y stored rounded to
+// nearest even, pooled summed from the float32 y. Its floor is one
+// exponential a state update, 0.47 ms at MaIR-CDN@128, batch 8. On the
+// chunked passes (float32 parity's design, two exponentials an update, dt
+// computed in both passes, a thread a channel) it took 2.92 ms there and
+// 1.19 at the 384x328 tile, batch 2: as for K2 serving, a position's own
+// work (dt's R-term dot and softplus, twice), pass 1 and the gathered u held
+// it, not the MUFU pipe (PERF.md section 6).
+// Its design is K2 serving's walk (nss_walk.cuh), on the stripe path:
+//   * x_proj's weight packed into the staged row order, x_dbl (B, L, 4, CS)
+//     on the SIMT GEMM's bf16 A mode, as K2 serving's;
+//   * a walk of each chunk with a channel's states across G lanes of a warp,
+//     dt and dt*u computed once a position and channel by a lane of the
+//     warp, one exponential an update, the chunk count from the wrapper
+//     (ops/nss_stripe.py:serving_chunks, from this instance's resident
+//     blocks, tpuir_nss_scan_fused_bf16_resident_blocks): with one chunk the
+//     walk is the whole scan; otherwise the chunks' end states, the carry
+//     chain, then the walk that writes y;
+//   * the positions come from the stripe arithmetic (WalkStripe): the first
+//     32 threads compute nss_pixel of tile i + 2 while tile i is walked, into
+//     a ring of pixels and a ring of the rows of y they write, so the two
+//     integer divisions run once a position and block, and the x_dbl rows
+//     and u (two channels a 4-byte copy: D even) are staged at the pixel two
+//     tiles ahead; y is stored as bf16 pairs at its row, in the transposed
+//     (W, H) image for directions 2 and 3, so the stores still coalesce
+//     along d.
+
 // C interface (ctypes, no PyTorch headers): launches go on the caller's
 // stream, nothing is allocated or synchronised, the first cudaError_t met
 // is returned (0 = success).
@@ -57,15 +80,15 @@
 #include <cuda_runtime.h>
 
 #include "chunk_scan.cuh"
+#include "nss_walk.cuh"
 #include "simt_gemm.cuh"
 
 namespace {
 
-template <class Path>
-int nss_scan_fused(const typename Path::io_t* x, const float* x_proj_w, const float* dt_w,
-                   const float* A, const float* Dskip, const float* bias,
-                   typename Path::io_t* y, float* pooled, float* scratch, int B, int H, int W,
-                   int D, int N, int R, int scan_len, int shift, cudaStream_t st) {
+int nss_scan_fused(const float* x, const float* x_proj_w, const float* dt_w, const float* A,
+                   const float* Dskip, const float* bias, float* y, float* pooled,
+                   float* scratch, int B, int H, int W, int D, int N, int R, int scan_len,
+                   int shift, cudaStream_t st) {
   if (B <= 0 || H <= 0 || W <= 0 || D <= 0 || N <= 0 || N > kMaxState || R <= 0 ||
       R > kMaxRank || scan_len < 2 || scan_len % 2 || H % scan_len || W % scan_len)
     return (int)cudaErrorInvalidValue;
@@ -91,9 +114,9 @@ int nss_scan_fused(const typename Path::io_t* x, const float* x_proj_w, const fl
   a.W = W;
   a.scan_len = scan_len;
   a.shift = shift;
-  if ((err = run_chunk_scan<Path>(a, BK, st))) return err;
+  if ((err = run_chunk_scan<StripePath>(a, BK, st))) return err;
   // 4. pooled sums in chunk order
-  return launch_sum_partials<Path>(partial, pooled, BK, nchunk, D, st);
+  return launch_sum_partials<StripePath>(partial, pooled, BK, nchunk, D, st);
 }
 
 }  // namespace
@@ -110,20 +133,35 @@ int tpuir_nss_scan_fused_f32(const float* x, const float* x_proj_w, const float*
                              const float* A, const float* Dskip, const float* bias, float* y,
                              float* pooled, float* scratch, int B, int H, int W, int D, int N,
                              int R, int scan_len, int shift, void* stream) {
-  return nss_scan_fused<StripePath>(x, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch, B,
-                                    H, W, D, N, R, scan_len, shift, (cudaStream_t)stream);
+  return nss_scan_fused(x, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch, B, H, W, D, N, R,
+                        scan_len, shift, (cudaStream_t)stream);
 }
 
-// The serving body: x and y bf16, the weights float32 as
+// The serving body: x and y bf16 (D even), the weights float32 as
 // tpuir_nss_scan_fused_f32 takes them (rounded to bf16 where they are
-// products' operands), pooled float32 (summed from the float32 y); the same
-// scratch.
+// products' operands), pooled float32 (summed from the float32 y). chunk:
+// positions a chunk of the walk, a multiple of 32 (the wrapper's
+// serving_chunks); scratch of tpuir_nss_scan_bf16_scratch_numel(B, H*W, D, N,
+// R, chunk) floats, laid out as K2's serving body's.
 int tpuir_nss_scan_fused_bf16(const __nv_bfloat16* x, const float* x_proj_w, const float* dt_w,
                               const float* A, const float* Dskip, const float* bias,
                               __nv_bfloat16* y, float* pooled, float* scratch, int B, int H,
-                              int W, int D, int N, int R, int scan_len, int shift, void* stream) {
-  return nss_scan_fused<StripeBf16Path>(x, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch,
-                                        B, H, W, D, N, R, scan_len, shift, (cudaStream_t)stream);
+                              int W, int D, int N, int R, int scan_len, int shift, int chunk,
+                              void* stream) {
+  if (H <= 0 || W <= 0 || scan_len < 2 || scan_len % 2 || H % scan_len || W % scan_len ||
+      (long long)H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  StripeWalkArgs a{};
+  a.x = x, a.dt_w = dt_w, a.A = A, a.Dskip = Dskip, a.bias = bias, a.y = y, a.pooled = pooled;
+  a.L = H * W, a.D = D, a.N = N, a.R = R, a.chunk = chunk;
+  a.H = H, a.W = W, a.scan_len = scan_len, a.shift = shift;
+  return serving_walk<WalkStripe>(a, x_proj_w, scratch, B, (cudaStream_t)stream);
+}
+
+// Blocks of the serving walk one SM of the current device holds at once for
+// N states and R ranks (-1 on a CUDA error): the wrapper's chunk rule.
+int tpuir_nss_scan_fused_bf16_resident_blocks(int N, int R) {
+  return walk_resident_blocks<WalkStripe>(N, R);
 }
 
 }  // extern "C"

@@ -52,7 +52,9 @@
 // R-term dot and softplus, about 34 / N instructions an update), then the
 // sum over a channel's lanes and the staging of x_dbl rows; with one block
 // in few an SM, their latency is not hidden.
-// Its design, a walk of each chunk with a channel's states across lanes:
+// Its design, a walk of each chunk with a channel's states across lanes
+// (nss_walk.cuh, shared with K5's serving body, which computes the positions
+// from the stripe arithmetic instead of reading the ids):
 //   * x_proj's weight is first packed into the order of a staged x_dbl row
 //     (seq_lanes.cuh: [dt_r (R, zeros to R4) | B (MAXN) | C (MAXN)], CS
 //     floats), so that x_dbl (B, L, 4, CS) is written pixel-major as the
@@ -64,7 +66,7 @@
 //     states a lane where N allows it (N 8, 16, 32): the butterfly's
 //     exchanges and the staged rows' reads are shared by S updates; one
 //     state a lane at N 16 took 23% longer at MaIR-CDN@128. Per tile of 32
-//     positions (nss_walk_kernel): (a) lane i of each warp computes dt and
+//     positions (walk_chunk): (a) lane i of each warp computes dt and
 //     dt*u of position i for each of the warp's channels (the R-term dot of
 //     its row's dt columns, rounded where they are read, against W_dt
 //     rounded where it is staged; softplus on two MUFUs) into a
@@ -140,7 +142,7 @@
 #include <cuda_runtime.h>
 
 #include "chunk_scan.cuh"
-#include "seq_lanes.cuh"
+#include "nss_walk.cuh"
 #include "simt_gemm.cuh"
 
 extern "C" {
@@ -182,400 +184,6 @@ int nss_scan(const float* x, const int* ids, const float* x_proj_w, const float*
   if ((err = run_chunk_scan<ImageIdsPath>(a, BK, st))) return err;
   // 4. pooled sums in chunk order
   return launch_sum_partials<ImageIdsPath>(partial, pooled, BK, nchunk, D, st);
-}
-
-
-// ---------------------------------------------------------------------------
-// The serving body: a walk of each chunk, a channel's states across lanes
-// ---------------------------------------------------------------------------
-
-constexpr int kWalkWarps = 4;     // warps a block
-constexpr int kWalkIdSlots = 8;   // tiles of ids in their ring: tile i's for
-                                  // its y rows while tiles up to i + 4 load
-
-// How a channel's MAXN states lie across a warp: S states a lane, G lanes a
-// channel, 32 / G channels a warp.
-template <int MAXN>
-struct WalkLanes;
-template <>
-struct WalkLanes<4> { static constexpr int S = 1, G = 4; };
-template <>
-struct WalkLanes<8> { static constexpr int S = 4, G = 2; };
-template <>
-struct WalkLanes<16> { static constexpr int S = 4, G = 4; };
-template <>
-struct WalkLanes<32> { static constexpr int S = 4, G = 8; };
-
-// Names the walk's launches of chunk_scan.cuh's carry chain and partial sums.
-struct WalkChunks {};
-
-struct WalkArgs {
-  const __nv_bfloat16* x;  // (B, L, D), pixels row-major
-  const int* ids;          // (4, L)
-  const float* xdbl;       // (B, L, 4, CS): packed rows
-  const float* dt_w;       // (4, D, R)
-  const float* A;          // (4, D, N)
-  const float* Dskip;      // (4, D)
-  const float* bias;       // (4, D)
-  __nv_bfloat16* y;        // (B, 4, L, D)
-  float* pooled;           // (B, 4, D), written by the walk where nchunk is 1
-  float* hstate;           // (B*4, nchunk, D, N): chunk end states, then initial states
-  float* decay;            // (B*4, nchunk, D, N): chunk decay products
-  float* partial;          // (B*4, nchunk, D): chunk sums of y
-  int L, D, N, R, R4, CS, chunk, nchunk;
-};
-
-// Shared memory of a block of CB channels, in floats: the x_dbl ring
-// [stages][T][CS], W_dt [CB][R4], the (dt, dt*u) table [CB][T] of float2,
-// the y tile [T][CB + 1], the u ring [stages][T][CB + 2] of bf16 (rows of an
-// odd count of 4-byte words), the ids ring [kWalkIdSlots][T] of ints.
-struct WalkSmem {
-  int xring, wdt, dtdu, ytile, uring, ids, total;
-  __host__ __device__ WalkSmem(int CS, int R4, int CB) {
-    xring = 0;
-    wdt = xring + kSeqStages * kSeqT * CS;
-    dtdu = wdt + CB * R4;
-    ytile = dtdu + 2 * CB * kSeqT;
-    uring = ytile + kSeqT * (CB + 1);
-    ids = uring + kSeqStages * kSeqT * (CB + 2) / 2;
-    total = ids + kWalkIdSlots * kSeqT;
-  }
-};
-
-// The walk of chunk blockIdx.y of (image, direction) blockIdx.z for the CB
-// channels of block blockIdx.x. FINAL = false (never the last chunk): from
-// a zero state, store the chunk's end state and decay product. FINAL = true:
-// from the state entering the chunk (zero for the first), store y and the
-// chunk's sum of y (one chunk: pooled). Grid (ceil(D / CB), chunks, B*4) of
-// kWalkWarps * 32 threads; dynamic shared memory WalkSmem(CS, R4, CB).total
-// floats.
-template <int MAXN, bool FINAL>
-__global__ void __launch_bounds__(kWalkWarps * 32) nss_walk_kernel(WalkArgs a) {
-  constexpr int S = WalkLanes<MAXN>::S, G = WalkLanes<MAXN>::G;
-  constexpr int T = kSeqT, NT = kWalkWarps * 32;
-  constexpr int CW = 32 / G;            // channels a warp
-  constexpr int CB = kWalkWarps * CW;   // channels a block
-  constexpr int CBP = CB + 1;           // y tile row pitch
-  constexpr int V = T / G;              // positions whose sums a lane ends with
-  constexpr int UP = CB + 2;            // u row pitch, in bf16
-  constexpr int PAIRS = CB / 2;         // channel pairs: u copies, y stores
-  constexpr int PROWS = NT / PAIRS;     // rows of pairs the block covers at once
-  static_assert(T % PROWS == 0 && PROWS * PAIRS * 2 <= T * CBP, "pair rows");
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int L = a.L, D = a.D, N = a.N, R4 = a.R4, CS = a.CS;
-  const WalkSmem lay(CS, R4, CB);
-  float* xring = smem + lay.xring;
-  float* wdt = smem + lay.wdt;
-  float2* dtdu = reinterpret_cast<float2*>(smem + lay.dtdu);
-  float* ytile = smem + lay.ytile;
-  __nv_bfloat16* uring = reinterpret_cast<__nv_bfloat16*>(smem + lay.uring);
-  int* idring = reinterpret_cast<int*>(smem + lay.ids);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane & (G - 1);            // this lane's states g*S .. g*S + S - 1
-  const int cb = warp * CW + lane / G;     // of channel cb of the block
-  const int d0 = blockIdx.x * CB, d = d0 + cb;
-  const int c = blockIdx.y;
-  const int bk = blockIdx.z, b = bk / kK, k = bk - b * kK;
-  const int t0 = c * a.chunk;
-  const int nc = min(a.chunk, L - t0);     // positions of this chunk
-  const int ntiles = (nc + T - 1) / T;
-  // one 64-bit base a block; offsets inside an image are 32-bit (the caller
-  // checks L * max(D, 4 CS) < 2^31)
-  const float* xdbl_b = a.xdbl + (long long)b * L * kK * CS + k * CS;
-  const __nv_bfloat16* x_b = a.x + (long long)b * L * D;
-  __nv_bfloat16* y_b = a.y + (long long)bk * L * D;
-  const int* ids_c = a.ids + (long long)k * L + t0;
-  const long long kD = (long long)k * D;
-
-  for (int e = tid; e < CB * R4; e += NT) {
-    const int cc = e / R4, r = e - cc * R4;
-    const float w = (d0 + cc < D && r < a.R) ? a.dt_w[(kD + d0 + cc) * a.R + r] : 0.f;
-    wdt[e] = scan_round_bf16(w);  // dt_proj's operand
-  }
-  for (int e = tid; e < 2 * T; e += NT) idring[e] = e < nc ? ids_c[e] : 0;  // tiles 0 and 1
-  // A in base 2, so that a decay is exp2 of one product
-  const long long state = (((long long)bk * a.nchunk + c) * D + d) * N;
-  float A2[S], h[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int n = g * S + s;
-    const bool live = d < D && n < N;
-    A2[s] = live ? a.A[(kD + d) * N + n] * kLog2e : 0.f;
-    h[s] = FINAL && c > 0 && live ? a.hstate[state + n] : 0.f;  // the chained carry
-  }
-  float bias_w[CW];  // the warp's channels' dt bias, for the dt lanes
-#pragma unroll
-  for (int cc = 0; cc < CW; ++cc) {
-    const int dc = d0 + warp * CW + cc;
-    bias_w[cc] = dc < D ? a.bias[kD + dc] : 0.f;
-  }
-  // the u copies and the y stores: thread tid takes channels dp, dp + 1 of
-  // rows prow + PROWS * j (D is even, so both or neither are in)
-  const int pc = tid % PAIRS, prow = tid / PAIRS, dp = d0 + 2 * pc;
-  const float D0 = dp < D ? a.Dskip[kD + dp] : 0.f, D1 = dp < D ? a.Dskip[kD + dp + 1] : 0.f;
-  float pool0 = 0.f, pool1 = 0.f, sum_dt = 0.f;
-  __syncthreads();
-
-  // Stage tile i into ring slot i % kSeqStages: its x_dbl rows (16-byte
-  // copies, zeros past the chunk) and its u rows of the block's channel
-  // pairs, through the ids of tile i; then the ids of tile i + 2.
-  auto stage = [&](int i) {
-    const int nt = min(T, nc - i * T);
-    const int* id = idring + (i % kWalkIdSlots) * T;
-    float* xd = xring + (i % kSeqStages) * T * CS;
-    const int q4 = CS >> 2;
-    for (int e = tid; e < T * q4; e += NT) {
-      const int row = e / q4;
-      const bool ok = row < nt;
-      cp_async16_zf(xd + 4 * e, ok ? xdbl_b + id[row] * (kK * CS) + 4 * (e - row * q4) : xdbl_b,
-                    ok);
-    }
-    __nv_bfloat16* ud = uring + (i % kSeqStages) * T * UP;
-    for (int row = prow; row < T; row += PROWS) {
-      const bool ok = row < nt && dp < D;
-      const __nv_bfloat16* src = ok ? x_b + id[row] * D + dp : x_b;
-      cp_async4_zf(reinterpret_cast<float*>(ud + row * UP + 2 * pc),
-                   reinterpret_cast<const float*>(src), ok);
-    }
-    const int q = (i + 2) * T + tid;
-    if (tid < T && i + 2 < ntiles)
-      cp_async4_zf(reinterpret_cast<float*>(idring + ((i + 2) % kWalkIdSlots) * T + tid),
-                   reinterpret_cast<const float*>(ids_c + (q < nc ? q : 0)), q < nc);
-  };
-
-  stage(0);
-  cp_async_commit();
-  if (ntiles > 1) stage(1);
-  cp_async_commit();
-  for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<1>();                // this thread's copies of tile i have landed
-    __syncthreads();                   // everyone's; everyone is done with tile i - 1
-    if (i + 2 < ntiles) stage(i + 2);  // into tile i - 1's slot
-    cp_async_commit();                 // (empty at the tail: keeps one group a tile)
-    const int nt = min(T, nc - i * T);
-    const float* xd = xring + (i % kSeqStages) * T * CS;
-    const __nv_bfloat16* ud = uring + (i % kSeqStages) * T * UP;
-
-    // (a) dt and dt*u of position i*T + lane, for each of the warp's channels
-    {
-      const float* xr = xd + lane * CS;
-      const float* wr = wdt + warp * CW * R4;
-      float dr[CW];
-#pragma unroll
-      for (int cc = 0; cc < CW; ++cc) dr[cc] = bias_w[cc];
-      for (int r = 0; r < R4; r += 4) {
-        float4 x4 = *reinterpret_cast<const float4*>(xr + r);
-        // dt_proj's operand: the position's dt columns rounded to bf16
-        x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);
-        x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);
-#pragma unroll
-        for (int cc = 0; cc < CW; ++cc) {
-          const float4 w4 = *reinterpret_cast<const float4*>(wr + cc * R4 + r);
-          dr[cc] = fmaf(w4.w, x4.w, fmaf(w4.z, x4.z, fmaf(w4.y, x4.y, fmaf(w4.x, x4.x, dr[cc]))));
-        }
-      }
-      const bool live = lane < nt;  // past the chunk: dt = 0, no step
-#pragma unroll
-      for (int cc = 0; cc < CW; ++cc) {
-        const float dt = live ? softplus(dr[cc]) : 0.f;
-        dtdu[(warp * CW + cc) * T + lane] =
-            make_float2(dt, dt * __bfloat162float(ud[lane * UP + warp * CW + cc]));
-      }
-    }
-    __syncwarp();
-
-    // (b) the tile's 32 updates of this lane's S states; p[j] = their C . h
-    float p[FINAL ? T : 1];
-    {
-      const float4* q4 = reinterpret_cast<const float4*>(dtdu + cb * T);
-      const float* bq = xd + R4 + g * S;  // B of the lane's states; C at + MAXN
-#pragma unroll
-      for (int j = 0; j < T; j += 2) {
-        const float4 q = q4[j / 2];  // (dt, dt*u) of positions j and j + 1
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const float dt = jj ? q.z : q.x, du = jj ? q.w : q.y;
-          float bv[S];
-          load_vec<S>(bq + (j + jj) * CS, bv);
-#pragma unroll
-          for (int s = 0; s < S; ++s) h[s] = fmaf(exp2_mufu(dt * A2[s]), h[s], du * bv[s]);
-          if constexpr (FINAL) {
-            float cv[S];
-            load_vec<S>(bq + (j + jj) * CS + MAXN, cv);
-            float acc = cv[0] * h[0];
-#pragma unroll
-            for (int s = 1; s < S; ++s) acc = fmaf(cv[s], h[s], acc);
-            p[j + jj] = acc;
-          } else {
-            sum_dt += dt;
-          }
-        }
-      }
-    }
-    if constexpr (FINAL) {
-      // (c) the sums over the channel's lanes, into the y tile
-      sum_over_lanes<G>(p, lane);
-#pragma unroll
-      for (int v = 0; v < V; ++v) ytile[(g * V + v) * CBP + cb] = p[v];
-      __syncthreads();
-
-      // (d) y = sum + D*u of a channel pair, stored as a bf16 pair at the
-      //     position's pixel; pooled from the float32 y
-      if (dp < D) {
-        const int* id = idring + (i % kWalkIdSlots) * T;
-        for (int row = prow; row < nt; row += PROWS) {
-          const float2 u = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(ud + row * UP + 2 * pc));
-          const float y0 = fmaf(D0, u.x, ytile[row * CBP + 2 * pc]);
-          const float y1 = fmaf(D1, u.y, ytile[row * CBP + 2 * pc + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(y_b + id[row] * D + dp) =
-              __floats2bfloat162_rn(y0, y1);  // y's rounding
-          pool0 += y0, pool1 += y1;  // the float32 y, before it is rounded
-        }
-      }
-    }
-  }
-  if constexpr (FINAL) {
-    // the chunk's sum of y of each channel: the pair threads' sums, in row order
-    __syncthreads();
-    float2* ps = reinterpret_cast<float2*>(ytile);  // [PROWS][PAIRS]
-    ps[prow * PAIRS + pc] = make_float2(pool0, pool1);
-    __syncthreads();
-    if (tid < CB && d0 + tid < D) {
-      float sum = 0.f;
-      for (int r = 0; r < PROWS; ++r) {
-        const float2 v = ps[r * PAIRS + (tid >> 1)];
-        sum += tid & 1 ? v.y : v.x;
-      }
-      if (a.nchunk == 1)
-        a.pooled[(long long)bk * D + d0 + tid] = sum;
-      else
-        a.partial[((long long)bk * a.nchunk + c) * D + d0 + tid] = sum;
-    }
-  } else {
-    // the chunk's end state and decay product exp(A * sum of dt), one MUFU a state
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int n = g * S + s;
-      if (d < D && n < N) {
-        a.hstate[state + n] = h[s];
-        a.decay[state + n] = exp2_mufu(A2[s] * sum_dt);
-      }
-    }
-  }
-}
-
-// The walk's dynamic shared memory, in bytes, into smem, after raising the
-// kernels' limit where it passes 48 KB; the CUDA error of that, or 0.
-template <int MAXN>
-int walk_smem(int CS, int R4, size_t& smem) {
-  constexpr int CB = kWalkWarps * 32 / WalkLanes<MAXN>::G;
-  smem = sizeof(float) * WalkSmem(CS, R4, CB).total;
-  if (smem <= 48 * 1024) return 0;
-  int err = (int)cudaFuncSetAttribute(nss_walk_kernel<MAXN, false>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!err)
-    err = (int)cudaFuncSetAttribute(nss_walk_kernel<MAXN, true>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return err;
-}
-
-// Blocks of the walk that emits y (the last pass) one SM holds at once.
-template <int MAXN>
-int walk_resident(int CS, int R4) {
-  size_t smem;
-  int blocks = 0;
-  if (walk_smem<MAXN>(CS, R4, smem) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, nss_walk_kernel<MAXN, true>,
-                                                    kWalkWarps * 32, smem))
-    return -1;
-  return blocks;
-}
-
-template <int MAXN>
-int launch_walk(const WalkArgs& a, long long BK, cudaStream_t st) {
-  constexpr int CB = kWalkWarps * 32 / WalkLanes<MAXN>::G;
-  size_t smem;
-  int err = walk_smem<MAXN>(a.CS, a.R4, smem);
-  if (err) return err;
-  const unsigned blocks = (unsigned)((a.D + CB - 1) / CB);
-  if (a.nchunk > 1) {
-    // 1. the end state and decay product of every chunk but the last
-    nss_walk_kernel<MAXN, false><<<dim3(blocks, a.nchunk - 1, (unsigned)BK), kWalkWarps * 32,
-                                   smem, st>>>(a);
-    if ((err = (int)cudaGetLastError())) return err;
-    // 2. the state entering each chunk
-    const long long chains = BK * a.D * a.N;
-    chain_carries_kernel<WalkChunks><<<(unsigned)((chains + 255) / 256), 256, 0, st>>>(
-        a.hstate, a.decay, BK, a.nchunk, a.D * a.N);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-  // 3. y, and each chunk's sum of y
-  nss_walk_kernel<MAXN, true><<<dim3(blocks, a.nchunk, (unsigned)BK), kWalkWarps * 32, smem,
-                                st>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
-  // 4. pooled: the chunks' sums in chunk order
-  if (a.nchunk > 1)
-    return launch_sum_partials<WalkChunks>(a.partial, a.pooled, BK, a.nchunk, a.D, st);
-  return 0;
-}
-
-// The packed row of the walk for N states, R ranks: {R4, MAXN, CS}.
-struct WalkRow {
-  int R4, maxn, CS;
-  WalkRow(int N, int R) : R4((R + 3) & ~3), maxn(seq_maxn(N)), CS(R4 + 2 * maxn) {}
-};
-
-inline int walk_chunks(int L, int chunk) { return (L + chunk - 1) / chunk; }
-
-// Floats of the serving body's scratch: x_dbl's packed rows, the packed
-// weight, and with more than one chunk the chunk states, decay products and
-// sums of y.
-long long walk_scratch_numel(int B, int L, int D, int N, int R, int chunk) {
-  const WalkRow row(N, R);
-  const long long BK = (long long)B * kK, nchunk = walk_chunks(L, chunk);
-  return (long long)B * L * kK * row.CS + (long long)kK * row.CS * D +
-         (nchunk > 1 ? BK * nchunk * D * (2LL * N + 1) : 0);
-}
-
-int nss_scan_serving(const __nv_bfloat16* x, const int* ids, const float* x_proj_w,
-                     const float* dt_w, const float* A, const float* Dskip, const float* bias,
-                     __nv_bfloat16* y, float* pooled, float* scratch, int B, int L, int D, int N,
-                     int R, int chunk, cudaStream_t st) {
-  if (B <= 0 || L <= 0 || D <= 0 || D % 2 || N <= 0 || N > kMaxState || R <= 0 ||
-      R > kMaxRank || chunk <= 0 || chunk % kSeqT)
-    return (int)cudaErrorInvalidValue;
-  const WalkRow row(N, R);
-  const long long M = (long long)B * L, BK = (long long)B * kK;
-  const int nchunk = walk_chunks(L, chunk);
-  if (M > 0x7fffffffLL || BK > 65535 || nchunk > 65535 ||
-      (long long)L * (D > kK * row.CS ? D : kK * row.CS) > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  float* xdbl = scratch;
-  float* wp = xdbl + M * kK * row.CS;
-  float* hstate = wp + (long long)kK * row.CS * D;
-  float* decay = hstate + BK * nchunk * D * N;
-  float* partial = decay + BK * nchunk * D * N;
-
-  // 0. the x_proj weight in the staged row order, then x_dbl of every pixel
-  //    and direction: (B*L, D) . (4*CS, D)^T, W_xp rounded to bf16 at load
-  pack_xproj_kernel<<<dim3(row.CS, kK), 256, 0, st>>>(x_proj_w, wp, D, N, R, row.R4, row.maxn,
-                                                      row.CS);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  if ((err = launch_simt_gemm(x, wp, xdbl, (int)M, kK * row.CS, D, st))) return err;
-
-  // 1-4. the walks
-  const WalkArgs a{x, ids, xdbl, dt_w, A, Dskip, bias, y, pooled, hstate, decay, partial,
-                   L, D, N, R, row.R4, row.CS, chunk, nchunk};
-  switch (row.maxn) {
-    case 4: return launch_walk<4>(a, BK, st);
-    case 8: return launch_walk<8>(a, BK, st);
-    case 16: return launch_walk<16>(a, BK, st);
-    default: return launch_walk<32>(a, BK, st);
-  }
 }
 
 
@@ -831,8 +439,11 @@ int tpuir_nss_scan_bf16(const __nv_bfloat16* x, const int* ids, const float* x_p
                         const float* dt_w, const float* A, const float* Dskip, const float* bias,
                         __nv_bfloat16* y, float* pooled, float* scratch, int B, int L, int D,
                         int N, int R, int chunk, void* stream) {
-  return nss_scan_serving(x, ids, x_proj_w, dt_w, A, Dskip, bias, y, pooled, scratch, B, L, D,
-                          N, R, chunk, (cudaStream_t)stream);
+  WalkArgs a{};
+  a.x = x, a.ids = ids, a.dt_w = dt_w, a.A = A, a.Dskip = Dskip, a.bias = bias;
+  a.y = y, a.pooled = pooled;
+  a.L = L, a.D = D, a.N = N, a.R = R, a.chunk = chunk;
+  return serving_walk<WalkIds>(a, x_proj_w, scratch, B, (cudaStream_t)stream);
 }
 
 long long tpuir_nss_scan_bf16_scratch_numel(int B, int L, int D, int N, int R, int chunk) {
@@ -842,14 +453,7 @@ long long tpuir_nss_scan_bf16_scratch_numel(int B, int L, int D, int N, int R, i
 // Blocks of the serving walk one SM of the current device holds at once for
 // N states and R ranks (-1 on a CUDA error): the wrapper's chunk rule.
 int tpuir_nss_scan_bf16_resident_blocks(int N, int R) {
-  if (N <= 0 || N > kMaxState || R <= 0 || R > kMaxRank) return -1;
-  const WalkRow row(N, R);
-  switch (row.maxn) {
-    case 4: return walk_resident<4>(row.CS, row.R4);
-    case 8: return walk_resident<8>(row.CS, row.R4);
-    case 16: return walk_resident<16>(row.CS, row.R4);
-    default: return walk_resident<32>(row.CS, row.R4);
-  }
+  return walk_resident_blocks<WalkIds>(N, R);
 }
 
 // Floats of scratch tpuir_nss_scan_recur_bf16 needs: x_dbl, the subchunks'

@@ -1,4 +1,4 @@
-// What K3 (scan_fused_proj.cu) and K2's serving body (nss_scan.cu) share
+// What K3 (scan_fused_proj.cu) and the serving walk of K2 and K5 (nss_walk.cuh) share
 // to walk a sequence with a channel's states across the lanes of a warp:
 // the tile of positions, the staging copies, the register ceiling of the
 // states, the butterfly sum over a channel's lanes, and the x_proj weight

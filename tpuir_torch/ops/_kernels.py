@@ -195,8 +195,10 @@ def library() -> ctypes.CDLL:
         lib.tpuir_scan_fused_proj_bf16.restype = ci
         lib.tpuir_nss_scan_fused_f32.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.tpuir_nss_scan_fused_f32.restype = ci
-        lib.tpuir_nss_scan_fused_bf16.argtypes = lib.tpuir_nss_scan_fused_f32.argtypes
+        lib.tpuir_nss_scan_fused_bf16.argtypes = [vp] * 9 + [ci] * 9 + [vp]
         lib.tpuir_nss_scan_fused_bf16.restype = ci
+        lib.tpuir_nss_scan_fused_bf16_resident_blocks.argtypes = [ci] * 2
+        lib.tpuir_nss_scan_fused_bf16_resident_blocks.restype = ci
         lib.tpuir_selective_scan_scratch_numel.argtypes = [ci] * 5
         lib.tpuir_selective_scan_scratch_numel.restype = ctypes.c_longlong
         lib.tpuir_selective_scan_f32.argtypes = [vp] * 9 + [ci] * 5 + [vp]

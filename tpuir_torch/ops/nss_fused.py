@@ -3,15 +3,25 @@
 The counterpart of ``tpuir/ops/nss_fused.py:nss_scan_fused``, which MaIR's
 mixers take under ``TPUIR_NSS=fused`` (the port's ``nss="fused"``) on
 levels whose H and W are multiples of ``scan_len``. The kernel is
-``tpuir_torch/csrc/nss_fused.cu``, on the chunked scan it shares with K2
-and K4 (``csrc/chunk_scan.cuh``), in its two bodies: float32 parity
-(``tpuir_nss_scan_fused_f32``) and serving (``tpuir_nss_scan_fused_bf16``,
-the TPU kernel with ``serving=True``: bf16 x and y, x_proj and dt_proj of
-bf16-rounded operands summed in float32, B, C and the scan in float32,
-pooled summed from the float32 y); its source note gives the math, what
-bounds it on the card and what the design does about that. It computes the
-pixel each path position visits from the stripe arithmetic, with no id
-table, and writes y straight into the JAX function's output layouts.
+``tpuir_torch/csrc/nss_fused.cu``, in its two bodies: float32 parity
+(``tpuir_nss_scan_fused_f32``, on the chunked passes it shares with K2's
+parity body and K4, ``csrc/chunk_scan.cuh``) and serving
+(``tpuir_nss_scan_fused_bf16``, the TPU kernel with ``serving=True``: bf16
+x and y, x_proj and dt_proj of bf16-rounded operands summed in float32, B,
+C and the scan in float32, pooled summed from the float32 y; on the walk it
+shares with K2's serving body, ``csrc/nss_walk.cuh``); its source note
+gives the math, what bounds it on the card and what the design does about
+that. It computes the pixel each path position visits from the stripe
+arithmetic, with no id table, and writes y straight into the JAX function's
+output layouts.
+
+The serving body walks each chunk of each sequence once with a channel's
+states across the lanes of a warp, as K2's does: the wrapper picks the
+chunk count with ``ops/nss_stripe.serving_chunks`` from the walk's resident
+blocks an SM (``RESIDENT_BLOCKS``, K5's own instance), and the walk's x_dbl
+scratch holds packed rows, which ``nss_scan_fused_serving_stages`` unpacks.
+On the card it needs an even d (x is staged two channels a copy); the CPU
+path and the parity body take any d.
 
 ``nss_scan_fused`` is the wrapper: it raises ``ValueError`` where the JAX
 function does (odd ``scan_len``; H or W not a multiple of it) and on
@@ -45,9 +55,13 @@ from typing import Dict, Tuple
 import torch
 
 from tpuir_torch.ops import _kernels
-from tpuir_torch.ops.nss_stripe import check_scan_weights, scan_serving_values
+from tpuir_torch.ops.nss_stripe import (check_scan_weights, scan_serving_values, serving_chunks,
+                                        unpack_walk_rows, walk_capacity, walk_row)
 from tpuir_torch.ops.scan_ids import scan_index_tensors
 from tpuir_torch.ops.selective_scan import selective_scan
+
+# The serving walk's resident-block query for K5's instance (walk_capacity)
+RESIDENT_BLOCKS = "tpuir_nss_scan_fused_bf16_resident_blocks"
 
 
 def _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len: int,
@@ -116,25 +130,40 @@ def nss_scan_fused_serving_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: 
 def _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R,
             serving) -> Dict[str, torch.Tensor]:
     """One launch of a body on x's card: {y01, y23, pooled, x_dbl}, x_dbl a
-    view of the kernel's scratch."""
+    view of the kernel's scratch (the serving walk's packed rows, B, L, 4,
+    CS)."""
     params = (x, x_proj_w, dt_w, A, D, delta_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         raise RuntimeError("nss_scan_fused: the CUDA kernel has no backward")
     B, H, W, d = x.shape
+    if serving and d % 2:
+        raise ValueError(f"nss_scan_fused: the serving kernel stages x two channels a copy and "
+                         f"needs an even d, got {d}")
+    L = H * W
     lib = _kernels.library()
-    fn = lib.tpuir_nss_scan_fused_bf16 if serving else lib.tpuir_nss_scan_fused_f32
     with torch.cuda.device(x.device):
-        y = torch.empty(B, 4, H * W, d, device=x.device, dtype=x.dtype)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        y = torch.empty(B, 4, L, d, device=x.device, dtype=x.dtype)
         pooled = torch.empty(B, 4, d, device=x.device, dtype=torch.float32)
-        # K2's scratch layout: x_dbl, chunk states and decay products, partials
-        scratch = torch.empty(lib.tpuir_nss_scan_scratch_numel(B, H * W, d, N, R),
-                              device=x.device, dtype=torch.float32)
-        err = fn(x.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(), A.data_ptr(), D.data_ptr(),
-                 delta_bias.data_ptr(), y.data_ptr(), pooled.data_ptr(), scratch.data_ptr(),
-                 B, H, W, d, N, R, scan_len, int(shift),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        args = (x.data_ptr(), x_proj_w.data_ptr(), dt_w.data_ptr(), A.data_ptr(), D.data_ptr(),
+                delta_bias.data_ptr(), y.data_ptr(), pooled.data_ptr())
+        if serving:
+            _, chunk = serving_chunks(B, L, d, N, *walk_capacity(x.device, N, R,
+                                                                 RESIDENT_BLOCKS))
+            # K2's serving walk's scratch layout: packed x_dbl rows, packed weight, chunks
+            scratch = torch.empty(lib.tpuir_nss_scan_bf16_scratch_numel(B, L, d, N, R, chunk),
+                                  device=x.device, dtype=torch.float32)
+            err = lib.tpuir_nss_scan_fused_bf16(*args, scratch.data_ptr(), B, H, W, d, N, R,
+                                                scan_len, int(shift), chunk, stream)
+        else:
+            # K2's scratch layout: x_dbl, chunk states and decay products, partials
+            scratch = torch.empty(lib.tpuir_nss_scan_scratch_numel(B, L, d, N, R),
+                                  device=x.device, dtype=torch.float32)
+            err = lib.tpuir_nss_scan_fused_f32(*args, scratch.data_ptr(), B, H, W, d, N, R,
+                                               scan_len, int(shift), stream)
     _kernels.check(err, "nss_scan_fused_serving" if serving else "nss_scan_fused")
-    xdbl = scratch[:B * H * W * 4 * (R + 2 * N)].view(B, H * W, 4, R + 2 * N)
+    cs = walk_row(N, R)[2] if serving else R + 2 * N
+    xdbl = scratch[:B * L * 4 * cs].view(B, L, 4, cs)
     return {"y01": y[:, :2].view(B, 2, H, W, d), "y23": y[:, 2:].view(B, 2, W, H, d),
             "pooled": pooled, "x_dbl": xdbl}
 
@@ -163,10 +192,12 @@ def nss_scan_fused_serving_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w:
                                   ) -> Dict[str, torch.Tensor]:
     """The serving kernel's outputs and its scratch from one launch on x's
     card, for a check (``utils/serving_check.py``); counts no launch:
-    ``x_dbl`` (B, L, 4, R + 2N) float32, ``y01`` and ``y23`` (bf16) and
-    ``pooled``. On a CPU tensor, and only there, the same stages of the
-    plain version."""
+    ``x_dbl`` (B, L, 4, R + 2N) float32 (the walk's packed rows unpacked),
+    ``y01`` and ``y23`` (bf16) and ``pooled``. On a CPU tensor, and only
+    there, the same stages of the plain version."""
     N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, True)
     if x.device.type == "cpu":
         return fused_serving_values(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
-    return _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, True)
+    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, True)
+    out["x_dbl"] = unpack_walk_rows(out["x_dbl"], N, R)
+    return out

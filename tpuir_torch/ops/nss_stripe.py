@@ -64,7 +64,7 @@ MAX_RANK = 64   # dt rank R: W_dt is staged in shared memory
 VERT_P = 16     # tpuir's mixer's vert_p: level-1 subchunks of 16 // scan_len rows
 LOG2E = math.log2(math.e)
 
-# The serving body's walk (csrc/nss_scan.cu: nss_walk_kernel): positions a
+# The serving bodies' walk (csrc/nss_walk.cuh: walk_chunk, K2's and K5's): positions a
 # staged tile, warps a block, and the lanes a channel's states take by their
 # register ceiling (WalkLanes, G lanes x S states: N 4 as 4 x 1, 8 as 2 x 4,
 # 16 as 4 x 4, 32 as 8 x 4).
@@ -108,7 +108,7 @@ def serving_chunks(B: int, L: int, d: int, N: int, sms: int, resident: int) -> T
 
 def walk_row(N: int, R: int) -> Tuple[int, int, int]:
     """(R4, MAXN, CS) of the serving walk's packed x_dbl rows
-    (csrc/nss_scan.cu: WalkRow): [dt_r (R, zeros to R4) | B (MAXN) | C
+    (csrc/nss_walk.cuh: WalkRow): [dt_r (R, zeros to R4) | B (MAXN) | C
     (MAXN)], CS floats."""
     r4, maxn = (R + 3) & ~3, state_ceiling(N)
     return r4, maxn, r4 + 2 * maxn
@@ -391,12 +391,15 @@ def nss_scan_recur_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Te
 
 
 @functools.lru_cache(maxsize=None)
-def walk_capacity(device: torch.device, N: int, R: int) -> Tuple[int, int]:
-    """(SMs, blocks of the serving walk an SM holds) on ``device``."""
+def walk_capacity(device: torch.device, N: int, R: int,
+                  query: str = "tpuir_nss_scan_bf16_resident_blocks") -> Tuple[int, int]:
+    """(SMs, blocks of a serving walk an SM holds) on ``device``, the blocks
+    from the library's resident-block ``query`` for that walk's instance
+    (K2's by default; K5's is ``ops/nss_fused.RESIDENT_BLOCKS``)."""
     with torch.cuda.device(device):
-        resident = _kernels.library().tpuir_nss_scan_bf16_resident_blocks(N, R)
+        resident = getattr(_kernels.library(), query)(N, R)
     if resident <= 0:
-        raise RuntimeError(f"nss_scan: no block of the serving walk fits an SM ({resident})")
+        raise RuntimeError(f"{query}: no block of the serving walk fits an SM ({resident})")
     return torch.cuda.get_device_properties(device).multi_processor_count, resident
 
 

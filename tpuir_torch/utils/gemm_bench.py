@@ -21,7 +21,8 @@ bodies also by kernel at each shape (``MIXER_BYTES``); and one batch-8
 forward of Restormer@256, MaIR-CDN@128 and MaIRUNet@384 (full width and
 depth, weights drawn from a seed, every block on its kernels), each also in
 serving precision (MaIR's with TF32 at PyTorch's defaults, as the engine
-serves it); left out with ``--no-forwards``, chosen by label prefix with
+serves it), MaIR's also in serving precision on the fused NSS route
+(``nss="fused"``: K5); left out with ``--no-forwards``, chosen by label prefix with
 ``--forwards``; ``--kernels`` keeps only the parts it names. K1, K6 and K7 take their
 products in the 3xTF32 arithmetic of the tensor-core GEMM core
 (``csrc/tc_gemm.cuh``); where the tree has it (``ops/tc_gemm.py``), the
@@ -300,6 +301,14 @@ def main(argv=None) -> int:
              lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0), True),
             ("MaIRUNet@384 serving", 384,
              lambda: mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, serving=True),
+             lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0), False),
+            # the fused NSS route (K5 where a level's H and W are multiples of scan_len)
+            ("MaIR-CDN@128 serving fused", 128,
+             lambda: mair.MaIR(**zoo.MAIR_CDN_CONFIG, fused=True, nss="fused", serving=True),
+             lambda: mair.init_state_dict(zoo.MAIR_CDN_CONFIG, seed=0), False),
+            ("MaIRUNet@384 serving fused", 384,
+             lambda: mair_unet.MaIRUNet(**zoo.MAIR_UNET_CONFIG, fused=True, nss="fused",
+                                        serving=True),
              lambda: mair_unet.init_state_dict(zoo.MAIR_UNET_CONFIG, seed=0), False)]
     keep = tuple(f for f in args.forwards.split(",") if f) or ("",)
     for label, tile, build, weights, pin in [] if args.no_forwards else nets:

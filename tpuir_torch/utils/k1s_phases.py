@@ -1,14 +1,14 @@
 """Where the fused product-and-conv kernels of K1's and K6's serving bodies,
-and the scans of K2's, spend their time, on the card.
+and the scans of K2's and K5's, spend their time, on the card.
 
-    python tpuir_torch/utils/k1s_phases.py [--body K1s|K6s|K2s|passes|K2s-layouts] [--rounds 2]
-                                           [--tree DIR]
+    python tpuir_torch/utils/k1s_phases.py [--body K1s|K6s|K2s|K5s|passes|K2s-layouts]
+                                           [--rounds 2] [--tree DIR]
 
 Builds copies of ``tpuir_torch/`` (this tree's, or with ``--tree`` the
 checkout at DIR's) under ``build/<body>_phases/``, each with one phase of
 the body's kernel taken out, and times the body in each with
-``utils/gemm_bench.py --kernels <body>`` (K2s and passes:
-``utils/scan_bench.py --kernels K2s``), in turns with the unchanged copy. A
+``utils/gemm_bench.py --kernels <body>`` (the scans: ``utils/scan_bench.py``
+with the kernels of ``scan_kernels``), in turns with the unchanged copy. A
 copy's output is wrong; only its time is read. What a phase's removal saves
 is an upper bound on what making it free would save.
 
@@ -23,30 +23,33 @@ is an upper bound on what making it free would save.
   product (``x product``), the z half's product (``z product``) or the
   halo's A (``halo``). Each line: the copy, the round, K6 serving's ms at
   MaIR-CDN@128 and a MaIRUNet@384 forward (batch 8).
-* ``K2s`` (``K2S_PHASES``): ``nss_walk_kernel`` (``csrc/nss_scan.cu``)
-  without dt's R-term dot and softplus (``dt``), the exponential of each
-  update (``exp``: the decay taken as dt * A), the butterfly over a
-  channel's lanes (``butterfly``), the y stores (``y store``), the x_dbl
-  rows' staging (``x_dbl staging``), or the walk of every chunk but the
-  last before the carries (``pass 1``).
+* ``K2s`` (``K2S_PHASES``) and ``K5s`` (``K5S_PHASES``): the serving walk
+  (``walk_chunk`` in ``csrc/nss_walk.cuh``), timed through K2's or K5's
+  serving body, without dt's R-term dot and softplus (``dt``), the
+  exponential of each update (``exp``: the decay taken as dt * A), the
+  butterfly over a channel's lanes (``butterfly``), the y stores (``y
+  store``), the x_dbl rows' staging (``x_dbl staging``), or the walk of
+  every chunk but the last before the carries (``pass 1``); K5s also
+  without the stripe arithmetic (``stripe arithmetic``: each position read
+  and written at its own index).
 * ``passes`` (``PASS_PHASES``): the chunked passes of
-  ``csrc/chunk_scan.cuh`` (K5's serving body's; K2's before its walk: run
-  it with ``--tree`` at such a checkout) without dt's R-term dot (``dt
-  dot``), softplus (``softplus``), the exponential of each update
-  (``exp``), the bf16 rounding of each tile's dt columns and its barrier
-  (``dt rounding``), the gathered u (``u``), the y stores (``y store``), or
-  pass 1 (``pass 1``).
+  ``csrc/chunk_scan.cuh`` without dt's R-term dot (``dt dot``), softplus
+  (``softplus``), the exponential of each update (``exp``), the gathered u
+  (``u``), the y stores (``y store``), or pass 1 (``pass 1``), timed
+  through the parity bodies of K2 and K5, or through K5's serving body on
+  a tree (``--tree``) whose serving body still runs the passes.
 * ``K2s-layouts`` (``K2S_LAYOUTS``): not phases but the walk's other
   choices, each copy one of them: a channel's states as G lanes x S states
-  for one state ceiling (``WalkLanes`` in ``csrc/nss_scan.cu`` and
+  for one state ceiling (``WalkLanes`` in ``csrc/nss_walk.cuh`` and
   ``WALK_LANES`` in ``ops/nss_stripe.py``),
   another share of the card from which one chunk is walked (half; 1:
   chunks wherever they fit), one wave of chunks instead of two
   (``serving_chunks``), or 8 warps a block (``kWalkWarps``,
-  ``WALK_BLOCK_WARPS``). Its output is right.
-  Each line of these three: the copy, the round, K2 serving's ms at
-  MaIR-CDN@128 (the mean over both shifts), enc-1, dec-1 and a MaIRUNet@384
-  forward (batch 8).
+  ``WALK_BLOCK_WARPS``), timed through K2's serving body. Its output is
+  right.
+  Each line of these four: the copy, the round, and for each body timed its
+  ms at MaIR-CDN@128 (the mean over both shifts), enc-1, dec-1 and a
+  MaIRUNet@384 forward (batch 8).
 """
 
 from __future__ import annotations
@@ -83,23 +86,30 @@ K6S_PHASES = {
     "halo": [(PRO, "for (int e0 = tid; e0 < kHaloRows * G; e0 += kBatch * kThreads) {",
               "for (int e0 = tid; e0 < 0; e0 += kBatch * kThreads) {")],
 }
-K2S, SCAN = "nss_scan.cu", "chunk_scan.cuh"
+WALK, SCAN = "nss_walk.cuh", "chunk_scan.cuh"
 K2S_PHASES = {
     "unchanged": [],
-    "dt": [(K2S, "      for (int r = 0; r < R4; r += 4) {\n        float4 x4",
+    "dt": [(WALK, "      for (int r = 0; r < R4; r += 4) {\n        float4 x4",
             "      for (int r = 0; r < 0; r += 4) {\n        float4 x4"),
-           (K2S, "const float dt = live ? softplus(dr[cc]) : 0.f;",
+           (WALK, "const float dt = live ? softplus(dr[cc]) : 0.f;",
             "const float dt = live ? dr[cc] : 0.f;")],
-    "exp": [(K2S, "h[s] = fmaf(exp2_mufu(dt * A2[s]), h[s], du * bv[s]);",
+    "exp": [(WALK, "h[s] = fmaf(exp2_mufu(dt * A2[s]), h[s], du * bv[s]);",
              "h[s] = fmaf(dt * A2[s], h[s], du * bv[s]);")],
-    "butterfly": [(K2S, "      sum_over_lanes<G>(p, lane);\n", "")],
-    "y store": [(K2S, "          *reinterpret_cast<__nv_bfloat162*>(y_b + id[row] * D + dp) =\n"
-                      "              __floats2bfloat162_rn(y0, y1);  // y's rounding\n", "")],
-    "x_dbl staging": [(K2S, "for (int e = tid; e < T * q4; e += NT) {",
+    "butterfly": [(WALK, "      sum_over_lanes<G>(p, lane);\n", "")],
+    "y store": [(WALK, "          *reinterpret_cast<__nv_bfloat162*>(y_b + id[row] * D + dp) =\n"
+                       "              __floats2bfloat162_rn(y0, y1);  // y's rounding\n", "")],
+    "x_dbl staging": [(WALK, "for (int e = tid; e < T * q4; e += NT) {",
                        "for (int e = tid; e < 0; e += NT) {")],
-    "pass 1": [(K2S, "    nss_walk_kernel<MAXN, false><<<dim3(blocks, a.nchunk - 1, (unsigned)BK), "
-                     "kWalkWarps * 32,\n                                   smem, st>>>(a);\n",
-                "")],
+    "pass 1": [(WALK, "    ends<<<dim3(blocks, a.nchunk - 1, (unsigned)BK), kWalkWarps * 32, smem, "
+                      "st>>>(a);\n", "")],
+}
+# K5's walk: the same phases, and the stripe arithmetic (each position read
+# and written at its own index)
+K5S_PHASES = {
+    **K2S_PHASES,
+    "stripe arithmetic": [
+        (WALK, "  if (live) nss_pixel(k, t, a.H, a.W, a.scan_len, a.shift != 0, pixel, out);\n",
+         "  if (live) pixel = out = t;\n")],
 }
 PASS_PHASES = {
     "unchanged": [],
@@ -109,11 +119,10 @@ PASS_PHASES = {
                   "dtg[g] = p + g < nt ? dr[g] : 0.f;")],
     "exp": [(SCAN, "h[n] = fmaf(exp2_mufu(dt * A2[n]), h[n], du * bq[j]);",
              "h[n] = fmaf(dt * A2[n], h[n], du * bq[j]);")],
-    "dt rounding": [(SCAN, "    if constexpr (kBf16Io<Path>) {\n      // dt_proj's operand",
-                     "    if constexpr (false) {\n      // dt_proj's operand")],
     "u": [(SCAN, "auto load_u = [&](int q) { return q < nc ? xb[rows_s[q] * D] : u0; };",
            "auto load_u = [&](int q) { return u0; };")],
-    "y store": [(SCAN, "            scan_store(yb + rows_s[p0 + p + g] * D, out);\n", "")],
+    "y store": [(SCAN, "scan_store(yb + outs_s[p0 + p + g] * D, out);", "(void)0;"),
+                (SCAN, "scan_store(yb + rows_s[p0 + p + g] * D, out);", "(void)0;")],
     "pass 1": [(SCAN, "  scan_chunk_kernel<false, MAXN, Path><<<grid, bw, smem, st>>>(a);\n", "")],
 }
 STRIPE = "../ops/nss_stripe.py"
@@ -126,7 +135,7 @@ def _lanes(maxn: int, g: int, s: int) -> list:
     """The edits that lay MAXN states out as G lanes x S states."""
     was_g, was_s = WALK_LANES[maxn]
     lanes = lambda m: {**{k: v[0] for k, v in WALK_LANES.items()}, **m}  # noqa: E731
-    return [(K2S, f"struct WalkLanes<{maxn}> {{ static constexpr int S = {was_s}, G = {was_g}; }};",
+    return [(WALK, f"struct WalkLanes<{maxn}> {{ static constexpr int S = {was_s}, G = {was_g}; }};",
              f"struct WalkLanes<{maxn}> {{ static constexpr int S = {s}, G = {g}; }};"),
             (STRIPE, f"WALK_LANES = {lanes({})}", f"WALK_LANES = {lanes({maxn: g})}")]
 
@@ -138,19 +147,34 @@ K2S_LAYOUTS = {
     "N16 as 16 x 1": _lanes(16, 16, 1),
     "N16 as 2 x 8": _lanes(16, 2, 8),
     "N32 as 16 x 2": _lanes(32, 16, 2),
-    "8 warps a block": [(K2S, "constexpr int kWalkWarps = 4;", "constexpr int kWalkWarps = 8;"),
+    "8 warps a block": [(WALK, "constexpr int kWalkWarps = 4;", "constexpr int kWalkWarps = 8;"),
                         (STRIPE, "WALK_BLOCK_WARPS = 4\n", "WALK_BLOCK_WARPS = 8\n")],
     "one chunk from half the card": [(STRIPE, "WALK_ONE_CHUNK_SHARE = 0.25\n",
                                       "WALK_ONE_CHUNK_SHARE = 0.5\n")],
     "chunks always": [(STRIPE, "WALK_ONE_CHUNK_SHARE = 0.25\n", "WALK_ONE_CHUNK_SHARE = 1\n")],
     "one wave": [(STRIPE, "WALK_WAVES = 2\n", "WALK_WAVES = 1\n")],
 }
-BODIES = {"K1s": PHASES, "K6s": K6S_PHASES, "K2s": K2S_PHASES, "passes": PASS_PHASES,
-          "K2s-layouts": K2S_LAYOUTS}
-# the K2 serving figures a K2s or passes line gives, from scan_bench.py's JSON
-K2S_FIGURES = (("MaIR-CDN@128", "K2s MaIR-CDN@128"), ("enc-1", "K2s MaIRUNet enc-1 [4]"),
-               ("dec-1", "K2s MaIRUNet dec-1 [8]"),
-               ("a MaIRUNet@384 forward", "K2s per MaIRUNet@384 forward"))
+BODIES = {"K1s": PHASES, "K6s": K6S_PHASES, "K2s": K2S_PHASES, "K5s": K5S_PHASES,
+          "passes": PASS_PHASES, "K2s-layouts": K2S_LAYOUTS}
+# the scan_bench.py kernels a scan body's copies are timed through
+SCAN_BENCH = {"K2s": "K2s", "K5s": "K5s", "K2s-layouts": "K2s"}
+# the figures of a timed kernel a line gives, from scan_bench.py's JSON
+SCAN_FIGURES = (("MaIR-CDN@128", "{} MaIR-CDN@128"), ("enc-1", "{} MaIRUNet enc-1 [4]"),
+                ("dec-1", "{} MaIRUNet dec-1 [8]"),
+                ("a MaIRUNet@384 forward", "{} per MaIRUNet@384 forward"))
+
+
+def scan_kernels(body: str, tree: str) -> str:
+    """The scan_bench.py ``--kernels`` a scan body's copies of ``tree`` are
+    timed through. ``passes``: K5 serving where the tree's runs the chunked
+    passes (``StripeBf16Path`` in its ``chunk_scan.cuh``), else the parity
+    bodies of K2 and K5."""
+    if body != "passes":
+        return SCAN_BENCH[body]
+    src = Path(tree, "tpuir_torch", "csrc", SCAN).read_text()
+    return "K5s" if "StripeBf16Path" in src else "K2,K5"
+
+
 _BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
           "from tpuir_torch.ops import _kernels; _kernels.build()")
 
@@ -179,11 +203,12 @@ def main(argv=None) -> int:
     for p in builds:
         if p.wait():
             raise RuntimeError("a copy did not build")
-    scan = args.body in ("K2s", "passes", "K2s-layouts")
+    scan = args.body in ("passes", *SCAN_BENCH)
+    kernels = scan_kernels(args.body, tree) if scan else args.body
     bench = str(_ROOT / "tpuir_torch" / "utils" / ("scan_bench.py" if scan else "gemm_bench.py"))
     for rnd in range(args.rounds):
         for name in (phases if rnd % 2 == 0 else list(phases)[::-1]):
-            cmd = ([bench, "--tree", str(dirs[name]), "--kernels", "K2s", "--no-breakdown",
+            cmd = ([bench, "--tree", str(dirs[name]), "--kernels", kernels, "--no-breakdown",
                     "--iters", "3"] if scan else
                    [bench, "--tree", str(dirs[name]), "--kernels", args.body, "--no-forwards",
                     "--trace-dir", str(base / f"trace_{dirs[name].name}")])
@@ -194,8 +219,10 @@ def main(argv=None) -> int:
                 print(lines[0], flush=True)  # the card's name and power limit
             if scan:
                 ms = json.loads(r.stdout.strip().splitlines()[-1])["ms"]
-                print(f"{name:13s} round {rnd}: K2 serving " + ", ".join(
-                    f"{ms[key]:.3f} ms {where}" for where, key in K2S_FIGURES), flush=True)
+                print(f"{name:13s} round {rnd}: " + "; ".join(
+                    f"{k} " + ", ".join(f"{ms[key.format(k)]:.3f} ms {where}"
+                                        for where, key in SCAN_FIGURES)
+                    for k in kernels.split(",")), flush=True)
                 continue
             fwd = [ln.split()[-2] for ln in lines if ln.startswith(f"{args.body} per")]
             if args.body == "K1s":

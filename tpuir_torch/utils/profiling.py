@@ -49,21 +49,22 @@ import torch
 # one kernel (prologue_bf16_kernel) after its weight's bf16 copy
 # (round_rows_bf16_kernel, K7 serving's too); the x_proj of K2, K3 and K5 on the SIMT
 # GEMM (simt_gemm_nt_kernel); the scan passes' path type tells K2's
-# (ImageIdsPath) from K5's (StripePath), and K5's serving body's
-# (StripeBf16Path). K3 and K2's serving body pack their x_proj weight and
-# walk each sequence (K2 serving: each chunk, its carries named WalkChunks)
-# with a channel's states across lanes.
+# (ImageIdsPath) from K5's (StripePath). K3 and the serving bodies of K2 and
+# K5 pack their x_proj weight and walk each sequence (K2 and K5 serving: each
+# chunk, their carries and sums named WalkChunks) with a channel's states
+# across lanes.
 MIXER_STAGES = (
     ("K6 in_proj GEMM", ("SplitXZ",)),
     ("K6 dwconv + SiLU", ("dwconv3x3_bias_silu",)),
     ("K6 serving: in_proj + dwconv + SiLU", ("prologue_bf16_kernel",)),
     ("K6, K7 serving: bf16 weight copies", ("round_rows_bf16_kernel",)),
     ("K2 scan passes", ("ImageIdsPath",)),
-    ("K2 serving walk", ("nss_walk_kernel", "WalkChunks")),
+    ("K2 serving walk", ("nss_walk_kernel",)),
     ("K5 scan passes", ("StripePath",)),
-    ("K5 serving scan passes", ("StripeBf16Path",)),
+    ("K5 serving walk", ("nss_stripe_walk_kernel",)),
+    ("K2, K5 serving walks' carries and sums", ("WalkChunks",)),
     ("K3 one-pass scan", ("seq_scan_kernel",)),
-    ("K3, K2 serving x_proj weight packing", ("pack_xproj_kernel",)),
+    ("K3, K2, K5 serving x_proj weight packing", ("pack_xproj_kernel",)),
     ("x_proj GEMMs (K2, K3, K5)", ("simt_gemm_nt_kernel",)),
     ("K7 combine + norm + gate", ("combine_norm_gate",)),
     ("K7 out_proj GEMM", ("tc::Store<float, float>",)),

@@ -49,7 +49,8 @@ _ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 def functions(obj: str) -> dict:
     """{mangled name: SASS text} of an object's device functions, the
     anonymous namespace's name made the same in every source, branch labels
-    numbered within each function and trailing blank lines dropped."""
+    numbered within each function, runs of blanks made one and trailing
+    blank lines dropped."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     text = _ANON.sub("12_GLOBAL__N_1", subprocess.run(
@@ -57,14 +58,17 @@ def functions(obj: str) -> dict:
     out = {}
     for part in re.split(r"^\s*Function : ", text, flags=re.M)[1:]:
         name, _, body = part.partition("\n")
-        # (trailing blank lines depend on where the function falls in the listing)
-        out[name.strip()] = _LABEL.sub(_renumber(), body).rstrip()
+        # (trailing blank lines depend on where the function falls in the
+        # listing, the padding before each encoding on the object's widest
+        # instruction)
+        out[name.strip()] = _BLANKS.sub(" ", _LABEL.sub(_renumber(), body)).rstrip()
     return out
 
 
 # cuobjdump numbers branch labels (.L_x_N) across the whole object, so that a
 # function added before another renames the other's labels
 _LABEL = re.compile(r"\.L_x_\d+")
+_BLANKS = re.compile(r"[ \t]+")
 
 
 def _renumber():

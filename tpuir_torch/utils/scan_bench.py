@@ -1,7 +1,7 @@
 """Time the scan kernels (K2, K5, K3, K4) at the main paths' shapes.
 
     python tpuir_torch/utils/scan_bench.py [--tree DIR] [--iters 5]
-                                           [--kernels K2,K5,K3,K4,K2s] [--accuracy]
+                                           [--kernels K2,K5,K3,K4,K2s,K5s] [--accuracy]
                                            [--no-breakdown]
 
 On the card, with CUDA events (one warm-up, then the mean of ``--iters``
@@ -11,14 +11,17 @@ mean over both shifts) and at the five level shapes of MaIRUNet's 384x384
 tile at batch 8, with their calls a forward; K3
 (``selective_scan_fused_proj``) at the 481x321 request's two K3 levels
 (batch 2) and per forward chunk; K4 (``selective_scan_kernel``) at
-MaIR-CDN's shape and at MaIRUNet's latent; with ``K2s`` in ``--kernels``,
-K2's serving body (``nss_scan(..., serving=True)``, bf16 x) at
-MaIR-CDN@128, batch 8 (both shifts), at the five MaIRUNet levels (batch 8,
-with their calls a forward) and at the 384x328 tile (batch 2), each broken
-down by kernel with its occupancy, and the walk's chunk count where the
-tree's wrapper has ``serving_chunks``. K2's parity body, K4 and K5 share
-their scan passes (``csrc/chunk_scan.cuh``). ``--kernels`` keeps only the
-ones it names (default: all but K2s).
+MaIR-CDN's shape and at MaIRUNet's latent. With ``K2s`` or ``K5s`` in
+``--kernels``, K2's or K5's serving body (``nss_scan`` or
+``nss_scan_fused`` with ``serving=True``, bf16 x) at MaIR-CDN@128, batch 8
+(both shifts), at the five MaIRUNet levels (batch 8, with their calls a
+forward) and, batch 2, at the 481x321 request's tiles of its route (K2s:
+384x328 at level 1; K5s: 384x328 at both level-1 widths and 192x164 at
+level 2), each broken down by kernel with its occupancy, and the walk's
+chunk count where the tree's body walks (``nss_stripe.walk_capacity``;
+K5s: with ``nss_fused.RESIDENT_BLOCKS``). K2's and K5's parity bodies and
+K4 share their scan passes (``csrc/chunk_scan.cuh``). ``--kernels`` keeps
+only the ones it names (default: K2,K5,K3,K4).
 
 ``--tree DIR`` imports ``tpuir_torch`` from another checkout (the parent
 commit unpacked under ``build/``, say) instead of this one, so that two
@@ -26,10 +29,11 @@ trees can be timed in turns on one card, one process each. The two trees'
 SASS is compared by ``utils/sass_diff.py``.
 
 K2 at MaIR-CDN@128 (shift 0), enc-1 and dec-1, K3 at both its levels, K2s
-at every shape, and K4, are also broken down by kernel (``torch.profiler``);
-for K3 and K2s each kernel's registers a thread (``ptxas -v`` in the build log, where this
-process built the library), block size and shared memory (the profiler's
-trace), and the blocks of it an SM holds at once, from those
+and K5s at every shape, and K4, are also broken down by kernel
+(``torch.profiler``; ``--no-breakdown`` leaves it out); for K3, K2s and
+K5s each kernel's registers a thread (``ptxas -v`` in the build log, where
+this process built the library), block size and shared memory (the
+profiler's trace), and the blocks of it an SM holds at once, from those
 (``resident_blocks``). ``--accuracy`` also holds K3 at both levels against
 its plain version, and both of them against the plain version in float64,
 as shares of the scan's card tolerance. The card's ``nvidia-smi`` name and
@@ -54,8 +58,13 @@ UNET_LEVELS = [("enc-1", 384, 96, 4, 3, 4), ("dec-1", 384, 192, 8, 6, 8),
                ("level-2", 192, 192, 8, 6, 12), ("level-3", 96, 384, 16, 12, 12),
                ("latent", 48, 768, 32, 24, 8)]
 CDN = ("MaIR-CDN@128", 128, 234, 16, 12)
-# K2a's case: the 481x321 request's 384x328 tiles at MaIRUNet's level 1, batch 2
+# K2a's case: the 481x321 request's 384x328 tiles at MaIRUNet's level 1, batch 2:
+# (label, H, W, d_inner, d_state, dt rank, batch)
 RECT = ("384x328", 384, 328, 96, 4, 3, 2)
+# K5 serving on the fused route of that request: its 384x328 tiles at both
+# level-1 widths and its 192x164 tiles at level 2, batch 2
+K5S_RECTS = [("384x328 enc-1", 384, 328, 96, 4, 3, 2), ("384x328 dec-1", 384, 328, 192, 8, 6, 2),
+             ("192x164 level-2", 192, 164, 192, 8, 6, 2)]
 # K3 on the 481x321 request: (label, H, W, d_inner, d_state, dt rank, calls a chunk), batch 2
 K3_LEVELS = [("level-3 96x82", 96, 82, 384, 16, 12, 12),
              ("latent 48x41", 48, 41, 768, 32, 24, 8)]
@@ -149,46 +158,46 @@ def launch_shapes(prof) -> dict:
     return out
 
 
-def k2s_shapes(scan_ops, timed, nss_stripe, res, split=True) -> None:
-    """K2's serving body at MaIR-CDN@128 (batch 8, both shifts), MaIRUNet's
-    five levels (batch 8) and the 384x328 tile (batch 2), each broken down
-    by kernel with its occupancy where ``split``; its ms a MaIRUNet@384
-    forward."""
+def serving_shapes(name, call, capacity, scan_ops, timed, res, rects, split=True) -> None:
+    """A scan's serving body (``name`` K2s or K5s, ``call(*ops, shift=...)``
+    on bf16 x) at MaIR-CDN@128 (batch 8, both shifts), MaIRUNet's five
+    levels (batch 8) and ``rects``, each broken down by kernel with its
+    occupancy where ``split``; its ms a MaIRUNet@384 forward.
+    ``capacity(device, N, R)`` gives the walk's (SMs, blocks an SM), or is
+    None on a tree whose body does not walk."""
     import torch
-
-    chunks = getattr(nss_stripe, "serving_chunks", None)  # absent on a tree before the walk
 
     def ops_at(b, hh, ww, di, n, r):
         ops = scan_ops(b, hh, ww, di, n, r)
-        if chunks:
-            sms, resident = nss_stripe.walk_capacity(ops[0].device, n, r)
-            walk = chunks(b, hh * ww, di, n, sms, resident)
-            res.setdefault("chunks", {})[f"{b}x{hh}x{ww} Di={di} N={n}"] = walk
+        if capacity:
+            from tpuir_torch.ops.nss_stripe import serving_chunks
+
+            sms, resident = capacity(ops[0].device, n, r)
+            walk = serving_chunks(b, hh * ww, di, n, sms, resident)
+            res.setdefault("chunks", {})[f"{name} {b}x{hh}x{ww} Di={di} N={n}"] = walk
             print(f"    walk chunks, positions a chunk: {walk} ({resident} blocks an SM)",
                   flush=True)
         return (ops[0].to(torch.bfloat16),) + ops[1:]
 
     label, t, di, n, r = CDN
     ops = ops_at(8, t, t, di, n, r)
-    both = [timed(f"K2s {label} shift={s}",
-                  lambda s=s: nss_stripe.nss_scan(*ops, shift=bool(s), serving=True),
+    both = [timed(f"{name} {label} shift={s}", lambda s=s: call(*ops, shift=bool(s)),
                   split=split, occupancy=True) for s in (0, 1)]
-    res["ms"][f"K2s {label}"] = sum(both) / 2
+    res["ms"][f"{name} {label}"] = sum(both) / 2
     del ops
     fwd = 0.0
     for label, t, di, n, r, calls in UNET_LEVELS:
         ops = ops_at(8, t, t, di, n, r)
-        fwd += calls * timed(f"K2s MaIRUNet {label} [{calls}]",
-                             lambda: nss_stripe.nss_scan(*ops, serving=True), split=split,
-                             occupancy=True)
+        fwd += calls * timed(f"{name} MaIRUNet {label} [{calls}]", lambda: call(*ops),
+                             split=split, occupancy=True)
         del ops
         torch.cuda.empty_cache()
-    res["ms"]["K2s per MaIRUNet@384 forward"] = fwd
-    print(f"K2s per MaIRUNet@384 forward (batch 8): {fwd:.3f} ms", flush=True)
-    label, hh, ww, di, n, r, b = RECT
-    ops = ops_at(b, hh, ww, di, n, r)
-    timed(f"K2s {label} B={b}", lambda: nss_stripe.nss_scan(*ops, serving=True), split=split,
-          occupancy=True)
+    res["ms"][f"{name} per MaIRUNet@384 forward"] = fwd
+    print(f"{name} per MaIRUNet@384 forward (batch 8): {fwd:.3f} ms", flush=True)
+    for label, hh, ww, di, n, r, b in rects:
+        ops = ops_at(b, hh, ww, di, n, r)
+        timed(f"{name} {label} B={b}", lambda: call(*ops), split=split, occupancy=True)
+        del ops
 
 
 SCAN_ATOL, SCAN_RTOL = 5e-5, 1e-3  # the scan's card tolerance (tests/test_torch_scan_fused.py)
@@ -228,11 +237,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", help="import tpuir_torch from this checkout")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--kernels", default="K2,K5,K3,K4",
-                    help="comma-separated subset of K2,K5,K3,K4,K2s to time")
+                    help="comma-separated subset of K2,K5,K3,K4,K2s,K5s to time")
     ap.add_argument("--accuracy", action="store_true",
                     help="K3 against its plain version and both against float64")
     ap.add_argument("--no-breakdown", action="store_true",
-                    help="K2s: time the calls only, no breakdown by kernel")
+                    help="time the calls only, no breakdown by kernel")
     args = ap.parse_args(argv)
     want = set(args.kernels.split(","))
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree
@@ -244,7 +253,7 @@ def main(argv=None) -> int:
         return 1
     from tpuir_torch.core.engine import true_float32
     from tpuir_torch.ops import _kernels
-    from tpuir_torch.ops import nss_stripe
+    from tpuir_torch.ops import nss_fused, nss_stripe
     from tpuir_torch.ops.nss_fused import nss_scan_fused
     from tpuir_torch.ops.nss_stripe import nss_scan
     from tpuir_torch.ops.scan_fused_proj import selective_scan_fused_proj
@@ -275,7 +284,7 @@ def main(argv=None) -> int:
         ms = cuda_ms(fn, args.iters)
         res["ms"][label] = ms
         print(f"{label:34s} {ms:9.3f} ms", flush=True)
-        if split:  # device ms of each kernel of one call, from torch.profiler
+        if split and not args.no_breakdown:  # device ms of each kernel of one call, from torch.profiler
             _, prof = trace_fn(fn)
             shapes = launch_shapes(prof) if occupancy else {}
             kernels = kernel_times(prof)
@@ -307,8 +316,17 @@ def main(argv=None) -> int:
                           split=s == 0) for s in (0, 1)]
             res["ms"][f"{name} {label}"] = sum(both) / 2
         del ops
-        if "K2s" in want:
-            k2s_shapes(scan_ops, timed, nss_stripe, res, split=not args.no_breakdown)
+        # the serving walks' capacity query (absent on a tree whose body
+        # does not walk)
+        k2s_cap = getattr(nss_stripe, "walk_capacity", None)
+        k5s_query = getattr(nss_fused, "RESIDENT_BLOCKS", None)
+        serving = [("K2s", lambda *o, **kw: nss_stripe.nss_scan(*o, **kw, serving=True),
+                    k2s_cap, [RECT]),
+                   ("K5s", lambda *o, **kw: nss_scan_fused(*o, **kw, serving=True),
+                    k5s_query and (lambda dev, n, r: k2s_cap(dev, n, r, k5s_query)), K5S_RECTS)]
+        for name, call, capacity, rects in serving:
+            if name in want:
+                serving_shapes(name, call, capacity, scan_ops, timed, res, rects)
         fwd = {name: 0.0 for name, _ in stripe}
         for label, t, di, n, r, calls in UNET_LEVELS if stripe else ():
             ops = scan_ops(8, t, t, di, n, r)

@@ -26,7 +26,9 @@ sources its fault reaches:
   request (96x82 and 48x41, batch 1, seeded weights of that level's block
   0, on xs gathered from the plain serving prologue's x) and
   ``check_fused_scan_serving`` (K5) at MaIR-CDN's widths, 128x128 at batch
-  2 (shift on) and the 96x72 tile at batch 1 (shift off);
+  2 (shift on) and the 96x72 tile at batch 1 (shift off), which its walk
+  takes in several chunks on an H100, and 64x64 at batch 8 (shift on), which
+  it walks as one;
 * ``recur``: ``check_nss_scan_recur_serving`` on ``nss_scan_recur_stages``
   (K2's bf16-recurrence body) at MaIR-CDN's widths, 128x128 at batch 2
   (shift off and on) and the 96x72 tile at batch 1 (shift on), on inputs
@@ -59,6 +61,7 @@ FB, TC = "fused_block.cu", "tc_gemm.cuh"
 PRO, SCAN, EPI = "nss_prologue.cu", "chunk_scan.cuh", "nss_epilogue.cu"
 K3S, GEMM = "scan_fused_proj.cu", "simt_gemm.cuh"
 K2S, IDS = "nss_scan.cu", "../ops/scan_ids.py"
+WALK = "nss_walk.cuh"  # K2's and K5's serving walk
 
 # mutant -> [(source under csrc/, text, its replacement)]; each text occurs once
 _FOLD_BF16 = """// the attention folded into the projection, rounded to bf16
@@ -142,13 +145,13 @@ MIXER_MUTANTS = {
         (PRO, "column(xl + i + 2, r);", "column(min(xl + i + 2, kTW), r);")],
     "K2 x_proj W_xp unrounded": [(GEMM, "return kBf16 ? gemm_round_bf16(v) : v;", "return v;")],
     "K2 y truncated": [
-        (K2S, "__floats2bfloat162_rn(y0, y1);  // y's rounding",
+        (WALK, "__floats2bfloat162_rn(y0, y1);  // y's rounding",
          "__halves2bfloat162(__float2bfloat16_rz(y0), __float2bfloat16_rz(y1));")],
     "K2 carry of the previous chunk dropped": [
-        (K2S, "h[s] = FINAL && c > 0 && live ? a.hstate[state + n] : 0.f;  // the chained carry",
+        (WALK, "h[s] = FINAL && c > 0 && live ? a.hstate[state + n] : 0.f;  // the chained carry",
          "h[s] = 0.f;")],
     "K2 one state lane left out of the butterfly sum": [
-        (K2S, "      sum_over_lanes<G>(p, lane);\n",
+        (WALK, "      sum_over_lanes<G>(p, lane);\n",
          "      if (g == G - 1)\n"
          "        for (int j = 0; j < T; ++j) p[j] = 0.f;\n"
          "      sum_over_lanes<G>(p, lane);\n")],
@@ -161,11 +164,11 @@ MIXER_MUTANTS = {
 # faults whose verdict is printed, not required
 MIXER_REPORTED = {
     "K2 dt operands unrounded": [
-        (K2S, "wdt[e] = scan_round_bf16(w);  // dt_proj's operand", "wdt[e] = w;"),
-        (K2S, "        x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);\n"
+        (WALK, "wdt[e] = scan_round_bf16(w);  // dt_proj's operand", "wdt[e] = w;"),
+        (WALK, "        x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);\n"
               "        x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);\n", "")],
     "K2 pooled from the rounded y": [
-        (K2S, "pool0 += y0, pool1 += y1;",
+        (WALK, "pool0 += y0, pool1 += y1;",
          "pool0 += scan_round_bf16(y0), pool1 += scan_round_bf16(y1);")],
     "K7 two-pass LayerNorm": [(EPI, "epilogue<__nv_bfloat16, true>(",
                                "epilogue<__nv_bfloat16, false>(")],
@@ -184,7 +187,14 @@ SEQ_MUTANTS = {
     "K3 y through bf16": [
         (K3S, "fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]);",
          "scan_round_bf16(fmaf(D_s, scan_widen(ud[row * UP + sc]), ytile[row * CBP + sc]));")],
-    "K5 y truncated": [(SCAN, "*p = __float2bfloat16_rn(v);", "*p = __float2bfloat16_rz(v);")],
+    "K5 y truncated": MIXER_MUTANTS["K2 y truncated"],
+    "K5 carry of the previous chunk dropped": MIXER_MUTANTS["K2 carry of the previous chunk dropped"],
+    "K5 directions 2 and 3 stored untransposed": [
+        (WALK, "*out_at = out;  // y's row: in the transposed image for directions 2 and 3",
+         "*out_at = pixel;")],
+    "K5 shifted lead stripe taken at full width": [
+        (SCAN, "const int w = min(SL, (shift && col0 == 0) ? half : Wg - col0);",
+         "const int w = min(SL, Wg - col0);")],
 }
 # faults whose verdict is printed, not required
 SEQ_REPORTED = {
@@ -192,12 +202,8 @@ SEQ_REPORTED = {
         (K3S, "wdt[e] = kBf16 ? scan_round_bf16(w) : w;", "wdt[e] = w;"),
         (K3S, "x4.x = scan_round_bf16(x4.x), x4.y = scan_round_bf16(x4.y);", ""),
         (K3S, "x4.z = scan_round_bf16(x4.z), x4.w = scan_round_bf16(x4.w);", ""),
-        (SCAN, "wdt_s[r * bw + tid] = kBf16Io<Path> ? scan_round_bf16(w) : w;",
-         "wdt_s[r * bw + tid] = w;"),
-        (SCAN, "xt[p * CS + j] = scan_round_bf16(xt[p * CS + j]);", "(void)xt;")],
-    "K5 pooled from the rounded y": [
-        (SCAN, "if (kImageRows<Path>) pool += out;",
-         "if (kImageRows<Path>) pool += kBf16Io<Path> ? scan_round_bf16(out) : out;")],
+        *MIXER_REPORTED["K2 dt operands unrounded"]],
+    "K5 pooled from the rounded y": MIXER_REPORTED["K2 pooled from the rounded y"],
 }
 
 # K2's bf16-recurrence body: faults the check must reject
@@ -227,9 +233,11 @@ SHAPES = [("level3", 64, 192, 4, False), ("level1", 256, 48, 1, False),
           ("level2 WithBias", 128, 96, 2, True)]
 # (label, B, H, W, K2's shifts): MaIR-CDN's mixer shapes
 MIXER_SHAPES = [("CDN@128 B=2", 2, 128, 128, (False, True)), ("96x72 B=1", 1, 96, 72, (True,))]
-# (kernel, B, H, W, MaIRUNet's stage whose block 0 gives K3's weights, or K5's shift)
+# (kernel, B, H, W, MaIRUNet's stage whose block 0 gives K3's weights, or K5's
+# shift): K5's walk takes several chunks at the first two of its shapes on an
+# H100 and one at B 8, 64x64
 SEQ_SHAPES = [("K3", 1, 96, 82, "encoder_level3"), ("K3", 1, 48, 41, "latent"),
-              ("K5", 2, 128, 128, True), ("K5", 1, 96, 72, False)]
+              ("K5", 2, 128, 128, True), ("K5", 1, 96, 72, False), ("K5", 8, 64, 64, True)]
 
 _CHECK = r"""
 import json, sys
