@@ -181,6 +181,25 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     their serving bodies, or the recur body in K2's place, 36 a chunk);
     every row's PSNR must lie within 0.01 dB and its SSIM within 1e-3 of
     the same run with the models' plain twins, the text columns equal.
+17. The plain-conv families, which carry no hand kernel (cuDNN convs and
+    plain PyTorch): seeded checkpoints in the released formats in a
+    temporary tree (DnCNN's ``dncnn_25.pth`` and ``dncnn_color_blind.pth``,
+    REDNet's ``50.pt`` and the same weights as a ``50.caffemodel``,
+    DeblurGANv2's ``fpn_mobilenet.h5`` and ``fpn_inception.h5``), each
+    built through the zoo at full width and depth in parity and in serving
+    and served through the engine: DnCNN gray sigma=25 and color blind and
+    REDNet sigma=50 (from the ``.pt``, then from the ``.caffemodel``) on a
+    BSD68-sized 481x321 request with host AWGN, DeblurGANv2 MobileNet and
+    Inception on a GoPro-sized 720x1280 frame blurred by a 9-pixel
+    horizontal box, scored against the sharp frame. Each path serves
+    ``PLAIN_ROUNDS`` rounds with the kernels' counts set to 0 and must
+    launch no hand kernel and repeat bit for bit; parity must agree with
+    the port's CPU path within 1 uint8 LSB and serving's PSNR with
+    parity's within 0.05 dB; one patch at the model's patch size alone and
+    the same patch in a batch of 8 must agree within ``PLAIN_BATCH_TOL``
+    (DeblurGANv2's per-sample norms); the ``.caffemodel`` must serve the
+    ``.pt``'s output bit for bit. Engine Mpix/s is printed for parity and
+    serving.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -358,6 +377,14 @@ RECUR_MAIR_REQUESTS = [(200, 150), (96, 72)]
 RECUR_UNET_REQUESTS = [(256, 256), (120, 90)]
 HARNESS_IMAGES = [(96, 72), (64, 80)]  # one tile each for both models
 HARNESS_PSNR_DB, HARNESS_SSIM = 0.01, 1e-3  # a harness row against its plain-path twin
+# Phase 17, the plain-conv families: a BSD68-sized and a GoPro-sized request
+# (H x W), the rounds each path serves, and the bound on |one patch alone -
+# the same patch in a batch of 8| of a model's step output in [0, 1]
+# (float32 noise: cuDNN may sum in another order at another batch).
+PLAIN_BSD68 = (481, 321)
+PLAIN_GOPRO = (720, 1280)
+PLAIN_ROUNDS = 2
+PLAIN_BATCH_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2438,6 +2465,141 @@ def phase_harness(device):
     return launches
 
 
+def write_plain_conv_checkpoints(wdir):
+    """Phase 17's seeded checkpoints in the released formats under ``wdir``:
+    DnCNN's ``.pth`` state dicts (gray sigma=25, color blind), REDNet's
+    ``50.pt`` and the same weights as ``50.caffemodel`` under ``wdir/caffe``,
+    DeblurGANv2's ``.h5`` pickles (``model``, DataParallel ``module.``
+    keys). Returns the caffemodel's weights root."""
+    import torch
+
+    from tpuir_torch.models import dncnn, rednet
+    from tpuir_torch.models.deblurgan import fpn_inception, fpn_mobilenet
+    from tpuir_torch.weights.caffe import write_caffemodel
+
+    def save(rel, obj):
+        path = os.path.join(wdir, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(obj, path)
+
+    save("DnCNN/dncnn_25.pth", dncnn.init_state_dict(1, 17, seed=SEED))
+    save("DnCNN/dncnn_color_blind.pth", dncnn.init_state_dict(3, 20, seed=SEED + 1))
+    red = rednet.init_state_dict(seed=SEED + 2)
+    save("REDNet/50.pt", red)
+    caffe_root = os.path.join(wdir, "caffe")
+    os.makedirs(os.path.join(caffe_root, "REDNet"))
+    write_caffemodel(os.path.join(caffe_root, "REDNet", "50.caffemodel"),
+                     {k: v.numpy() for k, v in red.items()})
+    for variant, mod in (("mobilenet", fpn_mobilenet), ("inception", fpn_inception)):
+        sd = mod.init_state_dict(seed=SEED + 3)
+        save(f"DeblurGANv2/fpn_{variant}.h5", {"model": {f"module.{k}": v for k, v in sd.items()}})
+    return caffe_root
+
+
+def motion_blurred(img, length=9):
+    """A horizontal box blur of ``length`` pixels (edges repeated): a
+    synthetic motion-blurred input whose target is ``img``."""
+    pad = np.pad(img.astype(np.float64), ((0, 0), (length // 2, length // 2), (0, 0)), "edge")
+    out = sum(pad[:, i:i + img.shape[1]] for i in range(length)) / length
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def batch_invariance(model, chans, seed):
+    """max|step(patch) - step(batch of 8)[3]| of ``model`` (parity) at its
+    patch size, on random uint8 patches normalized by its own hook."""
+    import torch
+
+    ps = model.patch_size
+    raw = (np.random.RandomState(seed).rand(8, ps, ps, chans) * 255).astype(np.uint8)
+    x = torch.from_numpy(np.stack([model.normalize(p) for p in raw])).to(model.device)
+    x = x.permute(0, 3, 1, 2)  # NHWC viewed as NCHW, as the engine hands chunks over
+    batched, alone = model.step(x), model.step(x[3:4])
+    return float((batched[3] - alone[0]).abs().max())
+
+
+def phase_plain_conv(device, bsd68=PLAIN_BSD68, gopro=PLAIN_GOPRO):
+    """The plain-conv families on the card (see phase 17 in the module
+    docstring). Returns {cell: (parity Mpix/s, serving Mpix/s)}."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.ops import _kernels
+
+    clean = synthetic_image(*bsd68, SEED + 40)
+    gray = np.round(clean.astype(np.float64).mean(-1, keepdims=True)).astype(np.uint8)
+    sharp = synthetic_image(*gopro, SEED + 41)
+    blurred = motion_blurred(sharp)
+    # (label, zoo route, weights root ("caffe": the caffemodel's), input,
+    # target, host AWGN sigma or None)
+    cells = [
+        ("DnCNN gray sigma=25", ("denoising", "gaussian", "DnCNN", True, 25), "", gray, gray, 25),
+        ("DnCNN color blind", ("denoising", "gaussian", "DnCNN", False, None), "", clean, clean,
+         25),
+        ("REDNet sigma=50 .pt", ("denoising", "gaussian", "REDNet", True, 50), "", gray, gray,
+         50),
+        ("REDNet sigma=50 .caffemodel", ("denoising", "gaussian", "REDNet", True, 50), "caffe",
+         gray, gray, 50),
+        ("DeblurGANv2 (MobileNet)", ("deblurring", "motion", "DeblurGANv2 (MobileNet)", False,
+                                     None), "", blurred, sharp, None),
+        ("DeblurGANv2 (Inception)", ("deblurring", "motion", "DeblurGANv2 (Inception)", False,
+                                     None), "", blurred, sharp, None),
+    ]
+    rates, parity_out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_plain_conv_") as wdir:
+        caffe_root = write_plain_conv_checkpoints(wdir)
+        for label, (task, subtask, name, is_gray, sigma), root, img, target, noise in cells:
+            t0 = time.time()
+            kw = dict(gray=is_gray, sigma=sigma, weights_dir=caffe_root if root else wdir)
+            models = {p: zoo.get_model_instance(task, subtask, name, precision=p, device=device,
+                                                **kw) for p in ("parity", "serving")}
+            cpu_model = zoo.get_model_instance(task, subtask, name, device="cpu", **kw)
+            for m in models.values():  # warm-up: cuDNN and allocator, not counted
+                serve(m, [img], noise, [target])
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            served = {p: [serve(m, [img], noise, [target])[0] for _ in range(PLAIN_ROUNDS)]
+                      for p, m in models.items()}
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+            if launched:
+                fail(f"{label}: hand kernels launched on a plain-conv path: {launched}")
+            h, w = img.shape[:2]
+            ms = {p: float(np.median([r[1] for r in rounds])) for p, rounds in served.items()}
+            for p, rounds in served.items():
+                if any(not np.array_equal(r[0], rounds[0][0]) for r in rounds):
+                    fail(f"{label}: the {p} path is not repeatable")
+            (pred, _, psnr, ssim), (spred, _, spsnr, sssim) = (served["parity"][0],
+                                                               served["serving"][0])
+            (cpu_pred, _, _, _), = serve(cpu_model, [img], noise, [target])
+            cpu_lsb = lsb(pred, cpu_pred)
+            dpsnr = spsnr - psnr
+            inv = batch_invariance(models["parity"], img.shape[2], SEED + 50)
+            rates[label] = tuple(h * w / 1e3 / ms[p] for p in ("parity", "serving"))
+            print(f"plain-conv {label}: {models['parity'].param_count:,} params, patch "
+                  f"{models['parity'].patch_size} overlap {models['parity'].patch_overlap}, "
+                  f"request {h}x{w}x{img.shape[2]}; parity PSNR {psnr:.4f} dB SSIM {ssim:.5f}, "
+                  f"{ms['parity']:.1f} ms {rates[label][0]:.3f} Mpix/s; serving PSNR {spsnr:.4f} "
+                  f"dB SSIM {sssim:.5f} (PSNR {dpsnr:+.4f} dB), {ms['serving']:.1f} ms "
+                  f"{rates[label][1]:.3f} Mpix/s; card vs CPU {cpu_lsb} LSB; repeatable over "
+                  f"{PLAIN_ROUNDS} rounds each; one patch alone vs in a batch of 8: max|d| "
+                  f"{inv:.3e}; no hand-kernel launch  [{time.time() - t0:.0f} s]", flush=True)
+            if cpu_lsb > 1:
+                fail(f"{label}: card and CPU differ by {cpu_lsb} uint8 LSB")
+            if abs(dpsnr) > SERVING_PSNR_DB:
+                fail(f"{label}: serving PSNR {spsnr:.4f} dB against parity's {psnr:.4f}")
+            if not inv <= PLAIN_BATCH_TOL:
+                fail(f"{label}: a patch alone and in a batch of 8 differ by {inv:.3e}")
+            parity_out[label] = pred
+            del models, cpu_model
+            torch.cuda.empty_cache()
+    if not np.array_equal(parity_out["REDNet sigma=50 .pt"],
+                          parity_out["REDNet sigma=50 .caffemodel"]):
+        fail("REDNet from the .caffemodel differs from the same weights' .pt")
+    print("plain-conv REDNet sigma=50: the .caffemodel serves the .pt's output bit for bit",
+          flush=True)
+    return rates
+
+
 def main() -> int:
     import torch
 
@@ -2554,6 +2716,9 @@ def main() -> int:
     for name, n in phase_harness(device).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[harness {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    phase_plain_conv(device)
+    print(f"[plain-conv families {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -72,15 +72,27 @@ def test_zoo_missing_checkpoint_raises(tmp_path):
         ("Restormer", dict(precision="serving"), FileNotFoundError),
         # so is MaIRUNet's: an absent checkpoint is what stops it
         ("MaIR", dict(subtask="real", sigma=None, precision="serving"), FileNotFoundError),
-        ("DnCNN", {}, NotImplementedError),
+        # the plain-conv families are ported: an absent checkpoint stops them
+        ("DnCNN", dict(gray=True), FileNotFoundError),
         ("Restormer", dict(sigma=35), ValueError),
+        ("DnCNN", dict(sigma=None), FileNotFoundError),  # color blind
+        ("REDNet", dict(gray=True, sigma=50, precision="serving"), FileNotFoundError),
+        ("DeblurGANv2 (MobileNet)", dict(task="deblurring", subtask="motion", sigma=None),
+         FileNotFoundError),
+        ("DeblurGANv2 (Inception)", dict(task="deblurring", subtask="motion", sigma=None,
+                                         precision="serving"), FileNotFoundError),
+        # and configurations tpuir's zoo refuses are refused
+        ("DnCNN", {}, ValueError),  # color is blind-only (tpuir/zoo.py:96)
+        ("REDNet", dict(gray=True, sigma=None), ValueError),
+        ("DeblurGANv2", dict(task="deblurring", subtask="motion", sigma=None), ValueError),
+        ("DeblurGANv2 (MobileNet)", {}, ValueError),
     ],
 )
 def test_zoo_refuses_what_is_not_ported(tmp_path, model_name, kw, err):
-    kw = dict(dict(subtask="gaussian", gray=False, sigma=25, weights_dir=str(tmp_path),
-                   device="cpu"), **kw)
+    kw = dict(dict(task="denoising", subtask="gaussian", gray=False, sigma=25,
+                   weights_dir=str(tmp_path), device="cpu"), **kw)
     with pytest.raises(err):
-        zoo.get_model_instance("denoising", kw.pop("subtask"), model_name, **kw)
+        zoo.get_model_instance(kw.pop("task"), kw.pop("subtask"), model_name, **kw)
 
 
 def test_zoo_full_width_matches_tpuir(tmp_path):

@@ -162,8 +162,8 @@ def test_csv_rows_match_tpuir(tmp_path, monkeypatch):
 
 
 def test_unported_family_cell_is_skipped(tmp_path, monkeypatch, capsys):
-    """A DnCNN cell prints a skip and leaves no row (the zoo raises
-    NotImplementedError for the family); so does a missing checkpoint."""
+    """A DnCNN cell whose checkpoint is missing prints a skip and leaves no
+    row (the zoo raises FileNotFoundError); so does a Restormer one."""
     _write_images(tmp_path / "datasets" / "denoising" / "gaussian" / "test" / "CBSD68",
                   ["1.png"], (8, 8), 6)
     monkeypatch.setenv("TPUIR_DATASET_DIR", str(tmp_path / "datasets"))
@@ -171,7 +171,7 @@ def test_unported_family_cell_is_skipped(tmp_path, monkeypatch, capsys):
                      device="cpu")
     h.gaussian_color_blind(datasets=("CBSD68",), sigmas=(15,), models=("DnCNN", "Restormer"))
     out = capsys.readouterr().out
-    assert "DnCNN is not ported" in out and "weights for Restormer not found" in out
+    assert "weights for DnCNN not found" in out and "weights for Restormer not found" in out
     assert h.results_table == []
     with open(h.save_results()) as f:
         assert len(f.read().splitlines()) <= 1  # no row

@@ -71,6 +71,13 @@ def normalize_image(img: np.ndarray) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def normalize_signed(img: np.ndarray) -> np.ndarray:
+    """DeblurGANv2 normalization to [-1, 1]: (x - 127.5) / 127.5 for uint8,
+    as the original's albumentations ``Normalize(mean=0.5, std=0.5,
+    max_pixel_value=255)``."""
+    return ((img.astype(np.float32) / 255.0) - 0.5) / 0.5
+
+
 def restore_dtype(output_img: np.ndarray, input_img: np.ndarray) -> np.ndarray:
     """Convert the float [0,1] engine output back to the input's dtype."""
     if input_img.dtype == np.uint16:

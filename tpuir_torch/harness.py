@@ -8,10 +8,10 @@ command line, run on the port's zoo and engine: the same seven suites with
 the same defaults, the same cell runner (zoo -> ``core.engine.
 run_model_inference`` with the suite's patch configuration and host AWGN ->
 ``core.metrics.calculate_metrics``), the same CSV columns and Type strings
-in ``results_summary.csv`` under the results root. A cell whose weights are
-absent (``FileNotFoundError``) or whose family the port does not hold yet
-(``NotImplementedError``: DnCNN, REDNet, DeblurGANv2) prints a skip and adds
-no row. Models run on the card unless ``device`` says otherwise; precision,
+in ``results_summary.csv`` under the results root, for all five families
+(DnCNN, REDNet and DeblurGANv2 in the gray, blind and motion suites). A
+cell whose weights are absent (``FileNotFoundError``) prints a skip and
+adds no row. Models run on the card unless ``device`` says otherwise; precision,
 MaIR's NSS route and K2's bf16 recurrence follow the zoo's knobs
 (``TPUIR_PRECISION``, ``TPUIR_NSS``, ``TPUIR_RECUR_BF16``) unless given.
 """
@@ -72,15 +72,13 @@ class Harness:
 
     def _model(self, task, subtask, model_name, gray, sigma):
         """The zoo's model, or None (a skip printed) where the weights are
-        absent or the family is not ported."""
+        absent."""
         try:
             return zoo.get_model_instance(task, subtask, model_name, gray=gray, sigma=sigma,
                                           weights_dir=self.weights_dir, device=self.device,
                                           **self.model_kw)
         except FileNotFoundError:
             print(f"Model weights for {model_name} not found. Skipping this model.")
-        except NotImplementedError as e:
-            print(f"{model_name} is not ported ({e}). Skipping this model.")
         return None
 
     # -- generic cell runner ------------------------------------------------

@@ -1,15 +1,18 @@
 """Model zoo of the PyTorch port: (task, subtask, model, gray, sigma) -> InferenceModel.
 
-The counterpart of ``tpuir/zoo.py``. The port holds the Restormer family
-(all 12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15, 25
-and 50) and MaIRUNet (MaIR's real denoising and motion deblurring), each in
-parity and serving precision, MaIR on every NSS route and with K2's
-bf16-recurrence serving body under ``recur_bf16``; the other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-Checkpoints are the released
-files, read with ``torch.load(..., weights_only=True)``; a missing file
-raises ``FileNotFoundError``, which the harness treats as "skip this cell".
-Models are built on the card unless the caller asks for another device.
+The counterpart of ``tpuir/zoo.py``, for all five families: Restormer (all
+12 released configs), MaIR-CDN (Gaussian color denoising, sigma 15, 25 and
+50), MaIRUNet (MaIR's real denoising and motion deblurring), each in parity
+and serving precision, MaIR on every NSS route and with K2's
+bf16-recurrence serving body under ``recur_bf16``; and the plain-conv
+families DnCNN (gray sigma 15/25/50, gray blind, color blind), REDNet
+(sigma 15/25/50) and DeblurGANv2 (MobileNet, Inception), which carry no
+hand kernel: their layers are cuDNN convolutions and plain PyTorch.
+Checkpoints are the released files, read with ``torch.load(...,
+weights_only=True)`` (REDNet's ``.caffemodel`` with ``weights/caffe.py``);
+a missing file raises ``FileNotFoundError``, which the harness treats as
+"skip this cell". Models are built on the card unless the caller asks for
+another device.
 """
 
 from __future__ import annotations
@@ -167,11 +170,7 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
     net = (m.MaIR(**MAIR_CDN_CONFIG, fused=True, nss=nss, serving=serving, recur_bf16=recur)
            if gaussian else mu.MaIRUNet(**MAIR_UNET_CONFIG, fused=True, nss=nss,
                                         serving=serving, recur_bf16=recur))
-    # keys the model does not hold (if a checkpoint carries any) are ignored,
-    # as the JAX converter ignores them; a missing or misshapen one raises
-    keys = net.state_dict().keys()
-    net.load_state_dict({k: v for k, v in sd.items() if k in keys})
-    net = net.to(device).eval().requires_grad_(False)
+    net = _load_own_keys(net, sd).to(device).eval().requires_grad_(False)
     pc = get_patch_config(task, subtask, "MaIR")
     return InferenceModel(
         name="MaIR", net=net, device=device,
@@ -182,12 +181,95 @@ def build_mair(weights_dir: str, task: str, subtask: str, sigma,
     )
 
 
-# The ROADMAP Queue 1 item that ports each family not held yet.
-_NOT_PORTED = {
-    "REDNet": "Queue 1, 'Plain-conv families'",
-    "DnCNN": "Queue 1, 'Plain-conv families'",
-    "DeblurGANv2": "Queue 1, 'Plain-conv families'",
-}
+def _load_own_keys(net: torch.nn.Module, sd) -> torch.nn.Module:
+    """Load the keys ``net`` holds from ``sd`` (others ignored, as tpuir's
+    converters ignore them; a missing or misshapen one raises)."""
+    keys = net.state_dict().keys()
+    net.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items() if k in keys})
+    return net
+
+
+def _plain_conv_model(name: str, net: torch.nn.Module, device, precision: str,
+                      serving_dtype: str, patch: dict, **hooks) -> InferenceModel:
+    """A plain-conv family's bundle: float32 parity (TF32 off), or in serving
+    the engine's ``serving_dtype`` as the JAX zoo sets it."""
+    device = torch.device(device)
+    net = net.to(device).eval().requires_grad_(False)
+    return InferenceModel(
+        name=name, net=net, device=device,
+        patch_size=patch["patch_size"], patch_overlap=patch["patch_overlap"],
+        param_count=param_count(net),
+        compute_dtype=serving_dtype if resolve_precision(precision) == "serving" else None,
+        **hooks,
+    )
+
+
+def build_rednet(weights_dir: str, sigma, precision: str = "parity",
+                 device: Union[str, torch.device] = "cuda") -> InferenceModel:
+    """The released REDNet for this sigma, from ``REDNet/{sigma}.pt`` or else
+    ``REDNet/{sigma}.caffemodel`` (read by the port's copy of tpuir's caffe
+    reader). Serving: ``compute_dtype="bfloat16"``, as ``tpuir/zoo.py``."""
+    from tpuir_torch.models.rednet import REDNet
+    from tpuir_torch.weights.caffe import caffemodel_to_state_dict
+
+    pt = os.path.join(weights_dir, "REDNet", f"{sigma}.pt")
+    cm = os.path.join(weights_dir, "REDNet", f"{sigma}.caffemodel")
+    if os.path.exists(pt):
+        sd = _load_sd(pt)
+    elif os.path.exists(cm):
+        sd = caffemodel_to_state_dict(cm)
+    else:
+        raise FileNotFoundError(pt)
+    return _plain_conv_model("REDNet", _load_own_keys(REDNet(), sd), device, precision,
+                             "bfloat16", get_patch_config("denoising", "gaussian", "REDNet"))
+
+
+def build_dncnn(weights_dir: str, gray: bool, sigma, precision: str = "parity",
+                device: Union[str, torch.device] = "cuda") -> InferenceModel:
+    """The released DnCNN for this config, as ``tpuir/zoo.py:86-107`` picks
+    it: gray ``dncnn_{sigma}.pth`` (17 layers) or ``dncnn_gray_blind.pth``
+    (20), color ``dncnn_color_blind.pth`` (20; color is blind-only), 64
+    wide. Serving: ``compute_dtype="bfloat16"``, as ``tpuir/zoo.py``."""
+    from tpuir_torch.models.dncnn import DnCNN
+
+    if gray:
+        fname, nc, nb = ((f"dncnn_{sigma}.pth", 1, 17) if sigma is not None
+                         else ("dncnn_gray_blind.pth", 1, 20))
+    elif sigma is not None:
+        raise ValueError("DnCNN color is blind-only")
+    else:
+        fname, nc, nb = "dncnn_color_blind.pth", 3, 20
+    sd = _load_sd(os.path.join(weights_dir, "DnCNN", fname))
+    net = _load_own_keys(DnCNN(in_nc=nc, out_nc=nc, nc=64, nb=nb), sd)
+    return _plain_conv_model("DnCNN", net, device, precision, "bfloat16",
+                             get_patch_config("denoising", "gaussian", "DnCNN"))
+
+
+def build_deblurgan(weights_dir: str, variant: str, precision: str = "parity",
+                    device: Union[str, torch.device] = "cuda") -> InferenceModel:
+    """The released DeblurGANv2 generator (``variant`` "MobileNet" or
+    "Inception") from ``DeblurGANv2/fpn_{mobilenet,inception}.h5`` (a torch
+    pickle: ``model``, DataParallel ``module.`` keys), in its plain layout,
+    with the engine hooks of ``tpuir/zoo.py``: the always-pad to 32, the
+    [-1, 1] normalize and ``(x + 1) / 2``. Serving: ``compute_dtype=
+    "float32"`` (float32 activations, cuDNN at TF32)."""
+    from tpuir_torch.core.image_io import normalize_signed
+    from tpuir_torch.models.deblurgan import FPNInception, FPNMobileNet, load_checkpoint
+
+    if variant not in ("MobileNet", "Inception"):
+        raise ValueError(f"no DeblurGANv2 variant {variant!r}")
+    sd = _load_sd(os.path.join(weights_dir, "DeblurGANv2", f"fpn_{variant.lower()}.h5"),
+                  key="model")
+    net = load_checkpoint(FPNInception() if variant == "Inception" else FPNMobileNet(), sd)
+    name = f"DeblurGANv2 ({variant})"
+    return _plain_conv_model(name, net, device, precision, "float32",
+                             get_patch_config("deblurring", "motion", name),
+                             pad_block=32, normalize=normalize_signed,
+                             postprocess=_signed_to_unit)
+
+
+def _signed_to_unit(y: torch.Tensor) -> torch.Tensor:
+    return (y + 1) / 2.0
 
 
 def get_model_instance(
@@ -207,16 +289,24 @@ def get_model_instance(
     bf16-recurrence serving body under ``recur_bf16``, see
     ``resolve_recur_bf16``).
 
-    Raises ValueError for unsupported combinations, NotImplementedError for
-    families and modes not ported yet, and FileNotFoundError when the
-    weights are absent.
+    Raises ValueError for unsupported combinations and FileNotFoundError
+    when the weights are absent, with the routing of ``tpuir/zoo.py:294-306``.
     """
     weights_dir = weights_dir or ROOT_WEIGHTS_DIR
     precision = resolve_precision(precision)
     key = model_name.split(" ")[0]
-    if key in _NOT_PORTED:
-        raise NotImplementedError(f"{key} is not ported yet: ROADMAP {_NOT_PORTED[key]}")
-    if key == "Restormer":
+    if key == "REDNet":
+        if task == "denoising" and subtask == "gaussian" and sigma is not None:
+            return build_rednet(weights_dir, sigma, precision, device)
+    elif key == "DnCNN":
+        if task == "denoising" and subtask == "gaussian" and (gray or sigma is None):
+            return build_dncnn(weights_dir, gray, sigma, precision, device)
+    elif key == "DeblurGANv2":
+        if task == "deblurring" and subtask == "motion":
+            for variant in ("Inception", "MobileNet"):
+                if variant in model_name:
+                    return build_deblurgan(weights_dir, variant, precision, device)
+    elif key == "Restormer":
         sub = "defocus-dual" if ("Dual-pixel" in model_name and subtask == "defocus") else subtask
         if (task, sub, gray, sigma) in RESTORMER_CONFIGS:
             return build_restormer(weights_dir, task, sub, gray, sigma, precision, device)
