@@ -200,6 +200,31 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     (DeblurGANv2's per-sample norms); the ``.caffemodel`` must serve the
     ``.pt``'s output bit for bit. Engine Mpix/s is printed for parity and
     serving.
+18. The engine's in-flight window, its host split, and the user entry
+    points. Every phase above serves through the window (``max_in_flight``
+    4, the default). (a) Restormer sigma=25 on phase 3's 512x512 request,
+    MaIR-CDN sigma=25 on phase 5's 256x256 and REDNet sigma=50 on phase
+    17's 481x321, each in parity and serving, and MaIRUNet on phase 7's
+    720x1280 frame (parity), built through the zoo from seeded checkpoints,
+    and Restormer and REDNet serving again at engine batch 2 (5 and 10
+    chunks: every staging buffer refilled, the window full), are served
+    with ``max_in_flight`` 1, 2 and 4 in turns, three rounds: the outputs
+    must be bit-equal across windows and rounds and each serve's launches
+    the same, a chunk's as its path's; engine Mpix/s for each window.
+    (b) Each batch-8 request of (a), DnCNN gray sigma=25 on 481x321 and
+    DeblurGANv2 MobileNet and Inception on 720x1280 in parity and serving,
+    split by ``utils.profiling.engine_split`` (host ms by step, median of 3)
+    and ``profiled_requests`` (the card's copy and kernel ms, busy ms and
+    idle share over two requests). (c) ``demo_core.run_restoration`` on
+    ``cuda:0`` with the seeded sigma=25 color Restormer and MaIR-CDN, on a
+    200x150 image with AWGN: its output must equal ``run_model_inference``
+    on the same model and noisy input bit for bit, with K1's and K6's,
+    K2's and K7's launches counted. (d) ``scripts.test_demo``'s gaussian
+    color non-blind suite on a temporary demo directory (both PNGs written,
+    PSNR finite), ``scripts.test_patch_size`` for DnCNN gray (its trials
+    and result) and ``scripts.validate_serving`` for DnCNN and Restormer on
+    one synthetic image (its JSON written to a temporary path, serving
+    within 0.05 dB of parity).
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -2600,6 +2625,233 @@ def phase_plain_conv(device, bsd68=PLAIN_BSD68, gopro=PLAIN_GOPRO):
     return rates
 
 
+# Phase 18: (label, utils.profiling model, precision, per-chunk launches,
+# engine batch) of the window's requests (utils.profiling.ENGINE_REQUESTS'
+# sizes), then the requests that are only split. At batch 8 a request has
+# 2-3 chunks, so the ring of min(4, chunks) staging buffers is never reused
+# at max_in_flight 4; the batch-2 requests (5 and 10 chunks) refill every
+# buffer and fill the window at each of WINDOWS.
+WINDOW_CELLS = [
+    ("Restormer sigma=25", "restormer", "parity", {"fused_transformer_block": 44}, 8),
+    ("Restormer sigma=25", "restormer", "serving", {"fused_transformer_block_serving": 44}, 8),
+    ("Restormer sigma=25", "restormer", "serving", {"fused_transformer_block_serving": 44}, 2),
+    ("MaIR-CDN sigma=25", "mair", "parity", dict.fromkeys(
+        ("mixer_prologue", "nss_scan", "mixer_epilogue"), MAIR_BLOCKS), 8),
+    ("MaIR-CDN sigma=25", "mair", "serving", dict.fromkeys(MIXER_SERVING, MAIR_BLOCKS), 8),
+    ("REDNet sigma=50", "rednet", "parity", {}, 8),
+    ("REDNet sigma=50", "rednet", "serving", {}, 8),
+    ("REDNet sigma=50", "rednet", "serving", {}, 2),
+    ("MaIRUNet", "mairunet", "parity", dict.fromkeys(
+        ("mixer_prologue", "nss_scan", "mixer_epilogue"), 44), 8),
+]
+WINDOWS = (1, 2, 4)
+SPLIT_CELLS = [("DnCNN gray sigma=25", "dncnn"), ("DeblurGANv2 (MobileNet)", "deblurgan-mobilenet"),
+               ("DeblurGANv2 (Inception)", "deblurgan-inception")]
+DEMO_IMAGE = (200, 150)
+
+
+def window_request(key):
+    """Phase 18's request of ``key``: (image, host AWGN sigma or None), the
+    earlier phases' requests of the same size."""
+    from tpuir_torch.utils.profiling import ENGINE_REQUESTS
+
+    (_, _, _, gray, _), (h, w), sigma = ENGINE_REQUESTS[key]
+    if key in ("rednet", "dncnn"):
+        clean = synthetic_image(h, w, SEED + 40)
+        return np.round(clean.astype(np.float64).mean(-1, keepdims=True)).astype(np.uint8), sigma
+    if key == "mairunet":
+        return noisy_image(synthetic_image(h, w, SEED), SEED + 100), None
+    if key.startswith("deblurgan"):
+        return motion_blurred(synthetic_image(h, w, SEED + 41)), None
+    return synthetic_image(h, w, SEED), sigma
+
+
+def seeded_zoo_model(key, precision, wdir, device):
+    from tpuir_torch import zoo
+    from tpuir_torch.utils.profiling import ENGINE_REQUESTS
+
+    (task, subtask, name, gray, sigma), _, _ = ENGINE_REQUESTS[key]
+    return zoo.get_model_instance(task, subtask, name, gray=gray, sigma=sigma, weights_dir=wdir,
+                                  precision=precision, device=device)
+
+
+def print_split(label, precision, model, img, sigma):
+    """Phase 18 (b): one request's host split and the card's."""
+    from tpuir_torch.core.engine import run_model_inference
+    from tpuir_torch.utils.profiling import HOST_STEPS, card_line, engine_split, profiled_requests
+
+    want, _ = run_model_inference(model, img, need_degradation=sigma is not None,
+                                  noise_level=sigma)
+    splits = []
+    for _ in range(ROUNDS):
+        out, ms = engine_split(model, img, sigma)
+        if not np.array_equal(out, want):
+            fail(f"{label} {precision}: the split's output differs from the engine's")
+        splits.append(ms)
+    host = {k: float(np.median([s[k] for s in splits])) for k in HOST_STEPS + ("wall",)}
+    dev = profiled_requests(lambda: engine_split(model, img, sigma))
+    h, w = img.shape[:2]
+    card = card_line(dev) + (" (profiled)" if dev else "")
+    print(f"split {label} {precision} {h}x{w}: wall {host['wall']:.2f} ms "
+          f"{h * w / 1e3 / host['wall']:.3f} Mpix/s; host " + " ".join(
+              f"{k} {host[k]:.2f}" for k in HOST_STEPS) + f"; {card}", flush=True)
+
+
+def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
+    """Phase 18 (a) and (b). Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch.core.engine import run_model_inference
+    from tpuir_torch.ops import _kernels
+    from tpuir_torch.utils.profiling import write_seeded_checkpoint
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_window_") as wdir:
+        for key in dict.fromkeys(cell[1] for cell in cells):
+            write_seeded_checkpoint(key, wdir, seed=SEED)
+        for label, key, precision, per_chunk, batch in cells:
+            model = seeded_zoo_model(key, precision, wdir, device)
+            model.batch_size = batch
+            img, sigma = window_request(key)
+            h, w = img.shape[:2]
+            serve_kw = dict(need_degradation=sigma is not None, noise_level=sigma)
+            run_model_inference(model, img, **serve_kw)  # warm-up, not counted
+            torch.cuda.synchronize()
+            chunks = chunks_for(model, h, w)
+            want = {k: n * chunks for k, n in per_chunk.items()}
+            outs, ms = [], {m: [] for m in WINDOWS}
+            for r in range(ROUNDS):
+                for mif in WINDOWS[r % len(WINDOWS):] + WINDOWS[:r % len(WINDOWS)]:
+                    _kernels.reset_launches()
+                    pred, t_ms = run_model_inference(model, img, max_in_flight=mif, **serve_kw)
+                    torch.cuda.synchronize()
+                    got = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+                    if got != want:
+                        fail(f"window {label} {precision} max_in_flight={mif}: launches {got}, "
+                             f"expected {want}")
+                    for k, n in got.items():
+                        launches[k] = launches.get(k, 0) + n
+                    outs.append(pred)
+                    ms[mif].append(t_ms)
+            if any(not np.array_equal(o, outs[0]) for o in outs):
+                fail(f"window {label} {precision}: outputs differ across windows or rounds")
+            print(f"window {label} {precision} {h}x{w} batch {batch} ({chunks} chunks): bit-equal "
+                  f"over max_in_flight {', '.join(map(str, WINDOWS))}, {ROUNDS} rounds; launches "
+                  f"a serve {want}; engine " + ", ".join(
+                      f"max_in_flight={m} {h * w / 1e3 / float(np.median(v)):.3f} Mpix/s"
+                      for m, v in ms.items()), flush=True)
+            if batch == 8:
+                print_split(label, precision, model, img, sigma)
+            del model
+            torch.cuda.empty_cache()
+        for label, key in split_cells:
+            write_seeded_checkpoint(key, wdir, seed=SEED)
+            for precision in ("parity", "serving"):
+                model = seeded_zoo_model(key, precision, wdir, device)
+                img, sigma = window_request(key)
+                run_model_inference(model, img, need_degradation=sigma is not None,
+                                    noise_level=sigma)  # warm-up
+                print_split(label, precision, model, img, sigma)
+                del model
+                torch.cuda.empty_cache()
+    return launches
+
+
+def phase_entry_points(device, demo_image=DEMO_IMAGE):
+    """Phase 18 (c) and (d). Returns {kernel: launches}."""
+    import torch
+
+    from tpuir_torch import demo_core, zoo
+    from tpuir_torch.config import get_patch_config
+    from tpuir_torch.core.engine import run_model_inference
+    from tpuir_torch.core.image_io import imread_uint8, imwrite_uint
+    from tpuir_torch.core.metrics import calculate_metrics
+    from tpuir_torch.ops import _kernels
+    from tpuir_torch.scripts import compute_flops, test_demo, test_patch_size, validate_serving
+    from tpuir_torch.utils.profiling import write_seeded_checkpoint
+
+    per_chunk = {"Restormer": {"fused_transformer_block": 44},
+                 "MaIR": dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue"),
+                                       MAIR_BLOCKS)}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_entry_") as root:
+        wdir = os.path.join(root, "weights")
+        for key in ("restormer", "mair"):
+            write_seeded_checkpoint(key, wdir, seed=SEED)
+        clean = synthetic_image(*demo_image, SEED + 60)
+        label = "Gaussian (Color, Non-blind)"
+        for name, want_chunk in per_chunk.items():
+            built = []
+
+            def get_model(*args, **kw):
+                built.append(zoo.get_model_instance(*args, weights_dir=wdir, **kw))
+                return built[-1]
+
+            pc = get_patch_config("denoising", "gaussian", name)
+            _kernels.reset_launches()
+            before, after, t = demo_core.run_restoration(
+                clean, label, name, SIGMA, True, pc["patch_size"], pc["patch_overlap"],
+                device_name=str(device), get_model=get_model)
+            torch.cuda.synchronize()
+            got = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+            model = built[0]
+            want = {k: n * chunks_for(model, *before.shape[:2]) for k, n in want_chunk.items()}
+            if got != want or model.device != device:
+                fail(f"demo {name}: launches {got} on {model.device}, expected {want} on {device}")
+            direct, _ = run_model_inference(model, before, patch_size=pc["patch_size"],
+                                            patch_overlap=pc["patch_overlap"])
+            if not np.array_equal(direct, after):
+                fail(f"demo {name}: run_restoration differs from run_model_inference")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            print(f"demo run_restoration {name} on {device} {demo_image[0]}x{demo_image[1]} "
+                  f"sigma={SIGMA} ({t}): equals run_model_inference bit for bit; launches {got}",
+                  flush=True)
+            del built, model
+
+        demo_dir = os.path.join(root, "demo")
+        os.makedirs(demo_dir)
+        suite = next(s for s in test_demo.SUITES if s[0] == "denoising_gaussian_color_nonblind")
+        prefix = suite[0]
+        noisy = noisy_image(clean, SEED + 61, SIGMA)
+        imwrite_uint(os.path.join(demo_dir, f"{prefix}_noisy.bmp"), noisy)
+        imwrite_uint(os.path.join(demo_dir, f"{prefix}_target.png"), clean)
+        test_demo.run_suite(*suite, demo_dir=demo_dir, weights_dir=wdir, show=False,
+                            device=str(device))
+        for name in suite[5]:
+            path = os.path.join(demo_dir, f"{prefix}_result_{name}.png")
+            if not os.path.exists(path):
+                fail(f"test_demo wrote no {os.path.basename(path)}")
+            psnr, ssim = calculate_metrics(imread_uint8(path), clean)
+            if not (np.isfinite(psnr) and np.isfinite(ssim)):
+                fail(f"test_demo {name}: PSNR {psnr} SSIM {ssim}")
+            print(f"test_demo {prefix} {name}: PNG written, PSNR {psnr:.4f} dB SSIM {ssim:.5f}",
+                  flush=True)
+
+        name, build, in_ch = next(t for t in compute_flops.model_table()
+                                  if t[0] == "DnCNN (nonblind, gray)")
+        trials = []
+        fits = test_patch_size.card_fits(test_patch_size.bundle(name, build, in_ch, device),
+                                         in_ch)
+        best = test_patch_size.find_max_patch_size(lambda s: trials.append(s) or fits(s))
+        print(f"test_patch_size {name}: trials {trials}, max patch size {best}", flush=True)
+
+        res = validate_serving.validate(["DnCNN", "Restormer"], os.path.join(root, "none"),
+                                        device=device)
+        path = os.path.join(root, "serving_deltas_torch.json")
+        with open(path, "w") as f:
+            json.dump(res, f)
+        for fam, entry in res["trained_like"].items():
+            if abs(entry["psnr_delta_db"]) > SERVING_PSNR_DB:
+                fail(f"validate_serving {fam}: serving {entry['psnr_delta_db']:+.4f} dB "
+                     "from parity")
+        print(f"validate_serving: {os.path.basename(path)} written ({os.path.getsize(path)} "
+              f"bytes); trained-like serving - parity PSNR " + ", ".join(
+                  f"{fam} {-e['psnr_delta_db']:+.4f} dB ({e['weights']})"
+                  for fam, e in res["trained_like"].items()), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2719,6 +2971,11 @@ def main() -> int:
     t0 = time.time()
     phase_plain_conv(device)
     print(f"[plain-conv families {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for phase in (phase_window, phase_entry_points):
+        for name, n in phase(device).items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"[window, split and entry points {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

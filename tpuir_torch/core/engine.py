@@ -12,7 +12,16 @@ gather and blend-stitch are ``core/native.py`` (the same C loops as
 ``tpuir.native``, bit-exact float32), and the AWGN, window and dtype
 restore are NumPy copies. Patches go to the device in
 ``batch_size`` chunks; a ragged last chunk runs as it is, since eager
-PyTorch has no compile cache to bound.
+PyTorch has no compile cache to bound. As in the JAX engine, up to
+``max_in_flight`` chunks are enqueued and not yet fetched, so the card
+computes one chunk while the host stages and launches the next: on a CUDA
+device each chunk of a request of two or more is staged through a ring of
+pinned host buffers and copied both ways with ``non_blocking``, on the
+stream that runs the forward (a separate copy stream bought nothing at
+these transfer sizes, and pinned staging made one-chunk requests slower:
+``PERF.md``).
+The blend window is built on the crop that the tiles use
+(``window_crop``), not at the full patch size.
 
 Parity mode (``compute_dtype=None``) pins true float32: TF32 is off for
 cuBLAS and cuDNN while a chunk runs (cuDNN allows TF32 by default), the
@@ -26,8 +35,10 @@ TPU layout and has no counterpart here.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Callable, Iterator, Optional
 
@@ -39,7 +50,7 @@ from torch import nn
 from . import native
 from .degrade import add_noise_batched
 from .image_io import normalize_image, restore_dtype
-from .tiling import gaussian_window, tile_indices
+from .tiling import tile_indices
 from ..utils.profiling import maybe_trace
 
 
@@ -128,22 +139,92 @@ class InferenceModel:
         self,
         patches: np.ndarray,
         progress_cb: Optional[Callable[[int, int], None]] = None,
+        max_in_flight: int = 4,
     ) -> np.ndarray:
         """Run (N, h, w, C) float32 patches through ``step`` in ``batch_size`` chunks.
 
-        An NHWC chunk permuted to NCHW is already ``channels_last`` with no
-        copy. ``progress_cb`` reports completed patches.
+        Chunks are enqueued ahead of the fetches with a bounded window:
+        the oldest chunk is fetched only when ``max_in_flight`` are
+        un-fetched, and the rest at the end. On a CUDA device, where there
+        are two chunks or more, a chunk is
+        copied into the next of ``max_in_flight`` pinned staging buffers
+        (once that buffer's previous host-to-device copy has finished),
+        sent with ``non_blocking``, and its output copied back
+        ``non_blocking`` into a pinned output array, an event recorded
+        after it; fetching waits on that event. Every copy and launch goes
+        to the current stream, so the caching allocator's stream order
+        keeps each chunk's device tensors until their copies are done. A
+        single chunk, which the window cannot overlap with anything, is
+        copied both ways from and into pageable memory with blocking
+        copies. On the CPU nothing is pinned and each step has finished
+        when it returns. An NHWC chunk permuted to NCHW is already
+        ``channels_last`` with no copy. ``progress_cb`` reports fetched
+        patches.
         """
+        if max_in_flight < 1:
+            raise ValueError(f"max_in_flight must be at least 1, got {max_in_flight}")
         n = patches.shape[0]
         bs = max(1, min(self.batch_size, n))
-        outs = []
-        for off in range(0, n, bs):
-            chunk = torch.from_numpy(patches[off : off + bs]).to(self.device)
-            y = self.step(chunk.permute(0, 3, 1, 2))
-            outs.append(y.permute(0, 2, 3, 1).cpu().numpy())
+        chunks = -(-n // bs)
+        pinned = torch.device(self.device).type == "cuda" and chunks > 1
+        if pinned:
+            stream = torch.cuda.current_stream(self.device)
+            ring = [torch.empty((bs,) + patches.shape[1:], dtype=torch.float32, pin_memory=True)
+                    for _ in range(min(max_in_flight, chunks))]
+            staged = [None] * len(ring)  # each buffer's last host-to-device copy
+        out = None
+        pending = collections.deque()  # (patches done once fetched, event or None)
+
+        def fetch_one():
+            done, event = pending.popleft()
+            if event is not None:
+                event.synchronize()
             if progress_cb is not None:
-                progress_cb(off + chunk.shape[0], n)
-        return np.concatenate(outs, axis=0)
+                progress_cb(done, n)
+
+        for i, off in enumerate(range(0, n, bs)):
+            sz = min(bs, n - off)
+            if pinned:
+                slot = i % len(ring)
+                if staged[slot] is not None:
+                    staged[slot].synchronize()
+                host = ring[slot][:sz]
+                host.copy_(torch.from_numpy(patches[off : off + sz]))
+                chunk = host.to(self.device, non_blocking=True)
+                staged[slot] = torch.cuda.Event()
+                staged[slot].record(stream)
+            else:
+                chunk = torch.from_numpy(patches[off : off + sz]).to(self.device)
+            y = self.step(chunk.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            if out is None:
+                out = torch.empty((n,) + y.shape[1:], dtype=torch.float32, pin_memory=pinned)
+            out[off : off + sz].copy_(y, non_blocking=pinned)
+            event = None
+            if pinned:
+                event = torch.cuda.Event()
+                event.record(stream)
+            pending.append((off + sz, event))
+            while len(pending) >= max_in_flight:
+                fetch_one()
+        while pending:
+            fetch_one()
+        return out.numpy()
+
+
+@functools.lru_cache(maxsize=16)
+def window_crop(ps: int, ph: int, pw: int, n_channels: int) -> np.ndarray:
+    """``tiling.gaussian_window(ps, ps, n_channels)[:ph, :pw]``, bit for bit,
+    evaluated on the (ph, pw) crop only: the same float64 expression with
+    the centre and sigma of the full ``ps`` (the 2-D exponential, since the
+    exponential of a sum is not separable bit for bit). Cached; the arrays
+    are read-only."""
+    yy, xx = np.meshgrid(np.arange(ph, dtype=np.float64), np.arange(pw, dtype=np.float64),
+                         indexing="ij")
+    c, s = ps / 2.0, ps * 0.125
+    g = np.exp(-((yy - c) ** 2 / (2.0 * s**2) + (xx - c) ** 2 / (2.0 * s**2)))
+    g = np.repeat(g[:, :, None], n_channels, axis=2).astype(np.float32)
+    g.flags.writeable = False
+    return g
 
 
 def run_model_inference(
@@ -154,10 +235,12 @@ def run_model_inference(
     need_degradation: bool = False,
     noise_level: Optional[float] = None,
     progress_cb: Optional[Callable[[int, int], None]] = None,
+    max_in_flight: int = 4,
 ):
     """Tiled inference over one image. Returns (restored_image, time_ms).
 
     ``input_img`` is HWC uint8/uint16/float; the output has the same dtype.
+    ``max_in_flight`` is ``InferenceModel.forward_patches``'.
     """
     start_time = time.time()
 
@@ -178,9 +261,9 @@ def run_model_inference(
         patches = add_noise_batched(patches, noise_level)
 
     with maybe_trace(f"engine_{model.name.replace(' ', '_')}"):
-        preds = model.forward_patches(patches, progress_cb)
+        preds = model.forward_patches(patches, progress_cb, max_in_flight)
 
-    window = gaussian_window(ps, ps, out_ch)[:ph, :pw]
+    window = window_crop(ps, ph, pw, out_ch)
     output_img = native.blend_stitch(preds[:, :, :, :out_ch], coords, window, h, w)
     output_img = restore_dtype(output_img, input_img)
     return output_img, (time.time() - start_time) * 1000.0

@@ -4,7 +4,29 @@
 Set ``TPUIR_TRACE_DIR`` to write a trace of any ``with maybe_trace("name"):``
 region (the engine wraps its device pipeline) under ``<dir>/<name>``;
 ``trace_fn`` profiles one callable; ``kernel_times`` and ``op_device_ms``
-read device time from its profile by kernel and by aten op.
+read device time from its profile by kernel and by aten op. The helpers of
+tpuir's module: ``check_nan_inf``, ``Timer`` and ``flop_count`` (PyTorch's
+flop counter in place of XLA's cost analysis).
+
+    python -m tpuir_torch.utils.profiling --engine <model>[,<model>...]
+                                          [--precision parity[,serving]] [--out FILE]
+    python tpuir_torch/utils/profiling.py [--tree DIR] --engine ... --wall [--requests 10]
+
+serves one request a model through the zoo and the engine (seeded
+checkpoints in the released formats, written to a temporary directory; the
+requests of ``ENGINE_REQUESTS``) and splits it (``engine_split``): wall ms,
+host ms of each step the engine takes (normalize, gather, AWGN, the
+forward's host wall, window, blend, dtype restore; the window built cold
+and from its cache), and from one profiled request the card's ms in
+host-to-device and device-to-host copies and in the forward's kernels,
+its busy ms and its idle share over the request. Each request is split
+with ``max_in_flight`` 1 and 4. ``--wall`` instead times the request as a
+user serves it (``request_times``: ``run_model_inference`` with its
+defaults, the host wall of ``forward_patches`` read from outside it, and
+the card's split of two profiled requests); it needs nothing newer than
+the zoo and the engine's entry point, so ``--tree`` (another checkout's
+``tpuir_torch``; run this file as a script) times an older tree the same
+way, one tree a process.
 
     python -m tpuir_torch.utils.profiling [--model mair|mairunet|restormer|dncnn|rednet|
                                                    deblurgan-mobilenet|deblurgan-inception]
@@ -45,11 +67,17 @@ search, none) and one image a call (``layout_times``).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import functools
 import json
 import os
+import sys
+import tempfile
+import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 # Kernel-name fragments of the mixer kernels, by stage. K6's in_proj
@@ -123,6 +151,61 @@ PLAIN_CONV = {"dncnn": (1, 0, torch.bfloat16), "rednet": (1, 0, torch.bfloat16),
               "deblurgan-mobilenet": (3, 32, torch.float32),
               "deblurgan-inception": (3, 32, torch.float32)}
 RESTORMER_CONFIG = dict(layer_norm_bias=False)  # released color denoising (BiasFree)
+
+
+def _leaves(tree, path=""):
+    """(path, leaf) pairs of nested dicts (keys in sorted order, as JAX
+    flattens them), lists and tuples; None is an empty subtree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    elif tree is not None:
+        yield path, tree
+
+
+def check_nan_inf(tree, name: str = "tensor") -> bool:
+    """Debug guard (tpuir's ``check_nan_inf``): print one line for each leaf
+    of ``tree`` (tensors or arrays in nested dicts, lists and tuples) that
+    holds NaN or Inf, with the counts; return True if any does."""
+    bad = False
+    for path, leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+            leaf = (leaf.float() if leaf.is_floating_point() else leaf).cpu().numpy()
+        arr = np.asarray(leaf)
+        if not np.isfinite(arr).all():
+            print(f"[check_nan_inf] {name}{path}: {int(np.isnan(arr).sum())} NaN, "
+                  f"{int(np.isinf(arr).sum())} Inf")
+            bad = True
+    return bad
+
+
+class Timer:
+    """Host-clock timer with the engine's ms convention: ``.ms`` on exit."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.ms = (time.perf_counter() - self.t0) * 1000.0
+
+
+def flop_count(fn: Callable, *args) -> dict:
+    """{"flops": the floating-point operations of fn(*args)}, from
+    ``torch.utils.flop_counter.FlopCounterMode``: the products and
+    convolutions that PyTorch's own ops run (2 a multiply-add), the
+    counterpart of ``xla_cost``'s ``flops``. Kernels called through ctypes
+    are invisible to it: count a model on CPU tensors, where every kernel
+    wrapper runs its plain version, or with plain blocks on meta tensors."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return {"flops": int(counter.get_total_flops())}
 
 
 def _profile(on_trace_ready=None):
@@ -390,20 +473,353 @@ def layout_times(model: str, batches=(1, 2, 8), seed: int = 0,
             del x, first
     return res
 
+# --engine: a request a model, served through the zoo and the engine, as
+# chip_smoke.py serves them: (zoo route (task, subtask, model, gray, sigma),
+# request (H, W), host AWGN sigma or None: the input served as it is).
+ENGINE_REQUESTS = {
+    "restormer": (("denoising", "gaussian", "Restormer", False, 25), (512, 512), 25),
+    "mair": (("denoising", "gaussian", "MaIR", False, 25), (256, 256), 25),
+    "mairunet": (("denoising", "real", "MaIR", False, None), (720, 1280), None),
+    "dncnn": (("denoising", "gaussian", "DnCNN", True, 25), (481, 321), 25),
+    "rednet": (("denoising", "gaussian", "REDNet", True, 50), (481, 321), 50),
+    "deblurgan-mobilenet": (("deblurring", "motion", "DeblurGANv2 (MobileNet)", False, None),
+                            (720, 1280), None),
+    "deblurgan-inception": (("deblurring", "motion", "DeblurGANv2 (Inception)", False, None),
+                            (720, 1280), None),
+}
+HOST_STEPS = ("normalize", "gather", "awgn", "forward_patches", "window", "blend", "restore")
+
+
+# each model's output head (its state-dict prefix), which ``head_scale`` scales
+HEADS = {"restormer": "output.", "mair": "conv_last.", "mairunet": "output.",
+         "dncnn": "model.32.", "rednet": "deconv15.", "deblurgan-mobilenet": "final.",
+         "deblurgan-inception": "final."}
+
+
+def write_seeded_checkpoint(model: str, wdir: str, seed: int = 0,
+                            head_scale: Optional[float] = None) -> None:
+    """``model``'s checkpoint of ``ENGINE_REQUESTS`` under ``wdir`` in its
+    released format, with seeded weights at full width and depth; with
+    ``head_scale`` the output head (``HEADS``) scaled by it, which makes a
+    seeded net near-identity as trained restoration nets are (tpuir's
+    ``scripts/validate_serving.py:_scale_head``)."""
+    from tpuir_torch.models import dncnn, mair, mair_unet, rednet, restormer
+    from tpuir_torch.models.deblurgan import fpn_inception, fpn_mobilenet
+
+    if model == "restormer":
+        sd, rel, key = (restormer.init_state_dict(RESTORMER_CONFIG, seed=seed),
+                        "Restormer/denoising/gaussian_color_denoising_sigma25.pth", "params")
+    elif model == "mair":
+        sd, rel, key = mair.init_state_dict(seed=seed), "MaIR/denoising/MaIR_CDN_s25.pth", "params"
+    elif model == "mairunet":
+        sd, rel, key = (mair_unet.init_state_dict(seed=seed), "MaIR/denoising/MaIR_RealDN.pth",
+                        "params")
+    elif model == "dncnn":
+        sd, rel, key = dncnn.init_state_dict(1, 17, seed=seed), "DnCNN/dncnn_25.pth", None
+    elif model == "rednet":
+        sd, rel, key = rednet.init_state_dict(seed=seed), "REDNet/50.pt", None
+    else:
+        variant = model.split("-")[1]
+        mod = fpn_mobilenet if variant == "mobilenet" else fpn_inception
+        sd, rel, key = mod.init_state_dict(seed=seed), f"DeblurGANv2/fpn_{variant}.h5", "model"
+        sd = {f"module.{k}": v for k, v in sd.items()}
+    if head_scale is not None:
+        head = ("module." if key == "model" else "") + HEADS[model]
+        sd = {k: v * head_scale if k.startswith(head) else v for k, v in sd.items()}
+    path = os.path.join(wdir, rel)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({key: sd} if key else sd, path)
+
+
+def seeded_request(model: str, seed: int = 0) -> np.ndarray:
+    """``model``'s request of ``ENGINE_REQUESTS``: a seeded uint8 image (one
+    channel where the route is gray)."""
+    (_, _, _, gray, _), (h, w), _ = ENGINE_REQUESTS[model]
+    return (np.random.RandomState(seed).rand(h, w, 1 if gray else 3) * 255).astype(np.uint8)
+
+
+def engine_split(model, img: np.ndarray, sigma=None, max_in_flight: int = 4,
+                 cold_window: bool = False) -> Tuple[np.ndarray, dict]:
+    """Serve ``img`` as ``core.engine.run_model_inference`` serves it, by
+    the same calls, each timed with ``Timer``: returns (the output, {step:
+    host ms} over ``HOST_STEPS`` and "wall"). ``cold_window`` empties the
+    window's cache first."""
+    from tpuir_torch.core import engine, native, tiling
+    from tpuir_torch.core.degrade import add_noise_batched
+    from tpuir_torch.core.image_io import restore_dtype
+
+    if cold_window:
+        engine.window_crop.cache_clear()
+    ms = {}
+    with Timer() as wall:
+        with Timer() as t:
+            x = np.ascontiguousarray(model.normalize(img))
+        ms["normalize"] = t.ms
+        h, w = x.shape[:2]
+        out_ch = min(3, x.shape[2])
+        ps, hs, ws = tiling.tile_indices(h, w, model.patch_size, model.patch_overlap)
+        ph, pw = min(ps, h), min(ps, w)
+        coords = [(hi, wi) for hi in hs for wi in ws]
+        with Timer() as t:
+            patches = native.extract_patches(x, coords, ph, pw)
+        ms["gather"] = t.ms
+        with Timer() as t:
+            if sigma is not None:
+                patches = add_noise_batched(patches, sigma)
+        ms["awgn"] = t.ms
+        with Timer() as t:
+            preds = model.forward_patches(patches, None, max_in_flight)
+        ms["forward_patches"] = t.ms
+        with Timer() as t:
+            window = engine.window_crop(ps, ph, pw, out_ch)
+        ms["window"] = t.ms
+        with Timer() as t:
+            out = native.blend_stitch(preds[:, :, :, :out_ch], coords, window, h, w)
+        ms["blend"] = t.ms
+        with Timer() as t:
+            out = restore_dtype(out, img)
+        ms["restore"] = t.ms
+    ms["wall"] = wall.ms
+    return out, ms
+
+
+def device_split(trace_events, window=None) -> dict:
+    """From a chrome trace's events (``torch.profiler``'s export): the
+    card's ms in host-to-device and device-to-host copies and in kernels
+    (memsets among them), its busy ms (the union of those intervals) and
+    its idle share over ``window`` (start, end) in the trace's us, by
+    default the span of the "engine request" annotations."""
+    gpu = [e for e in trace_events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if window is None:
+        req = [e for e in trace_events if e.get("ph") == "X" and e.get("name") == "engine request"
+               and e.get("cat") == "user_annotation"] or [
+            e for e in trace_events if e.get("ph") == "X" and "dur" in e]
+        if not req:
+            return {}
+        window = (min(e["ts"] for e in req), max(e["ts"] + e["dur"] for e in req))
+    lo, hi = window
+    res = {"h2d_ms": 0.0, "d2h_ms": 0.0, "kernels_ms": 0.0}
+    spans = []
+    for e in gpu:
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        if b <= a:
+            continue
+        name = e["name"]
+        key = ("h2d_ms" if "HtoD" in name else "d2h_ms" if "DtoH" in name
+               else "kernels_ms" if e["cat"] != "gpu_memcpy" else None)
+        if key:
+            res[key] += (b - a) / 1e3
+        spans.append((a, b))
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    res["busy_ms"] = busy / 1e3
+    res["window_ms"] = (hi - lo) / 1e3
+    res["idle_share"] = 1.0 - busy / (hi - lo) if hi > lo else None
+    return res
+
+
+def profiled_requests(serve: Callable[[], None], requests: int = 2) -> dict:
+    """``device_split`` over ``requests`` calls of ``serve`` back to back,
+    each in an "engine request" annotation, under ``torch.profiler``."""
+    from torch.profiler import record_function
+
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        for _ in range(requests):
+            with record_function("engine request"):
+                serve()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    res = device_split(events)
+    for k in ("h2d_ms", "d2h_ms", "kernels_ms", "busy_ms", "window_ms"):
+        if k in res:
+            res[k] /= requests
+    return res
+
+
+def seeded_model(model_name: str, precision: str, seed: int = 0, device="cuda"):
+    """``model_name``'s zoo model of ``ENGINE_REQUESTS`` on ``device``, from
+    a seeded checkpoint in its released format (``write_seeded_checkpoint``)."""
+    from tpuir_torch import zoo
+
+    (task, subtask, name, gray, sigma), _, _ = ENGINE_REQUESTS[model_name]
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_engine_") as wdir:
+        write_seeded_checkpoint(model_name, wdir, seed)
+        return zoo.get_model_instance(task, subtask, name, gray=gray, sigma=sigma,
+                                      weights_dir=wdir, precision=precision, device=device)
+
+
+def _package_tree() -> str:
+    """The checkout whose ``tpuir_torch`` this process imported."""
+    from tpuir_torch.core import engine
+
+    return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(engine.__file__))))
+
+
+def engine_report(model_name: str, precision: str, rounds: int = 3, seed: int = 0,
+                  device="cuda") -> dict:
+    """The split of ``model_name``'s request (see the module docstring):
+    {variant: {"host_ms": {step: median ms}, "window_cold_ms", "device":
+    device_split of two profiled requests, "mpix_s"}} with variants
+    "max_in_flight=1" and "max_in_flight=4", and the outputs' agreement."""
+    from tpuir_torch.core.tiling import tile_indices
+
+    _, (h, w), noise = ENGINE_REQUESTS[model_name]
+    model = seeded_model(model_name, precision, seed, device)
+    img = seeded_request(model_name, seed)
+    engine_split(model, img, noise, 1)  # warm-up: cuDNN, allocators
+    torch.cuda.synchronize()
+    _, hs, ws = tile_indices(h, w, model.patch_size, model.patch_overlap)
+    res = {"model": model_name, "request": [h, w], "precision": precision, "tree": _package_tree(),
+           "tiles": len(hs) * len(ws), "variants": {}}
+    outs = {}
+    for mif in (1, 4):
+        label = f"max_in_flight={mif}"
+        splits = []
+        for r in range(rounds):
+            out, ms = engine_split(model, img, noise, mif, cold_window=r == 0)
+            splits.append(ms)
+            outs.setdefault(label, out)
+            if not np.array_equal(out, outs[label]):
+                raise RuntimeError(f"{model_name} {precision} {label}: not repeatable")
+        host = {k: float(np.median([s[k] for s in splits])) for k in HOST_STEPS + ("wall",)}
+        dev = profiled_requests(lambda: engine_split(model, img, noise, mif))
+        res["variants"][label] = {"host_ms": host, "window_cold_ms": splits[0]["window"],
+                                  "device": dev, "mpix_s": h * w / 1e3 / host["wall"]}
+    first = next(iter(outs.values()))
+    res["bit_equal_across_variants"] = all(np.array_equal(o, first) for o in outs.values())
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def request_times(model_name: str, precision: str, requests: int = 10, seed: int = 0,
+                  device="cuda") -> dict:
+    """``model_name``'s request served ``requests`` times, after two
+    warm-ups, as a user serves it: ``core.engine.run_model_inference`` with
+    its defaults. {"wall_ms": [...], "forward_patches_ms": [...] (its host
+    wall, timed by wrapping the model's ``forward_patches``), "mpix_s" (of
+    the median wall), "device": device_split of two profiled requests}.
+    Uses only the zoo and the entry point, so any tree of the port can be
+    timed by it."""
+    from tpuir_torch.core.engine import run_model_inference
+
+    _, (h, w), noise = ENGINE_REQUESTS[model_name]
+    model = seeded_model(model_name, precision, seed, device)
+    img = seeded_request(model_name, seed)
+    inner, fp_ms = model.forward_patches, []
+
+    @functools.wraps(inner)
+    def timed(*args, **kw):
+        with Timer() as t:
+            out = inner(*args, **kw)
+        fp_ms.append(t.ms)
+        return out
+
+    model.forward_patches = timed
+    serve = lambda: run_model_inference(model, img, need_degradation=noise is not None,  # noqa: E731
+                                        noise_level=noise)
+    for _ in range(2):
+        serve()
+    torch.cuda.synchronize()
+    del fp_ms[:]
+    wall = []
+    for _ in range(requests):
+        with Timer() as t:
+            serve()
+        wall.append(t.ms)
+    res = {"model": model_name, "request": [h, w], "precision": precision, "tree": _package_tree(),
+           "wall_ms": wall, "forward_patches_ms": list(fp_ms),
+           "mpix_s": h * w / 1e3 / float(np.median(wall)), "device": profiled_requests(serve)}
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def card_line(d: dict) -> str:
+    """``device_split``'s figures on one line."""
+    if not d:
+        return "card: not measured"
+    return (f"card: h2d {d['h2d_ms']:.3f} d2h {d['d2h_ms']:.3f} kernels {d['kernels_ms']:.3f} "
+            f"busy {d['busy_ms']:.3f} of {d['window_ms']:.3f} ms, idle "
+            f"{100 * d['idle_share']:.1f}%")
+
+
+def print_engine_report(res: dict) -> None:
+    head = (f"engine {res['model']} {res['request'][0]}x{res['request'][1]} "
+            f"{res['precision']} ({res['tiles']} tiles)")
+    for label, v in res["variants"].items():
+        print(f"{head} {label}: wall {v['host_ms']['wall']:.2f} ms {v['mpix_s']:.3f} Mpix/s; "
+              "host " + " ".join(f"{k} {v['host_ms'][k]:.2f}" for k in HOST_STEPS)
+              + f" (window cold {v['window_cold_ms']:.2f}); {card_line(v['device'])}",
+              flush=True)
+    print(f"{head}: outputs bit-equal across variants: {res['bit_equal_across_variants']}",
+          flush=True)
+
+
+def print_request_times(res: dict) -> None:
+    wall, fp = res["wall_ms"], res["forward_patches_ms"]
+    print(f"request {res['model']} {res['request'][0]}x{res['request'][1]} {res['precision']} "
+          f"({res['tree']}): wall median {np.median(wall):.2f} ms {res['mpix_s']:.3f} Mpix/s "
+          f"(min {min(wall):.2f}, max {max(wall):.2f} of {len(wall)}); forward_patches median "
+          f"{np.median(fp):.2f} ms; host outside it {np.median(np.subtract(wall, fp)):.2f} ms; "
+          f"{card_line(res['device'])}", flush=True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=sorted(TILES), default="mair")
     ap.add_argument("--batches", default="1,2,3,4,8")
     ap.add_argument("--nss", choices=("stripe", "fused", "0"), default="stripe")
-    ap.add_argument("--precision", choices=("parity", "serving"), default="parity")
+    ap.add_argument("--precision", default="parity",
+                    help="parity or serving (--engine: a comma-separated list of them)")
     ap.add_argument("--layouts", action="store_true",
                     help="a plain-conv family's forward ms by input layout and cuDNN's "
                          "algorithm choice (layout_times) instead of the breakdown")
+    ap.add_argument("--engine", help="comma-separated models of ENGINE_REQUESTS: split "
+                                     "each one's request through the zoo and the engine")
+    ap.add_argument("--tree", help="import tpuir_torch from this checkout (run as a script)")
+    ap.add_argument("--out", help="--engine: also write the reports to this JSON file")
+    ap.add_argument("--wall", action="store_true",
+                    help="--engine: time each request as served (request_times), no split")
+    ap.add_argument("--requests", type=int, default=10, help="--wall: timed requests")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: no CUDA device")
         return 1
+    if args.engine:
+        precisions = args.precision.split(",")
+        models = args.engine.split(",")
+        bad = [p for p in precisions if p not in ("parity", "serving")] + [
+            m for m in models if m not in ENGINE_REQUESTS]
+        if bad:
+            ap.error(f"unknown --precision or --engine values: {bad}")
+        print(torch.cuda.get_device_name(0), flush=True)
+        reports = []
+        for m in models:
+            for p in precisions:
+                if args.wall:
+                    reports.append(request_times(m, p, args.requests))
+                    print_request_times(reports[-1])
+                else:
+                    reports.append(engine_report(m, p))
+                    print_engine_report(reports[-1])
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(reports, f)
+        print(json.dumps(reports))
+        return 0
+    if args.precision not in ("parity", "serving"):
+        ap.error(f"unknown --precision {args.precision!r}")
     if args.layouts:
         batches = tuple(int(b) for b in args.batches.split(","))
         res = layout_times(args.model, batches, precision=args.precision)
@@ -432,4 +848,10 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    _tree = sys.argv[sys.argv.index("--tree") + 1] if "--tree" in sys.argv else None
+    if _tree and __package__:
+        raise SystemExit("--tree: run this file as a script, not with -m")
+    sys.path.insert(0, os.path.abspath(_tree) if _tree
+                    else os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+                        __file__)))))
     raise SystemExit(main())
