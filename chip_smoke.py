@@ -225,6 +225,37 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     and result) and ``scripts.validate_serving`` for DnCNN and Restormer on
     one synthetic image (its JSON written to a temporary path, serving
     within 0.05 dB of parity).
+19. Training (``tpuir_torch/train/``). (a) MaIR-CDN at full width and
+    depth (``network_g`` of ``options/test/test_MaIR_CDN_s25.yml``, the
+    ``train`` section of ``options/train/GaussianColorDenoising_RestormerSigma25.yml``:
+    AdamW 3e-4, weight decay 1e-4, L1, the gradient clip, the cyclic cosine
+    schedule, mixup), seeded weights, Gaussian denoising at sigma 25 on
+    seeded PNGs, crop 64 and batch 4 (cut from the file's first stage, 128
+    and 8, for the phase's time), through ``train_pipeline`` on ``cuda:0``
+    for 3 iterations, a save and a validation, then an ``auto_resume`` to
+    5: each step's forward launches K6, K2 and K7 36 times each and its
+    backward none (each step's forward, backward and optimizer ms from CUDA
+    events, its peak memory); the same batches again with the Functions'
+    plain forwards (``kernel_grad.plain_forwards``, the twin), each step
+    from the kernel run's weights and its optimizer fed the kernel run's
+    gradients: the losses within 1e-5 relative, step 1's gradients within
+    1e-3 relative L2 a tensor, the weights after each step bit for bit.
+    (b) Each differentiable wrapper alone at a MaIR-CDN mixer's width
+    (K6, K2, K7, K5 at 64x64, K3 at 66x60, batch 2): its forward outputs
+    against the plain version's at the kernel's tolerance, its gradient of
+    a seeded cotangent against the plain version's autograd (bit for bit
+    by construction: the backward reads only the inputs), one launch in the
+    forward and none in the backward. (c) The Restormer sigma=25 option
+    file as it is (``parse_options``, ``--force_yml`` to synthetic
+    dataroots and 3 iterations) at its first progressive stage, patch 128
+    and batch 8, full width, built plain (no K1 launch), its ``net_g_3.pth``
+    served by the zoo within 1 LSB of the trained network, then resumed to
+    iteration 5.
+
+The serving checks' planted copies (phases 12-15) are built by
+``serving_mutants.Prebuilt`` in ``MUTANT_BUILD_JOBS`` background builds
+at nice 19, from the end of the build on, so that they overlap phases
+2-11, where torch keeps ``MUTANT_BUILD_THREADS`` CPU threads.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -322,6 +353,15 @@ SIGMA = 25
 CONFIG = dict(layer_norm_bias=False)  # the color-denoising Restormer (BiasFree)
 ITERS = 10  # launches a CUDA-event timing averages over
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# background builds of the serving checks' planted copies beside phases
+# 2-11, and torch's CPU threads meanwhile. On the H100 machine's 8 CPUs
+# (python mutant_overlap.py, one run), phases 5, 7 and 9 (their card-vs-CPU
+# forwards: torch's threads wait for the slowest) took 221.5 s alone at the
+# start and 157.5 s alone at the end, 362.2 s beside 4 builds and 8
+# threads, 292.4 s beside 3 and 5, 221.5 s beside 2 and 6. The host's own
+# spread (40% between the two alone runs) hides what 2 builds beside 6
+# threads cost: that cost is unresolved, not shown to be zero.
+MUTANT_BUILD_JOBS, MUTANT_BUILD_THREADS = 2, 6
 FP32_FLOP_PER_S = 67e12
 F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
@@ -1622,7 +1662,7 @@ def ulp2_ratio(got, want) -> float:
     return ((got - want).abs() / (2.0 ** -6 * want.abs().clamp_min(1.0))).max().item()
 
 
-def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
+def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES, prebuilt=None):
     """K1's serving body stage by stage at each block shape, both LN
     variants, on bf16 inputs; bit for bit on repeat.
 
@@ -1720,7 +1760,7 @@ def phase_serving_kernels(device, batch=BATCH, shapes=BLOCK_SHAPES):
                     fwd_other += count * other
                 del x, p
     torch.cuda.empty_cache()  # each copy's float64 check at level 1 holds several GB of the card
-    mutant_controls("K1", jobs=4)
+    mutant_controls("K1", jobs=4, prebuilt=prebuilt)
     return (worst, fwd_ms, fwd_plain_ms) + bound_bf16(fwd_bytes, fwd_gemm, fwd_other)
 
 
@@ -1925,7 +1965,8 @@ def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITER
     return max_err, t_kern, t_plain, b_ms, b_by
 
 
-def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
+def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72),
+                                prebuilt=None):
     """The serving bodies of K6, K2 and K7 stage by stage, timed, and their
     mutation controls.
 
@@ -1980,20 +2021,23 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
                 res[name] = row
             del pro, scan, epi
             torch.cuda.empty_cache()
-    mutant_controls("mixer", jobs=8)
+    mutant_controls("mixer", jobs=8, prebuilt=prebuilt)
     return res
 
 
-def mutant_controls(bodies, jobs):
+def mutant_controls(bodies, jobs, prebuilt=None):
     """``utils/serving_mutants.run_mutants(bodies)``: each fault in its own
     copy of ``tpuir_torch/``, built there from this tree's objects (only
-    the sources the fault reaches are recompiled), ``jobs`` copies at once;
-    fails if the check accepts a required mutant or rejects the unmutated
-    copy."""
+    the sources the fault reaches are recompiled; with ``prebuilt``, a
+    ``serving_mutants.Prebuilt``, built ahead while the card ran the earlier
+    phases), ``jobs`` copies checked at once; fails if the check accepts a
+    required mutant or rejects the unmutated copy."""
     from tpuir_torch.utils.serving_mutants import failures, run_mutants
 
     t0 = time.time()
-    verdicts = run_mutants(bodies, jobs=jobs)
+    if prebuilt is not None:
+        print(f"{bodies} serving mutants: planted copies {prebuilt.summary()}", flush=True)
+    verdicts = run_mutants(bodies, jobs=jobs, prebuilt=prebuilt)
     bad = failures(bodies, verdicts)
     print(f"{bodies} serving mutants ({time.time() - t0:.0f} s): "
           + (f"FAILED {bad}" if bad else "every required mutant rejected, the unmutated "
@@ -2049,7 +2093,8 @@ def serving_k5_work(px, di, n, r):
 
 
 def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
-                              k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH):
+                              k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH,
+                              prebuilt=None):
     """Phase 14's kernels: the serving bodies at MaIRUNet's widths and K3's
     and K5's serving bodies, each stage by stage (``check_serving_body``),
     bit for bit on repeat, timed beside its plain version; then their
@@ -2175,7 +2220,7 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
                                       cdn[0][3], cdn[0][4])
     rows["selective_scan_fused_proj_serving"] = k3_row
     worst.pop("selective_scan_fused_proj_serving")
-    mutant_controls("seq", jobs=8)
+    mutant_controls("seq", jobs=8, prebuilt=prebuilt)
     return rows, worst
 
 
@@ -2249,7 +2294,7 @@ def phase_seq_serving_path(device, unet_outs, mair_outs, unet_requests=UNET_REQU
     return launches
 
 
-def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
+def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), prebuilt=None):
     """K2's bf16-recurrence body stage by stage (``check_serving_body`` with
     ``check_nss_scan_recur_serving``) at MaIR-CDN@``tile``, batch ``batch``,
     shift off and on (timed: plain, kernel, kernel, plain), and at the
@@ -2286,7 +2331,7 @@ def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
                     "turns" if timed else None))
             del x, scan
             torch.cuda.empty_cache()
-    mutant_controls("recur", jobs=6)
+    mutant_controls("recur", jobs=6, prebuilt=prebuilt)
     timed_rows = rows[:2]
     return (max(row[0] for row in rows), sum(row[1] for row in timed_rows) / 2,
             sum(row[2] for row in timed_rows) / 2, timed_rows[0][3], timed_rows[0][4])
@@ -2852,6 +2897,408 @@ def phase_entry_points(device, demo_image=DEMO_IMAGE):
     return launches
 
 
+# -- phase 19: training -------------------------------------------------------
+
+TRAIN_OPTIONS = "options/train/GaussianColorDenoising_RestormerSigma25.yml"
+MAIR_TEST_OPTIONS = "options/test/test_MaIR_CDN_s25.yml"
+# MaIR-CDN's training crop and batch, cut from the Restormer file's first
+# progressive stage (patch 128, batch 8) for the phase's time
+TRAIN_CROP, TRAIN_BATCH = 64, 4
+TRAIN_ITERS, RESUME_ITERS = 3, 5
+TRAIN_LOSS_RTOL = 1e-5  # a step's loss, kernel forwards against plain forwards
+# a gradient tensor, kernel forwards against plain forwards:
+# |g - g_twin| <= 1e-3 |g_twin| (L2 norms), where the forward's K2 tolerance puts it
+TRAIN_GRAD_RTOL = 1e-3
+FUNCTION_BATCH, FUNCTION_SIDE = 2, 64  # phase 19 (b): a MaIR-CDN mixer's level
+FUNCTION_K3_LEVEL = (66, 60)  # H not a multiple of scan_len: the sequence route
+
+
+def write_pngs(d, n, h, w, seed):
+    """``n`` seeded color PNGs of h x w under ``d``."""
+    import cv2
+
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        cv2.imwrite(os.path.join(d, f"{i:03d}.png"), synthetic_image(h, w, seed + i))
+    return d
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want) / max(float(torch.linalg.vector_norm(want)),
+                                                           1e-30))
+
+
+class StepRecorder:
+    """Stands in for ``train/trainer.train_step`` inside ``train/model.py``
+    while a pipeline runs: the same three calls on the train state
+    (``forward_loss``, ``backward``, ``apply_gradients``), each timed with
+    CUDA events, with the kernel launches of the forward and of the
+    backward, the peak memory, and what the twin needs: the batch, the
+    weights at the step's start and the gradients."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, state, lq, gt, loss_fn, grad_clip=None, grads=None):
+        import torch
+
+        from tpuir_torch.ops import _kernels
+
+        rec = {"lq": lq.detach().clone(), "gt": gt.detach().clone(),
+               "weights": {k: v.detach().clone() for k, v in state.net.state_dict().items()}}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(_kernels.LAUNCHES)
+        ev[0].record()
+        loss = state.forward_loss(lq, gt, loss_fn)
+        ev[1].record()
+        mid = dict(_kernels.LAUNCHES)
+        state.backward(loss)
+        ev[2].record()
+        after = dict(_kernels.LAUNCHES)
+        rec["grads"] = {k: p.grad.detach().clone() for k, p in state.net.named_parameters()}
+        if grads is not None:  # the optimizer fed another run's gradients
+            for k, p in state.net.named_parameters():
+                p.grad.copy_(grads[k])
+        gnorm = state.apply_gradients(grad_clip)
+        ev[3].record()
+        ev[3].synchronize()
+        rec["forward_launches"] = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+        rec["backward_launches"] = {k: after[k] - mid[k] for k in mid if after[k] != mid[k]}
+        rec["ms"] = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["loss"] = float(loss.detach())
+        rec["after"] = {k: v.detach().clone() for k, v in state.net.state_dict().items()}
+        self.steps.append(rec)
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+
+def print_steps(label, steps, first=1):
+    for i, rec in enumerate(steps, first):
+        f, b, o = rec["ms"]
+        print(f"  {label} step {i}: loss {rec['loss']:.7e}  forward {f:.1f} ms  backward "
+              f"{b:.1f} ms  optimizer {o:.1f} ms  (step {f + b + o:.1f} ms)  peak "
+              f"{rec['peak_gb']:.2f} GB  forward launches {rec['forward_launches']}  backward "
+              f"launches {rec['backward_launches'] or 'none'}", flush=True)
+
+
+def mair_train_options(device, root, gt_dir, val_dir, total_iter, auto_resume=False):
+    """MaIR-CDN's training options: ``network_g`` of the sigma=25 test file,
+    the Restormer sigma=25 file's ``train`` section (AdamW 3e-4, weight
+    decay 1e-4, L1, the gradient clip, the cyclic cosine schedule, mixup),
+    Gaussian denoising at sigma 25 on ``gt_dir``'s PNGs, crop ``TRAIN_CROP``,
+    batch ``TRAIN_BATCH``; a save and a validation at iteration 3."""
+    from tpuir_torch.train.options import yaml_load
+
+    train = dict(yaml_load(TRAIN_OPTIONS)["train"], total_iter=total_iter)
+    return {
+        "name": "mair_cdn_s25", "model_type": "MambaIRModel", "scale": 1, "manual_seed": 10,
+        "is_train": True, "device": str(device), "auto_resume": auto_resume,
+        "datasets": {
+            "train": {"name": "synthetic", "type": "Dataset_GaussianDenoising", "phase": "train",
+                      "sigma_type": "constant", "sigma_range": 25, "in_ch": 3,
+                      "dataroot_gt": gt_dir, "dataroot_lq": "none", "geometric_augs": True,
+                      "use_shuffle": True, "batch_size_per_gpu": TRAIN_BATCH,
+                      "gt_size": TRAIN_CROP, "dataset_enlarge_ratio": 1, "scale": 1},
+            "val": {"name": "synthetic_val", "type": "Dataset_GaussianDenoising",
+                    "phase": "val", "sigma_test": 25, "in_ch": 3, "dataroot_gt": val_dir,
+                    "dataroot_lq": "none", "scale": 1},
+        },
+        "network_g": dict(yaml_load(MAIR_TEST_OPTIONS)["network_g"]),
+        "path": {"models": os.path.join(root, "models"),
+                 "training_states": os.path.join(root, "training_states"), "log": None},
+        "train": train,
+        "val": {"window_size": 8, "val_freq": 3, "use_image": True,
+                "metrics": {"psnr": {"type": "calculate_psnr", "crop_border": 0,
+                                     "test_y_channel": False}}},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": 3, "use_tb_logger": False},
+    }
+
+
+def train_mair(device, root):
+    """Phase 19 (a): MaIR-CDN at full width and depth trained for 3
+    iterations through ``train_pipeline`` on the kernels, saved, resumed to
+    5; the same steps again with the Functions' plain forwards (the twin),
+    each from the kernel run's weights at the step's start; returns the
+    kernel run's launches."""
+    from unittest import mock
+
+    import torch
+
+    from tpuir_torch.ops import _kernels, kernel_grad
+    from tpuir_torch.train import model as train_model
+    from tpuir_torch.train.pipeline import train_pipeline
+
+    gt_dir = write_pngs(os.path.join(root, "gt"), TRAIN_BATCH, 96, 80, seed=100)
+    val_dir = write_pngs(os.path.join(root, "val"), 2, 64, 48, seed=200)
+    rec = StepRecorder()
+    _kernels.reset_launches()
+    t0 = time.time()
+    with mock.patch.object(train_model, "train_step", rec):
+        result = train_pipeline(root, mair_train_options(device, root, gt_dir, val_dir,
+                                                         TRAIN_ITERS))
+        print(f"  MaIR-CDN trained to iteration {result['iter']} "
+              f"[{time.time() - t0:.0f} s]", flush=True)
+        for name in ("models/net_g_3.pth", "training_states/3.state"):
+            if not os.path.exists(os.path.join(root, name)):
+                fail(f"MaIR-CDN training wrote no {name}")
+        resumed = train_pipeline(root, mair_train_options(device, root, gt_dir, val_dir,
+                                                          RESUME_ITERS, auto_resume=True))
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    if result["iter"] != TRAIN_ITERS or resumed["iter"] != RESUME_ITERS or \
+            resumed["model"].state.step != RESUME_ITERS or len(rec.steps) != RESUME_ITERS:
+        fail(f"MaIR-CDN training: iterations {result['iter']}, resumed {resumed['iter']} "
+             f"(step {resumed['model'].state.step}), {len(rec.steps)} steps recorded")
+    net = result["model"].network_opt
+    print(f"  MaIR-CDN (embed {net['embed_dim']}, depths {net['depths']}, d_state "
+          f"{net['d_state']}; crop {TRAIN_CROP}, batch "
+          f"{TRAIN_BATCH}, cut from the Restormer file's first stage, patch 128 and batch 8, "
+          f"for the phase's time): iterations 1-3, a save, auto_resume to 5; launches in "
+          f"the run, validation included: {launches}", flush=True)
+    print_steps("kernel path", rec.steps)
+    for i, r in enumerate(rec.steps, 1):
+        want = {"mixer_prologue": MAIR_BLOCKS, "nss_scan": MAIR_BLOCKS,
+                "mixer_epilogue": MAIR_BLOCKS}
+        if r["forward_launches"] != want or r["backward_launches"]:
+            fail(f"MaIR-CDN step {i}: forward launches {r['forward_launches']} (want {want}), "
+                 f"backward launches {r['backward_launches']} (want none)")
+    # the twin: the Functions' plain forwards, the same batches, each step
+    # from the kernel run's weights, its optimizer fed the kernel run's grads
+    twin_opt = mair_train_options(device, os.path.join(root, "twin"), gt_dir, val_dir,
+                                  TRAIN_ITERS)
+    twin = train_model.build_model(twin_opt)
+    twin_rec = StepRecorder()
+    with kernel_grad.plain_forwards():
+        for r in rec.steps[:TRAIN_ITERS]:
+            twin.net_g.load_state_dict(r["weights"])
+            twin_rec(twin.state, r["lq"], r["gt"], twin.cri_pix, twin.grad_clip, grads=r["grads"])
+    print_steps("plain twin ", twin_rec.steps)
+    for i, (r, t) in enumerate(zip(rec.steps, twin_rec.steps), 1):
+        if t["forward_launches"] or t["backward_launches"]:
+            fail(f"the plain twin launched kernels at step {i}")
+        d = abs(r["loss"] - t["loss"]) / abs(t["loss"])
+        worst = max(((rel_l2(r["grads"][k], t["grads"][k]), k) for k in t["grads"]))
+        same = all(torch.equal(r["after"][k], t["after"][k]) for k in r["after"])
+        print(f"  step {i}: loss rel diff {d:.2e} (limit {TRAIN_LOSS_RTOL:g}); gradients, worst "
+              f"tensor {worst[1]}: rel L2 {worst[0]:.2e} (limit {TRAIN_GRAD_RTOL:g}); the "
+              f"optimizer fed the kernel run's gradients: weights "
+              f"{'bit for bit' if same else 'DIFFER'}", flush=True)
+        if d > TRAIN_LOSS_RTOL:
+            fail(f"MaIR-CDN step {i}: loss {r['loss']} against the plain twin's {t['loss']}")
+        if i == 1 and worst[0] > TRAIN_GRAD_RTOL:
+            fail(f"MaIR-CDN step 1: gradient {worst[1]} {worst[0]:.2e} from the plain twin's")
+        if not same:
+            fail(f"MaIR-CDN step {i}: the same gradients gave other weights")
+    base = torch.cuda.memory_allocated() / 1e9
+    plain_peak = max(t["peak_gb"] for t in twin_rec.steps)
+    print(f"  memory: the backward recomputes one plain mixer at a time (peak {plain_peak:.2f} "
+          f"GB, {base:.2f} GB held after the steps); a fused=False graph would keep all 36 "
+          f"plain scans' activations, about 36 x {plain_peak - base:.1f} GB, more than the "
+          f"card's 80 GB", flush=True)
+    median = lambda recs, j: float(np.median([x["ms"][j] for x in recs[1:]]))  # noqa: E731
+    print(f"  train step at MaIR-CDN@{TRAIN_CROP} batch {TRAIN_BATCH}, median of steps 2-"
+          f"{len(rec.steps)} (kernel) and 2-{len(twin_rec.steps)} (twin): forward "
+          f"{median(rec.steps, 0):.1f} / {median(twin_rec.steps, 0):.1f} ms, backward "
+          f"{median(rec.steps, 1):.1f} / {median(twin_rec.steps, 1):.1f} ms, optimizer "
+          f"{median(rec.steps, 2):.1f} / {median(twin_rec.steps, 2):.1f} ms; peak "
+          f"{max(x['peak_gb'] for x in rec.steps):.2f} / {plain_peak:.2f} GB", flush=True)
+    return launches
+
+
+def function_grads(device):
+    """Phase 19 (b): each differentiable wrapper alone at a MaIR-CDN mixer's
+    full width (d_model 180, d_inner 234, d_state 16), batch
+    ``FUNCTION_BATCH``: the Function's forward outputs against the plain
+    version's at the kernel's tolerance of phases 4, 6 and 8, the gradient
+    of a seeded cotangent with the kernel forward against direct autograd
+    of the plain version, one launch in the forward and none in the
+    backward."""
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.models.mair import SSMixer, init_state_dict
+    from tpuir_torch.ops import _kernels, nss_epilogue, nss_fused, nss_prologue, nss_stripe
+    from tpuir_torch.ops import scan_fused_proj
+    from tpuir_torch.ops.scan_ids import scan_index_tensors
+
+    cfg = zoo.MAIR_CDN_CONFIG
+    mixer = SSMixer(cfg["embed_dim"], cfg["d_state"], cfg["ssm_ratio"], cfg["scan_len"])
+    prefix = "layers.0.residual_group.blocks.0.self_attention."
+    mixer.load_state_dict({k[len(prefix):]: v for k, v in init_state_dict(cfg, SEED).items()
+                           if k.startswith(prefix)})
+    mixer = mixer.to(device)
+    di, n = mixer.d_inner, mixer.d_state
+    A = -torch.exp(mixer.A_logs.detach()).reshape(4, di, n)
+    scan_w = [mixer.x_proj_weight.detach(), mixer.dt_projs_weight.detach(), A,
+              mixer.Ds.detach().reshape(4, di), mixer.dt_projs_bias.detach()]
+    rng = np.random.RandomState(SEED)
+    s = FUNCTION_SIDE
+    h = torch.from_numpy((rng.randn(FUNCTION_BATCH, s, s, cfg["embed_dim"]) * 0.5)
+                         .astype(np.float32)).to(device)
+    pro_w = [mixer.in_proj.weight.detach(), mixer.conv2d.weight.detach(),
+             mixer.conv2d.bias.detach()]
+    with torch.no_grad(), true_float32():
+        x, z = nss_prologue.mixer_prologue_plain(h, *pro_w)
+        y, pooled = nss_stripe.nss_scan_plain(x, *scan_w, 4, False)
+        gates = torch.sigmoid(torch.randn(FUNCTION_BATCH, 4, di, device=device,
+                                          generator=torch.Generator(device).manual_seed(1)))
+        hk, wk = FUNCTION_K3_LEVEL
+        h3 = torch.from_numpy((rng.randn(FUNCTION_BATCH, hk, wk, cfg["embed_dim"]) * 0.5)
+                              .astype(np.float32)).to(device)
+        x3, _ = nss_prologue.mixer_prologue_plain(h3, *pro_w)
+        ids, _ = scan_index_tensors(hk, wk, 4, 0, device)
+        xs = x3.reshape(FUNCTION_BATCH, hk * wk, di)[:, ids].contiguous()
+    ln = [mixer.out_norm.weight.detach(), mixer.out_norm.bias.detach(),
+          mixer.out_proj.weight.detach()]
+    plain_bound = lambda g, w: compare(g, w, ATOL, RTOL)  # noqa: E731
+    scan_bound = lambda g, w: compare(g, w, SCAN_ATOL, SCAN_RTOL)  # noqa: E731
+    cases = {
+        "mixer_prologue": (nss_prologue.mixer_prologue, nss_prologue.mixer_prologue_plain,
+                           [h, *pro_w], (), plain_bound),
+        "nss_scan": (nss_stripe.nss_scan, nss_stripe.nss_scan_plain, [x, *scan_w], (4, True),
+                     compare_scan),
+        "mixer_epilogue": (nss_epilogue.mixer_epilogue, nss_epilogue.mixer_epilogue_plain,
+                           [y, gates, z, *ln], (), plain_bound),
+        "nss_scan_fused": (nss_fused.nss_scan_fused, nss_fused.nss_scan_fused_plain,
+                           [x, *scan_w], (4, True), compare_fused),
+        "selective_scan_fused_proj": (scan_fused_proj.selective_scan_fused_proj,
+                                      scan_fused_proj.selective_scan_fused_proj_plain,
+                                      [xs, *scan_w], (), scan_bound),
+    }
+    for name, (wrapper, plain, tensors, static, check) in cases.items():
+        forwards, grads, times, counts = [], [], [], []
+        for fn in (wrapper, plain):
+            ts = [t.detach().clone().requires_grad_() for t in tensors]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with true_float32():
+                before = sum(_kernels.LAUNCHES.values())
+                ev[0].record()
+                outs = fn(*ts, *static)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                ev[1].record()
+                mid = sum(_kernels.LAUNCHES.values())
+                forwards.append(tuple(o.detach() for o in outs))
+                g = torch.Generator(device).manual_seed(7)
+                loss = sum((o * torch.randn(o.shape, generator=g, device=device)).sum()
+                           for o in outs)
+                grads.append(torch.autograd.grad(loss, ts))
+                ev[2].record()
+                ev[2].synchronize()
+            counts.append((mid - before, sum(_kernels.LAUNCHES.values()) - mid))
+            times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        errs = [rel_l2(g, w) for g, w in zip(*grads)]
+        fwd_err, fwd_ok = check(*forwards)
+        shape = "x".join(map(str, tensors[0].shape))
+        print(f"  {name} at {shape}: forward max|d| {fwd_err:.3e} "
+              f"({'ok' if fwd_ok else 'MISS'}); gradients rel L2 {max(errs):.2e} (limit "
+              f"{TRAIN_GRAD_RTOL:g}; by input {', '.join(f'{e:.1e}' for e in errs)}); launches "
+              f"forward {counts[0][0]}, backward {counts[0][1]}; kernel forward "
+              f"{times[0][0]:.2f} ms, plain forward {times[1][0]:.2f} ms, backward (the "
+              f"plain recompute and its gradient) {times[0][1]:.2f} ms", flush=True)
+        if not fwd_ok:
+            fail(f"{name}: the Function's kernel forward disagrees with its plain version")
+        if max(errs) > TRAIN_GRAD_RTOL:
+            fail(f"{name}: the kernel forward's gradients are {max(errs):.2e} from the plain "
+                 f"version's")
+        if counts[0] != (1, 0) or counts[1] != (0, 0):
+            fail(f"{name}: launches {counts}, want one in the kernel forward and none else")
+
+
+def train_restormer(device, root):
+    """Phase 19 (c): the Restormer sigma=25 option file as it is, parsed with
+    ``parse_options`` (``--force_yml`` points its dataroots at synthetic
+    PNGs and cuts it to 3 iterations), at its first progressive stage
+    (patch 128, batch 8), full width, built plain: no K1 launch; a save,
+    the zoo serving ``net_g_3.pth`` within 1 LSB of the trained network,
+    and an auto_resume to iteration 5."""
+    import dataclasses
+    import shutil
+    from unittest import mock
+
+    from tpuir_torch import zoo
+    from tpuir_torch.core.engine import run_model_inference
+    from tpuir_torch.ops import _kernels
+    from tpuir_torch.train import model as train_model
+    from tpuir_torch.train.options import parse_options
+    from tpuir_torch.train.pipeline import train_pipeline
+
+    gt_dir = write_pngs(os.path.join(root, "gt"), 8, 400, 400, seed=300)
+    val_dir = write_pngs(os.path.join(root, "val"), 2, 64, 48, seed=400)
+
+    def options(total_iter, *extra):
+        force = [f"datasets:train:dataroot_gt={gt_dir}", f"datasets:val:dataroot_gt={val_dir}",
+                 f"train:total_iter={total_iter}", "logger:print_freq=1",
+                 "logger:save_checkpoint_freq=3", "logger:use_tb_logger=false", "val:val_freq=3"]
+        opt, _ = parse_options(root, True, ["-opt", TRAIN_OPTIONS, "--device", str(device),
+                                            *extra, "--force_yml", *force])
+        return opt
+
+    rec = StepRecorder()
+    _kernels.reset_launches()
+    t0 = time.time()
+    with mock.patch.object(train_model, "train_step", rec):
+        result = train_pipeline(root, options(TRAIN_ITERS))
+        models = result["model"].opt["path"]["models"]
+        trained = result["model"].net_g
+        print(f"  Restormer ({TRAIN_OPTIONS}): trained to iteration {result['iter']} "
+              f"[{time.time() - t0:.0f} s]; checkpoints {sorted(os.listdir(models))}",
+              flush=True)
+        if any(_kernels.LAUNCHES.values()):
+            fail(f"Restormer training launched kernels: {_kernels.LAUNCHES} (tpuir trains the "
+                 f"plain Restormer)")
+        shapes = {tuple(r["lq"].shape) for r in rec.steps}
+        if shapes != {(8, 3, 128, 128)}:
+            fail(f"Restormer's first progressive stage gave batches {shapes}")
+        wdir = os.path.join(root, "weights")
+        dst = os.path.join(wdir, "Restormer", "denoising", "gaussian_color_denoising_sigma25.pth")
+        os.makedirs(os.path.dirname(dst))
+        shutil.copy(os.path.join(models, "net_g_3.pth"), dst)
+        served = zoo.get_model_instance("denoising", "gaussian", "Restormer", gray=False,
+                                        sigma=SIGMA, weights_dir=wdir, device=device)
+        own = dataclasses.replace(served, net=trained.eval())
+        img = synthetic_image(200, 150, seed=500)
+        _kernels.reset_launches()
+        got, _ = run_model_inference(served, img, need_degradation=True, noise_level=SIGMA)
+        k1 = _kernels.LAUNCHES["fused_transformer_block"]
+        want, _ = run_model_inference(own, img, need_degradation=True, noise_level=SIGMA)
+        print(f"  the zoo serves net_g_3.pth (K1: {k1} launches) within {lsb(got, want)} LSB of "
+              f"the trained network's own forward (plain blocks)", flush=True)
+        if lsb(got, want) > 1 or k1 == 0:
+            fail(f"the zoo's net_g_3.pth is {lsb(got, want)} LSB from the trained network "
+                 f"({k1} K1 launches)")
+        trained.train()
+        resumed = train_pipeline(root, options(RESUME_ITERS, "--auto_resume"))
+    if resumed["iter"] != RESUME_ITERS or resumed["model"].state.step != RESUME_ITERS:
+        fail(f"Restormer resumed to iteration {resumed['iter']}")
+    print_steps("Restormer", rec.steps)
+
+
+def phase_training(device):
+    """Phase 19: training on the card. (a) MaIR-CDN at full width and depth
+    through ``train_pipeline`` on K6, K2 and K7 (36 launches of each a
+    step's forward, none in its backward), with a save and an auto_resume,
+    held step by step against its plain-forward twin; (b) each of the five
+    differentiable wrappers alone at full width; (c) the Restormer option
+    file trained plain, its checkpoint served by the zoo. Returns the
+    launches of (a)'s training run."""
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_train_") as root:
+        t0 = time.time()
+        launches = train_mair(device, os.path.join(root, "mair"))
+        print(f"[19a MaIR-CDN training {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        function_grads(device)
+        print(f"[19b Functions {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        train_restormer(device, os.path.join(root, "restormer"))
+        print(f"[19c Restormer training {time.time() - t0:.0f} s]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2863,7 +3310,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (tpuir_torch/ missing)",
               file=sys.stderr)
         return 1
-    from tpuir_torch import zoo
     from tpuir_torch.ops import _kernels
 
     card = card_line()
@@ -2878,7 +3324,28 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    device = torch.device("cuda", 0)
+    # the serving checks' planted copies, built at nice 19 while the card
+    # runs phases 2-11 (phases 12-15 then only check them)
+    from tpuir_torch.utils.serving_mutants import Prebuilt
+
+    threads = torch.get_num_threads()
+    with tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_") as mutant_dir:
+        prebuilt = Prebuilt(("K1", "mixer", "seq", "recur"), mutant_dir, jobs=MUTANT_BUILD_JOBS)
+        torch.set_num_threads(min(threads, MUTANT_BUILD_THREADS))
+        try:
+            run_phases(torch.device("cuda", 0), card, prebuilt, threads)
+        finally:
+            prebuilt.close()
+    return 0
+
+
+def run_phases(device, card, prebuilt, threads) -> None:
+    """Phases 2-19 on ``device``, then the kernels line and the last line;
+    torch's CPU threads back to ``threads`` from phase 12 on."""
+    import torch
+
+    from tpuir_torch import zoo
+
     t0 = time.time()
     k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_tc = phase_kernel_vs_plain(device)
     print(f"K1 per forward (44 BiasFree blocks, batch {BATCH}): kernel {k1_ms:.2f} ms, "
@@ -2932,8 +3399,9 @@ def main() -> int:
                "K3 per 481x321 chunk": (rows["selective_scan_fused_proj"][1], k3_updates, 1)}
     launches["rate_probe"], rows["rate_probe"] = phase_probe(device, scan_ms)
     print(f"[P1 {time.time() - t0:.0f} s]", flush=True)
+    torch.set_num_threads(threads)
     t0 = time.time()
-    row = phase_serving_kernels(device)
+    row = phase_serving_kernels(device, prebuilt=prebuilt)
     rows["fused_transformer_block_serving"] = row
     print(f"K1 serving per forward (44 BiasFree blocks, batch {BATCH}): kernel {row[1]:.2f} ms "
           f"(the replaced body, recorded on an H100 at 700 W: "
@@ -2942,13 +3410,13 @@ def main() -> int:
     launches.update(phase_serving_path(device, restormer_outs))
     print(f"[serving {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    rows.update(phase_mair_serving_kernels(device))
+    rows.update(phase_mair_serving_kernels(device, prebuilt=prebuilt))
     print(f"[MaIR serving kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     launches.update(phase_mair_serving_path(device, mair_outs))
     print(f"[MaIR serving path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    seq_rows, mixer_worst = phase_seq_serving_kernels(device)
+    seq_rows, mixer_worst = phase_seq_serving_kernels(device, prebuilt=prebuilt)
     rows.update(seq_rows)
     for name, err in mixer_worst.items():
         rows[name] = (max(rows[name][0], err),) + rows[name][1:]
@@ -2958,7 +3426,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     print(f"[MaIRUNet and off-stripe serving paths {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    rows["nss_scan_recur_serving"] = phase_recur_kernels(device)
+    rows["nss_scan_recur_serving"] = phase_recur_kernels(device, prebuilt=prebuilt)
     print(f"[recur kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     for name, n in phase_recur_path(device).items():
@@ -2976,6 +3444,10 @@ def main() -> int:
         for name, n in phase(device).items():
             launches[name] = launches.get(name, 0) + n
     print(f"[window, split and entry points {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_training(device).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[training {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -2988,7 +3460,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
-    return 0
 
 
 if __name__ == "__main__":

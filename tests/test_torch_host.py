@@ -124,13 +124,15 @@ def test_gather_and_blend_equal(h, w, ps, ov):
 def test_port_imports_without_jax():
     """Every module of the port, found by walking the package (so a module
     added later is checked too), and chip_smoke import with tpuir, JAX and
-    Flax blocked, and gradio and matplotlib too (the card's machine has
+    Flax blocked, optax too (the training core keeps optax's rules in
+    torch.optim), and gradio and matplotlib (the card's machine has
     neither: the demo and test_demo import them where they draw)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['tpuir'] = None\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
         "sys.modules['gradio'] = None\n"
         "sys.modules['matplotlib'] = None\n"
         "import tpuir_torch\n"
@@ -146,11 +148,14 @@ def test_port_imports_without_jax():
         "        'tpuir_torch.models.deblurgan.fpn_inception', 'tpuir_torch.weights.caffe',\n"
         "        'tpuir_torch.demo_core', 'tpuir_torch.scripts.demo',\n"
         "        'tpuir_torch.scripts.test_demo', 'tpuir_torch.scripts.compute_flops',\n"
-        "        'tpuir_torch.scripts.test_patch_size', 'tpuir_torch.scripts.validate_serving'}\n"
+        "        'tpuir_torch.scripts.test_patch_size', 'tpuir_torch.scripts.validate_serving',\n"
+        "        'tpuir_torch.registry', 'tpuir_torch.train.pipeline', 'tpuir_torch.train.model',\n"
+        "        'tpuir_torch.ops.kernel_grad', 'tpuir_torch.scripts.train',\n"
+        "        'tpuir_torch.scripts.test', 'tpuir_torch.scripts.testM'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
-        "(m in ('tpuir', 'jax', 'flax', 'gradio', 'matplotlib') or m.startswith(\n"
-        "('tpuir.', 'jax.', 'flax.', 'gradio.', 'matplotlib.')))]\n"
+        "(m in ('tpuir', 'jax', 'flax', 'optax', 'gradio', 'matplotlib') or m.startswith(\n"
+        "('tpuir.', 'jax.', 'flax.', 'optax.', 'gradio.', 'matplotlib.')))]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

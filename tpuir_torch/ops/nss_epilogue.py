@@ -22,7 +22,10 @@ there, it runs ``mixer_epilogue_plain`` or ``mixer_epilogue_serving_plain``,
 the same math in plain PyTorch, which is also what the kernel is held
 against on the card. ``mixer_epilogue_serving_stages`` returns the serving
 body's W_out copy and gated rows beside its output, for the stage-by-stage
-check of ``utils/serving_check.py``.
+check of ``utils/serving_check.py``. Every parity call goes through
+the Function of ``ops/kernel_grad.py`` (the kernel forward, the plain
+version's backward, as tpuir's ``custom_vjp``); the serving body raises
+under autograd on the card.
 
 Shapes: y (B, 4, H, W, d_inner) and z (B, H, W, d_inner) contiguous,
 float32 or, serving, bf16; gates (B, 4, d_inner), ln_w and ln_b
@@ -37,7 +40,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, kernel_grad
 from tpuir_torch.utils.misc import bf16_padded_rows, bf16_rounded
 
 MAX_INNER = 1024  # 32 channels a lane at most in the per-pixel warp
@@ -152,15 +155,29 @@ def _launch(y, gates, z, ln_w, ln_b, w_out, serving: bool) -> Dict[str, torch.Te
 def mixer_epilogue(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor, ln_w: torch.Tensor,
                    ln_b: torch.Tensor, w_out: torch.Tensor, serving: bool = False) -> torch.Tensor:
     """The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Forward only; y and z float32 or, with ``serving``, bf16; a float32
-    output."""
+    y and z float32 or, with ``serving``, bf16; a float32 output. The parity
+    body is differentiable (``ops/kernel_grad.py``: the plain version's
+    gradient); the serving body is forward only."""
     _check(y, gates, z, ln_w, ln_b, w_out, serving)
+    params = (y, gates, z, ln_w, ln_b, w_out)
+    if not serving:
+        return _parity_grad(params)
     if y.device.type == "cpu":
-        plain = mixer_epilogue_serving_plain if serving else mixer_epilogue_plain
-        return plain(y, gates, z, ln_w, ln_b, w_out)
-    out = _launch(y, gates, z, ln_w, ln_b, w_out, serving)["out"]
-    _kernels.LAUNCHES["mixer_epilogue_serving" if serving else "mixer_epilogue"] += 1
+        return mixer_epilogue_serving_plain(*params)
+    out = _launch(*params, True)["out"]
+    _kernels.LAUNCHES["mixer_epilogue_serving"] += 1
     return out
+
+
+def _parity_kernel(y, gates, z, ln_w, ln_b, w_out) -> torch.Tensor:
+    """The output of one counted launch of the parity body on y's card."""
+    out = _launch(y, gates, z, ln_w, ln_b, w_out, False)["out"]
+    _kernels.LAUNCHES["mixer_epilogue"] += 1
+    return out
+
+
+# tpuir/ops/nss_epilogue.py:_epilogue_vjp: the kernel forward, the plain backward
+_parity_grad = kernel_grad.differentiable(_parity_kernel, mixer_epilogue_plain)
 
 
 def mixer_epilogue_serving_stages(y: torch.Tensor, gates: torch.Tensor, z: torch.Tensor,

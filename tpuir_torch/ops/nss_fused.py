@@ -36,7 +36,10 @@ einsum projections, the plain chunked scan, the inverse gather), or
 also what the kernel is held against on the card: the table against the
 arithmetic. ``nss_scan_fused_serving_stages`` returns the serving body's
 scratch x_dbl beside its outputs, for the stage-by-stage check of
-``utils/serving_check.py``.
+``utils/serving_check.py``. Every parity call goes through the Function of
+``ops/kernel_grad.py`` (the kernel forward, the plain version's backward,
+as tpuir's ``custom_vjp``); the serving body raises under autograd on the
+card.
 
 x is (B, H, W, d) contiguous, float32 or, serving, bf16. Weights are
 float32 as the released checkpoints keep them: ``x_proj_w`` (4, R + 2N,
@@ -54,7 +57,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, kernel_grad
 from tpuir_torch.ops.nss_stripe import (check_scan_weights, scan_serving_values, serving_chunks,
                                         unpack_walk_rows, walk_capacity, walk_row)
 from tpuir_torch.ops.scan_ids import scan_index_tensors
@@ -94,7 +97,7 @@ def nss_scan_fused_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Te
     xdbl = torch.einsum("bkld,kcd->bklc", xs, x_proj_w)
     dts = torch.einsum("bklr,kdr->bkld", xdbl[..., :R], dt_w)
     y = selective_scan(xs, dts, A, xdbl[..., R:R + N], xdbl[..., R + N:], D, delta_bias,
-                       delta_softplus=True, chunk=256)
+                       delta_softplus=True, chunk=256, dtype=x.dtype)
     pooled = y.sum(2)
     yimg = torch.gather(y, 2, inv[None, :, :, None].expand(B, 4, L, d))  # pixel order
     y01 = yimg[:, :2].reshape(B, 2, H, W, d)
@@ -174,16 +177,33 @@ def nss_scan_fused(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y01, y23, pooled): the CUDA kernel on a CUDA tensor, the plain
     version on a CPU tensor. ``shift`` takes the shifted NSS path (lead
-    stripe of width scan_len / 2). Forward only; x, y01 and y23 float32 or,
-    with ``serving``, bf16; pooled float32. The kernel's y01 and y23 are
-    views of one (B, 4, H*W, d) buffer."""
+    stripe of width scan_len / 2). x, y01 and y23 float32 or, with
+    ``serving``, bf16; pooled float32. The kernel's y01 and y23 are views
+    of one (B, 4, H*W, d) buffer. The parity body is differentiable
+    (``ops/kernel_grad.py``: the plain version's gradient); the serving
+    body is forward only."""
     N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, serving)
+    params = (x, x_proj_w, dt_w, A, D, delta_bias)
+    if not serving:
+        return _parity_grad(params, (scan_len, shift))
     if x.device.type == "cpu":
-        plain = nss_scan_fused_serving_plain if serving else nss_scan_fused_plain
-        return plain(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
-    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, serving)
-    _kernels.LAUNCHES["nss_scan_fused_serving" if serving else "nss_scan_fused"] += 1
+        return nss_scan_fused_serving_plain(*params, scan_len, shift)
+    out = _launch(*params, scan_len, shift, N, R, True)
+    _kernels.LAUNCHES["nss_scan_fused_serving"] += 1
     return out["y01"], out["y23"], out["pooled"]
+
+
+def _parity_kernel(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift):
+    """(y01, y23, pooled) from one counted launch of the parity body on x's card."""
+    N = A.shape[-1]
+    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N,
+                  x_proj_w.shape[1] - 2 * N, False)
+    _kernels.LAUNCHES["nss_scan_fused"] += 1
+    return out["y01"], out["y23"], out["pooled"]
+
+
+# tpuir/ops/nss_fused.py:_nss_vjp: the kernel forward, the plain backward
+_parity_grad = kernel_grad.differentiable(_parity_kernel, nss_scan_fused_plain)
 
 
 def nss_scan_fused_serving_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,

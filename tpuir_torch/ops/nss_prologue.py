@@ -13,7 +13,10 @@ bounds it on the card and what the design does about that. Unlike the TPU
 kernel it pads no channels and emits no transposed copy.
 
 ``mixer_prologue`` is the wrapper: it checks its inputs and raises on
-anything the kernel does not take. On a CUDA tensor it launches the kernel
+anything the kernel does not take. Every parity call goes through the
+Function of ``ops/kernel_grad.py`` (the kernel forward, the plain
+version's backward, as tpuir's ``custom_vjp``); the serving body raises
+under autograd on the card. On a CUDA tensor it launches the kernel
 on the current stream and counts the launch, under ``mixer_prologue`` or,
 for the serving body, ``mixer_prologue_serving``; on a CPU tensor, and only
 there, it runs ``mixer_prologue_plain`` or ``mixer_prologue_serving_plain``,
@@ -38,7 +41,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, kernel_grad
 from tpuir_torch.utils.misc import bf16_padded_rows, bf16_rounded
 
 MAX_SERVING_MODEL = 464  # csrc/nss_prologue.cu kMaxDm
@@ -136,18 +139,33 @@ def _launch(h: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor, conv_b: t
     return out
 
 
+def _parity_kernel(h: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor,
+                   conv_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, z) from one counted launch of the parity body on h's card."""
+    out = _launch(h, w_in, conv_w, conv_b, conv_w.shape[0], False)
+    _kernels.LAUNCHES["mixer_prologue"] += 1
+    return out["x"], out["z"]
+
+
+# tpuir/ops/nss_prologue.py:_prologue_vjp: the kernel forward, the plain backward
+_parity_grad = kernel_grad.differentiable(_parity_kernel, mixer_prologue_plain)
+
+
 def mixer_prologue(h: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor,
                    conv_b: torch.Tensor, serving: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, z): the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor. Forward only; h and the weights float32, x and z float32 or,
-    with ``serving``, bf16."""
+    tensor. h and the weights float32, x and z float32 or, with
+    ``serving``, bf16. The parity body is differentiable
+    (``ops/kernel_grad.py``: the plain version's gradient); the serving
+    body is forward only."""
     di = _check(h, w_in, conv_w, conv_b, serving)
+    if not serving:
+        return _parity_grad((h, w_in, conv_w, conv_b))
     if h.device.type == "cpu":
-        plain = mixer_prologue_serving_plain if serving else mixer_prologue_plain
-        return plain(h, w_in, conv_w, conv_b)
-    out = _launch(h, w_in, conv_w, conv_b, di, serving)
-    _kernels.LAUNCHES["mixer_prologue_serving" if serving else "mixer_prologue"] += 1
+        return mixer_prologue_serving_plain(h, w_in, conv_w, conv_b)
+    out = _launch(h, w_in, conv_w, conv_b, di, True)
+    _kernels.LAUNCHES["mixer_prologue_serving"] += 1
     return out["x"], out["z"]
 
 

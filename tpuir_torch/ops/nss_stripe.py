@@ -24,7 +24,10 @@ its x_dbl scratch holds rows packed as the walk stages them (``walk_row``),
 which ``nss_scan_serving_stages`` unpacks.
 
 ``nss_scan`` is the wrapper: it checks its inputs and raises on anything
-the kernel does not take. On a CUDA tensor it launches the kernel on the
+the kernel does not take. Every parity call goes through the Function of
+``ops/kernel_grad.py`` (the kernel forward, the plain version's backward,
+as tpuir's ``custom_vjp``); the serving bodies raise under autograd on the
+card. On a CUDA tensor it launches the kernel on the
 current stream and counts the launch, under ``nss_scan``, for the serving
 body ``nss_scan_serving``, for the recurrence body ``nss_scan_recur_serving``;
 on a CPU tensor, and only there, it runs ``nss_scan_plain``, the port of
@@ -53,7 +56,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, kernel_grad
 from tpuir_torch.ops.scan_ids import (mair_scan_ids, mair_subchunk_layout, scan_ids_tensor,
                                       subchunk_offsets_tensor)
 from tpuir_torch.ops.selective_scan import selective_scan
@@ -176,7 +179,7 @@ def nss_scan_plain(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
     xdbl = torch.einsum("bkld,kcd->bklc", xs, x_proj_w)
     dts = torch.einsum("bklr,kdr->bkld", xdbl[..., :R], dt_w)
     y = selective_scan(xs, dts, A, xdbl[..., R:R + N], xdbl[..., R + N:], D, delta_bias,
-                       delta_softplus=True, chunk=256)
+                       delta_softplus=True, chunk=256, dtype=x.dtype)
     pooled = y.sum(2)
     # inv maps each direction's sequence back to row-major pixel order
     yimg = torch.stack([y[:, k, inv[k]] for k in range(4)], 1)
@@ -468,20 +471,35 @@ def nss_scan(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor, A: tor
              recur_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, pooled): the CUDA kernel on a CUDA tensor, the plain version on a
     CPU tensor. ``shift`` takes the shifted NSS table (lead stripe of width
-    scan_len / 2). Forward only; x and y float32 or, with ``serving``, bf16;
+    scan_len / 2). x and y float32 or, with ``serving``, bf16;
     pooled float32. ``recur_bf16`` (serving only) takes the bf16-recurrence
-    body."""
+    body. The parity body is differentiable (``ops/kernel_grad.py``: the
+    plain version's gradient); the serving bodies are forward only."""
     if recur_bf16 and not serving:
         raise ValueError("nss_scan: recur_bf16 is a serving body; pass serving=True")
     N, R = _check(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, serving)
+    params = (x, x_proj_w, dt_w, A, D, delta_bias)
+    if not serving:
+        return _parity_grad(params, (scan_len, shift))
     if x.device.type == "cpu":
-        plain = (nss_scan_recur_plain if recur_bf16 else
-                 nss_scan_serving_plain if serving else nss_scan_plain)
-        return plain(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift)
-    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N, R, serving,
-                  recur_bf16)
-    _kernels.LAUNCHES[_launch_name(serving, recur_bf16)] += 1
+        plain = nss_scan_recur_plain if recur_bf16 else nss_scan_serving_plain
+        return plain(*params, scan_len, shift)
+    out = _launch(*params, scan_len, shift, N, R, True, recur_bf16)
+    _kernels.LAUNCHES[_launch_name(True, recur_bf16)] += 1
     return out["y"], out["pooled"]
+
+
+def _parity_kernel(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift):
+    """(y, pooled) from one counted launch of the parity body on x's card."""
+    N = A.shape[-1]
+    out = _launch(x, x_proj_w, dt_w, A, D, delta_bias, scan_len, shift, N,
+                  x_proj_w.shape[1] - 2 * N, False)
+    _kernels.LAUNCHES["nss_scan"] += 1
+    return out["y"], out["pooled"]
+
+
+# tpuir/ops/nss_stripe.py:_stripe_vjp: the kernel forward, the plain backward
+_parity_grad = kernel_grad.differentiable(_parity_kernel, nss_scan_plain)
 
 
 def nss_scan_serving_stages(x: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,

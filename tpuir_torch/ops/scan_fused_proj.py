@@ -25,7 +25,10 @@ softplus, the plain chunked scan, D*x), or
 ``selective_scan_fused_proj_serving_plain``, which are also what the kernel
 is held against on the card. ``selective_scan_fused_proj_serving_stages``
 returns the serving body's x_dbl, unpacked from its scratch, beside y, for
-the stage-by-stage check of ``utils/serving_check.py``.
+the stage-by-stage check of ``utils/serving_check.py``. Every parity call goes through
+the Function of ``ops/kernel_grad.py`` (the kernel forward, the plain
+version's backward, as tpuir's ``custom_vjp``); the serving body raises
+under autograd on the card.
 
 xs is (B, 4, L, d) contiguous in sequence order, float32 or, serving, bf16
 with d even; y comes back float32 in the same shape; there is no pooled
@@ -41,7 +44,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from tpuir_torch.ops import _kernels
+from tpuir_torch.ops import _kernels, kernel_grad
 from tpuir_torch.ops.nss_stripe import check_scan_weights, seq_scan_from_xdbl, state_ceiling
 from tpuir_torch.ops.selective_scan import selective_scan
 from tpuir_torch.utils.misc import bf16_rounded
@@ -69,7 +72,7 @@ def selective_scan_fused_proj_plain(xs: torch.Tensor, x_proj_w: torch.Tensor,
     xdbl = torch.einsum("bkld,kcd->bklc", xs, x_proj_w)
     dts = torch.einsum("bklr,kdr->bkld", xdbl[..., :R], dt_w)
     return selective_scan(xs, dts, A, xdbl[..., R:R + N], xdbl[..., R + N:], D, delta_bias,
-                          delta_softplus=True, chunk=256)
+                          delta_softplus=True, chunk=256, dtype=xs.dtype)
 
 
 def seq_scan_serving_values(xs: torch.Tensor, x_proj_w: torch.Tensor, dt_w: torch.Tensor,
@@ -129,16 +132,30 @@ def selective_scan_fused_proj(xs: torch.Tensor, x_proj_w: torch.Tensor, dt_w: to
                               A: torch.Tensor, D: torch.Tensor, delta_bias: torch.Tensor,
                               serving: bool = False) -> torch.Tensor:
     """y: the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor. Forward only; xs float32 or, with ``serving``, bf16; y float32."""
+    tensor. xs float32 or, with ``serving``, bf16; y float32. The parity
+    body is differentiable (``ops/kernel_grad.py``: the plain version's
+    gradient); the serving body is forward only."""
     N, R = _check(xs, x_proj_w, dt_w, A, D, delta_bias, serving)
+    params = (xs, x_proj_w, dt_w, A, D, delta_bias)
+    if not serving:
+        return _parity_grad(params)
     if xs.device.type == "cpu":
-        plain = selective_scan_fused_proj_serving_plain if serving else \
-            selective_scan_fused_proj_plain
-        return plain(xs, x_proj_w, dt_w, A, D, delta_bias)
-    y, _ = _launch(xs, x_proj_w, dt_w, A, D, delta_bias, N, R, serving)
-    _kernels.LAUNCHES["selective_scan_fused_proj_serving" if serving
-                      else "selective_scan_fused_proj"] += 1
+        return selective_scan_fused_proj_serving_plain(*params)
+    y, _ = _launch(*params, N, R, True)
+    _kernels.LAUNCHES["selective_scan_fused_proj_serving"] += 1
     return y
+
+
+def _parity_kernel(xs, x_proj_w, dt_w, A, D, delta_bias) -> torch.Tensor:
+    """y from one counted launch of the parity body on xs's card."""
+    N = A.shape[-1]
+    y, _ = _launch(xs, x_proj_w, dt_w, A, D, delta_bias, N, x_proj_w.shape[1] - 2 * N, False)
+    _kernels.LAUNCHES["selective_scan_fused_proj"] += 1
+    return y
+
+
+# tpuir/ops/scan_pallas.py:_fused_vjp: the kernel forward, the plain backward
+_parity_grad = kernel_grad.differentiable(_parity_kernel, selective_scan_fused_proj_plain)
 
 
 def selective_scan_fused_proj_serving_stages(xs: torch.Tensor, x_proj_w: torch.Tensor,

@@ -110,13 +110,17 @@ def scan_index_tensors(H: int, W: int, scan_len: int, shift_len: int,
     """(scan ids, inverse ids), each a (4, H*W) int64 tensor on ``device``,
     for indexing: ``x[:, ids]`` gathers an image's pixels (B, H*W, d) into
     the four paths' sequences and ``inverse`` puts them back. Cached like
-    ``scan_ids_tensor``; callers must not write to them."""
+    ``scan_ids_tensor``; callers must not write to them. Made outside
+    inference mode even when first asked for in it (the engine's forward),
+    since autograd saves an index for its backward and refuses an
+    inference tensor."""
     key = (H, W, scan_len, shift_len, str(torch.device(device)), "index")
     with _DEVICE_IDS_LOCK:
         pair = _DEVICE_IDS.get(key)
         if pair is None:
-            pair = tuple(torch.from_numpy(a).long().to(device)
-                         for a in mair_scan_ids(H, W, scan_len, shift_len))
+            with torch.inference_mode(False):
+                pair = tuple(torch.from_numpy(a).long().to(device)
+                             for a in mair_scan_ids(H, W, scan_len, shift_len))
             _DEVICE_IDS[key] = pair
     return pair
 

@@ -2,10 +2,10 @@
 
     python -m tpuir_torch.utils.serving_mutants [--bodies K1|mixer|seq|recur] [--dir DIR] [--jobs 4]
 
-Copies ``tpuir_torch/`` once per mutant into DIR (default: a temporary
-directory, removed at the end), plants one fault in the copy's serving
-body (``csrc/``, or for the recurrence body its subchunk table in
-``ops/scan_ids.py``), builds the copy's kernels there and runs the stage check
+Copies ``tpuir_torch/`` once per distinct fault into DIR (default: a
+temporary directory, removed at the end), plants the fault in the copy's
+serving body (``csrc/``, or for the recurrence body its subchunk table in
+``ops/scan_ids.py``), builds the copy's kernels there (``Prebuilt``) and runs the stage check
 of ``utils/serving_check.py`` on the copy's kernels. Each copy starts from
 the checked tree's compiled objects (``ops/_kernels.py`` keys an object by
 its source and the headers it includes), so it recompiles only the
@@ -43,17 +43,24 @@ tolerances may not resolve. One line a mutant (the stages that rejected
 it, with their numbers; for a mixer or seq mutant every stage's numbers),
 then the verdict; exits 1 if a required mutant is accepted or "none"
 rejected. The source of the checked tree is never changed.
+
+The copies are built by ``Prebuilt``, in nvcc processes at nice 19 that
+need no card. ``run_mutants`` makes one for its body, or takes the one
+``chip_smoke.py`` starts for all four bodies ahead, so that the builds
+overlap its card phases and its mutation controls only check.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -408,14 +415,75 @@ def planted_copy(d: str, edits, pkg: str = _PKG) -> None:
     plant(os.path.join(d, "tpuir_torch"), edits)
 
 
-def _run(root: str, name: str, edits, script: str, shapes) -> tuple:
-    d = os.path.join(root, "".join(c if c.isalnum() else "_" for c in name))
-    planted_copy(d, edits)
+def _check(d: str, name: str, script: str, shapes) -> tuple:
+    """Run a check script in the copy at ``d``: (name, its result or None,
+    the error's tail)."""
     r = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=d,
                        capture_output=True, text=True)
     if r.returncode:
         return name, None, r.stderr[-2000:]
     return name, json.loads(r.stdout.strip().splitlines()[-1]), ""
+
+
+_BUILD = "from tpuir_torch.ops import _kernels; _kernels.build()"
+# the builds' CPU priority: the card's host refuses SCHED_IDLE (chrt --idle)
+NICE = ["nice", "-n", "19"]
+
+
+class Prebuilt:
+    """The planted copies of ``bodies``' mutants: one copy a distinct set of
+    edits (a fault shared by two bodies, and "none", is built once), under
+    ``root``, by ``jobs`` background builds at ``nice`` 19 in the order of
+    ``bodies``. The builds need no card, so they can overlap a caller's
+    card work; ``run_mutants(..., prebuilt=self)`` then checks each mutant
+    in its copy. ``close()`` waits for the builds still running."""
+
+    def __init__(self, bodies, root: str, jobs: int = 3):
+        self.root = root
+        self.started = time.time()
+        self.build_seconds = []  # (seconds, the time it ended, failed) a copy
+        self._pool = ThreadPoolExecutor(jobs)
+        self._copies = {}
+        for b in bodies:
+            required, reported = BODIES[b][:2]
+            for edits in {**required, **reported}.values():
+                key = repr(edits)
+                if key not in self._copies:
+                    self._copies[key] = self._pool.submit(self._build, len(self._copies), edits)
+
+    def _build(self, i: int, edits) -> tuple:
+        t0 = time.time()
+        d = os.path.join(self.root, f"copy{i}")
+        planted_copy(d, edits)
+        r = subprocess.run([*NICE, sys.executable, "-c", _BUILD], cwd=d,
+                           capture_output=True, text=True)
+        self.build_seconds.append((time.time() - t0, time.time(), r.returncode != 0))
+        return d, r.stderr[-2000:] if r.returncode else ""
+
+    def summary(self) -> str:
+        """The builds so far: count, their summed seconds, and when the last
+        ended, from the start."""
+        if not self.build_seconds:
+            return "no copy built yet"
+        failed = sum(f for _, _, f in self.build_seconds)
+        return (f"{len(self.build_seconds)} of {len(self._copies)} copies built"
+                + (f" ({failed} FAILED)" if failed else "")
+                + f", {sum(s for s, _, _ in self.build_seconds):.0f} s of builds, the last "
+                f"{max(e for _, e, _ in self.build_seconds) - self.started:.0f} s after the start")
+
+    def copy(self, edits) -> tuple:
+        """(the copy's directory, the build's error tail or ""), once built."""
+        return self._copies[repr(edits)].result()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
+def _check_mutant(prebuilt: Prebuilt, name: str, edits, script: str, shapes) -> tuple:
+    """Run a check script in the built copy of ``edits``: (name, its result
+    or None, the build's or the check's error tail)."""
+    d, err = prebuilt.copy(edits)
+    return (name, None, err) if err else _check(d, name, script, shapes)
 
 
 def _rejected(res: dict, name: str = "none") -> bool:
@@ -434,9 +502,11 @@ def _rejected(res: dict, name: str = "none") -> bool:
     return all(any(map(rejects, sts)) for sts in named)
 
 
-def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
-    """Build and check every mutant of ``bodies`` (each in its own copy under
-    ``root``, default a temporary directory), printing one line each.
+def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4,
+                prebuilt: Prebuilt = None) -> dict:
+    """Check every mutant of ``bodies`` in its copy of ``prebuilt`` (default:
+    one built here under ``root``, else a temporary directory, ``jobs``
+    builds at once), ``jobs`` checks at once, printing one line each.
     Returns {mutant: rejected (bool), or None if its copy did not build or
     run}."""
     from tpuir_torch.ops import _kernels
@@ -444,9 +514,14 @@ def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4) -> dict:
     required, reported, script, shapes = BODIES[bodies]
     mutants = {**required, **reported}
     _kernels.build()  # the checked tree's objects, which each copy starts from
-    with tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_") as tmp:
+    with contextlib.ExitStack() as stack:
+        if prebuilt is None:
+            prebuilt = Prebuilt((bodies,), root or stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_")), jobs)
+            stack.callback(prebuilt.close)
         with ThreadPoolExecutor(jobs) as ex:
-            runs = ex.map(lambda n: _run(root or tmp, n, mutants[n], script, shapes), mutants)
+            runs = ex.map(lambda n: _check_mutant(prebuilt, n, mutants[n], script, shapes),
+                          mutants)
             verdicts = {}
             for name, res, err in runs:
                 if res is None:
@@ -474,7 +549,8 @@ def main() -> int:
                     help="K1's serving body, the MaIR mixer's (K6, K2, K7), MaIR's "
                          "scans off the stripe route (K3, K5), or K2's bf16-recurrence body")
     ap.add_argument("--dir", default=None, help="where the copies go (default: a temp dir)")
-    ap.add_argument("--jobs", type=int, default=4, help="copies built and checked at once")
+    ap.add_argument("--jobs", type=int, default=4,
+                    help="copies built at once, and checked at once")
     args = ap.parse_args()
     verdicts = run_mutants(args.bodies, args.dir, args.jobs)
     bad = failures(args.bodies, verdicts)
