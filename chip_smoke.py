@@ -251,11 +251,49 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     and batch 8, full width, built plain (no K1 launch), its ``net_g_3.pth``
     served by the zoo within 1 LSB of the trained network, then resumed to
     iteration 5.
+20. DeblurGANv2 training (``models/deblurgan/``, ``train/deblurgan_*.py``,
+    ``train/vgg_features.py``, ``train/fid_inception.py``,
+    ``train/extra_metrics.py``), float32 with TF32 off, seeded weights and
+    seeded sharp/blurred pairs (a synthetic image and its box blur through
+    ``deblurgan_aug``'s geometric transforms, a 256x256 random crop and the
+    [-1, 1] normalize). No hand kernel is on this path; none may launch.
+    (a) The released recipe: FPN-Inception at the zoo's width, double_gan
+    (3-layer PatchGAN and the 5-layer one, instance norm), WGAN-GP with one
+    alpha a step from a seeded ``torch.Generator``, the perceptual loss on a
+    seeded VGG19 trunk, adv_lambda 0.001, Adam 1e-4 for G and for the Ds,
+    batch 1, 5 steps: D on the detached fake, 0.5 (patch + full), then G on
+    content + adv_lambda 0.5 (patch + full) against the updated Ds; each
+    step's losses finite; per step from CUDA events G's forward, the D step
+    split into forward, penalty, backward (the double backward) and
+    optimizer, the G step, and the peak memory, with the median over steps
+    2-5. Step 1 against the CPU from the same weights, pair and alpha: G's
+    output within 1e-4, both losses within 1e-4 relative; and step 1 again
+    in float64 on the card and on the CPU, every gradient of G and of both
+    Ds within 1e-3 relative L2 a tensor (a tensor that is zero by
+    construction, rounding noise on both sides), the card's float32
+    gradients printed against the float64 ones. (b) FPN-MobileNet,
+    patch_gan, ragan-ls, L1 content, 3 steps: each step's losses and pool
+    means within 1e-4 relative of the CPU's started from the card's weights
+    and pools, and the pools' ``random.sample`` draws the CPU's under one
+    seed. (c) ResnetGenerator (ngf 64, 6 blocks), FPN-Inception-Simple,
+    FPN-Dense and UNet-SEResNeXt at full width, 256x256, batch 1, one L1
+    forward and backward each, timed: the output within 1e-4 of the CPU's,
+    the gradients in float64 on both within 1e-3 relative L2 a tensor,
+    whether float32 repeats bit for bit. (d) One D step of the multi-scale
+    discriminator with ``train/losses.multi_scale_gan_loss`` (lsgan)
+    against the CPU: the float32 loss, the gradients in float64. (e) FID Inception features of 4 seeded 299x299 images
+    from a seeded checkpoint read back, on the card and the CPU (within
+    1e-4), the FID of the two sets (below 1e-3; computed on the host beside
+    the deferred mutation controls), and DeblurGANv2's SSIM on the card
+    against the CPU.
 
 The serving checks' planted copies (phases 12-15) are built by
 ``serving_mutants.Prebuilt`` in ``MUTANT_BUILD_JOBS`` background builds
 at nice 19, from the end of the build on, so that they overlap phases
-2-11, where torch keeps ``MUTANT_BUILD_THREADS`` CPU threads.
+2-11, where torch keeps ``MUTANT_BUILD_THREADS`` CPU threads. K1's
+mutation controls run in phase 12; those of the MaIR serving bodies
+(phases 13-15: ``DEFERRED_MUTANTS``) after phase 20, when their copies
+are built, while the FID of phase 20 (e) is computed beside them.
 
 Each path's launch counts are set to 0 just before it is served (K4's and
 P1's entry points: just before they are called) and read just after; a
@@ -362,6 +400,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # spread (40% between the two alone runs) hides what 2 builds beside 6
 # threads cost: that cost is unresolved, not shown to be zero.
 MUTANT_BUILD_JOBS, MUTANT_BUILD_THREADS = 2, 6
+# (bodies, copies checked at once) whose mutation controls run after phase
+# 20: their copies are built by then (on an H100 host the builds of all four
+# sets end about 520 s after the start, phase 13 begins near 350 s)
+DEFERRED_MUTANTS = (("mixer", 8), ("seq", 8), ("recur", 6))
 FP32_FLOP_PER_S = 67e12
 F32X3_FLOP_PER_S = 494.7e12 / 3  # dense TF32 tensor-core rate, three products a float32 one
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
@@ -1965,10 +2007,9 @@ def check_serving_body(label, stages, check, kern, plain, outs, work, iters=ITER
     return max_err, t_kern, t_plain, b_ms, b_by
 
 
-def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72),
-                                prebuilt=None):
-    """The serving bodies of K6, K2 and K7 stage by stage, timed, and their
-    mutation controls.
+def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
+    """The serving bodies of K6, K2 and K7 stage by stage, timed (their
+    mutation controls run after phase 20, ``DEFERRED_MUTANTS``).
 
     At MaIR-CDN@``tile``, batch ``batch`` (timed: plain, kernel, kernel,
     plain), and at the ``rect`` tile, batch 1, on phase 4's seeded
@@ -2021,7 +2062,6 @@ def phase_mair_serving_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72
                 res[name] = row
             del pro, scan, epi
             torch.cuda.empty_cache()
-    mutant_controls("mixer", jobs=8, prebuilt=prebuilt)
     return res
 
 
@@ -2093,12 +2133,12 @@ def serving_k5_work(px, di, n, r):
 
 
 def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
-                              k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH,
-                              prebuilt=None):
+                              k3_levels=UNET_K3_LEVELS, tile=MAIR_TILE, cdn_batch=BATCH):
     """Phase 14's kernels: the serving bodies at MaIRUNet's widths and K3's
     and K5's serving bodies, each stage by stage (``check_serving_body``),
-    bit for bit on repeat, timed beside its plain version; then their
-    mutation controls (``utils/serving_mutants.py --bodies seq``).
+    bit for bit on repeat, timed beside its plain version (their mutation
+    controls, ``utils/serving_mutants.py --bodies seq``, run after phase
+    20).
 
     K6, K2 and K7 serving at MaIRUNet's five level shapes of a 384x384 tile
     (batch 8) and K2 serving at the 384x328 tile (batch 2), on phase 6's
@@ -2220,7 +2260,6 @@ def phase_seq_serving_kernels(device, levels=UNET_LEVELS, rect=UNET_RECT,
                                       cdn[0][3], cdn[0][4])
     rows["selective_scan_fused_proj_serving"] = k3_row
     worst.pop("selective_scan_fused_proj_serving")
-    mutant_controls("seq", jobs=8, prebuilt=prebuilt)
     return rows, worst
 
 
@@ -2294,12 +2333,12 @@ def phase_seq_serving_path(device, unet_outs, mair_outs, unet_requests=UNET_REQU
     return launches
 
 
-def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), prebuilt=None):
+def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72)):
     """K2's bf16-recurrence body stage by stage (``check_serving_body`` with
     ``check_nss_scan_recur_serving``) at MaIR-CDN@``tile``, batch ``batch``,
     shift off and on (timed: plain, kernel, kernel, plain), and at the
     ``rect`` tile, batch 1, shift on, on phase 4's seeded activations
-    rounded to bf16; then its mutation controls. Returns
+    rounded to bf16 (its mutation controls run after phase 20). Returns
     (max |kernel - plain|, ms, plain ms, bound ms, bound by) per call at
     ``tile``, the mean over both shifts."""
     import torch
@@ -2331,7 +2370,6 @@ def phase_recur_kernels(device, batch=BATCH, tile=MAIR_TILE, rect=(96, 72), preb
                     "turns" if timed else None))
             del x, scan
             torch.cuda.empty_cache()
-    mutant_controls("recur", jobs=6, prebuilt=prebuilt)
     timed_rows = rows[:2]
     return (max(row[0] for row in rows), sum(row[1] for row in timed_rows) / 2,
             sum(row[2] for row in timed_rows) / 2, timed_rows[0][3], timed_rows[0][4])
@@ -3299,6 +3337,585 @@ def phase_training(device):
     return launches
 
 
+# -- phase 20: DeblurGANv2 training ---------------------------------------------
+
+GAN_SIDE = 256  # the released recipe's crop
+GAN_SOURCE_SIDE = 288  # the synthetic pair the crop is cut from
+GAN_STEPS, RAGAN_STEPS = 5, 3
+GAN_SEED = 2200
+# tpuir's documented default (``tpuir/models/deblurgan/``, the released
+# config): FPN-Inception, double_gan with 3-layer PatchGAN and instance
+# norm, WGAN-GP, the perceptual content loss, adv_lambda 0.001, Adam 1e-4
+RELEASED = {"d_name": "double_gan", "d_layers": 3, "norm_layer": "instance",
+            "content_loss": "perceptual", "disc_loss": "wgan-gp", "adv_lambda": 0.001}
+RAGAN = {"d_name": "patch_gan", "d_layers": 3, "norm_layer": "instance",
+         "content_loss": "l1", "disc_loss": "ragan-ls", "adv_lambda": 0.001}
+GAN_LR = 1e-4
+GAN_LOSS_RTOL = 1e-4  # a loss, card against CPU
+GAN_OUT_ATOL = 1e-4  # a network's output, card against CPU
+# a gradient tensor whose CPU norm is below this share of the whole
+# gradient's is zero by construction (a conv bias an instance norm
+# follows: the norm takes the mean out), and rounding noise on both sides
+GAN_ZERO_SHARE = 1e-5
+FID_IMAGES, FID_SIDE = 4, 299
+FID_ATOL, FID_ZERO = 1e-4, 1e-3
+SSIM_ATOL = 1e-5
+
+
+def gan_pair(device, seed=GAN_SEED):
+    """A seeded sharp/blurred pair at the recipe's crop, NCHW in [-1, 1]:
+    a synthetic image and its seeded box blur (5, 7 or 9 wide, reflect
+    borders) through ``deblurgan_aug``'s paired geometric transforms and
+    random crop and its [-1, 1] normalize."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuir_torch.train import deblurgan_aug
+
+    rng = np.random.RandomState(seed)
+    sharp = synthetic_image(GAN_SOURCE_SIDE, GAN_SOURCE_SIDE, seed)
+    k = int(rng.choice([5, 7, 9]))
+    t = torch.from_numpy(sharp.astype(np.float32)).permute(2, 0, 1)[None]
+    blurred = F.avg_pool2d(F.pad(t, (k // 2,) * 4, mode="reflect"), k, stride=1)
+    blurred = np.clip(np.round(blurred[0].permute(1, 2, 0).numpy()), 0, 255).astype(np.uint8)
+    blurred, sharp = deblurgan_aug.get_transforms(GAN_SIDE, "geometric", "random")(
+        blurred, sharp, rng)
+    blurred, sharp = deblurgan_aug.get_normalize()(blurred, sharp)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).permute(2, 0, 1)[None].to(device)
+                 for a in (blurred, sharp))
+
+
+def weights_of(net):
+    return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+
+def grads_of(net):
+    import torch
+
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().clone()
+            for k, p in net.named_parameters()}
+
+
+def check_grads(label, got, want, rtol=TRAIN_GRAD_RTOL):
+    """Each gradient tensor within ``rtol`` relative L2 of the CPU's; one
+    that is zero by construction (``GAN_ZERO_SHARE``) rounding noise on
+    both. Returns (worst relative L2, its tensor, tensors held as zero)."""
+    import torch
+
+    total = float(torch.sqrt(sum((w.double() ** 2).sum() for w in want.values())))
+    worst, zeros = (0.0, ""), 0
+    for k, w in want.items():
+        if float(torch.linalg.vector_norm(w.double())) <= GAN_ZERO_SHARE * total:
+            zeros += 1
+            if float(torch.linalg.vector_norm(got[k].double())) > GAN_ZERO_SHARE * total:
+                fail(f"{label}: gradient {k} is zero by construction on the CPU, not on the card")
+            continue
+        worst = max(worst, (rel_l2(got[k], w), k))
+    if worst[0] > rtol:
+        fail(f"{label}: gradient {worst[1]} is {worst[0]:.2e} relative L2 from the CPU's")
+    return worst[0], worst[1], zeros
+
+
+def check_loss(label, got, want, rtol=GAN_LOSS_RTOL):
+    if not (np.isfinite(got) and np.isfinite(want)):
+        fail(f"{label}: a loss is not finite ({got}, {want})")
+    err = abs(got - want) / max(abs(want), 1e-30)
+    if err > rtol:
+        fail(f"{label}: {got:.8e} on the card, {want:.8e} on the CPU ({err:.2e} relative)")
+    return err
+
+
+class GanRun:
+    """One DeblurGANv2 configuration on a device: the generator, the
+    discriminators (``get_discriminator``), the losses (``get_loss``) and
+    Adam at ``GAN_LR`` for G and for the discriminators together, all from
+    the given state dicts, in ``dtype`` (float64 for the gradient twins)."""
+
+    def __init__(self, cfg, device, g_cls, g_sd, d_sds, vgg_sd, dtype=None):
+        from tpuir_torch.models.deblurgan import discriminators
+        from tpuir_torch.models.deblurgan.norms import load_checkpoint
+        from tpuir_torch.train import deblurgan_losses
+        from tpuir_torch.train.trainer import build_optimizer
+
+        self.cfg, self.device = cfg, device
+        self.g = load_checkpoint(g_cls(), g_sd).to(device).train()
+        self.ds = discriminators.get_discriminator(cfg, device=device)
+        for k, d in self.ds.items():
+            d.load_state_dict(d_sds[k])
+        self.content, self.disc_loss = deblurgan_losses.get_loss(cfg, vgg_state_dict=vgg_sd,
+                                                                 device=device)
+        if dtype is not None:
+            for net in (self.g, *self.ds.values(), getattr(self.content, "vgg", None)):
+                if net is not None:
+                    net.to(dtype)
+        self.g_opt = build_optimizer({"type": "Adam", "lr": GAN_LR}, list(self.g.parameters()))
+        self.d_opt = build_optimizer({"type": "Adam", "lr": GAN_LR},
+                                     [p for d in self.ds.values() for p in d.parameters()])
+
+    def d_loss(self, fake, real, alpha):
+        """The discriminators' loss, their mean (0.5 (patch + full) for
+        double_gan), as ``get_loss`` computes it."""
+        kw = {"alpha": alpha} if alpha is not None else {}
+        return sum(self.disc_loss.get_loss(d, fake, real, **kw)
+                   for d in self.ds.values()) / len(self.ds)
+
+    def g_loss(self, fake, real):
+        adv = sum(self.disc_loss.get_g_loss(d, fake, real) for d in self.ds.values()) / len(self.ds)
+        return self.content(fake, real) + self.cfg["adv_lambda"] * adv
+
+    def step(self, blurred, sharp, alpha=None, timed=False):
+        """One alternation: G's forward; D on the detached fake (for WGAN-GP
+        the Wasserstein terms, then the penalty, then their backward, timed
+        apart); D's Adam step; G on content + adv_lambda * adversarial
+        against the updated Ds; G's Adam step. Returns the losses, the
+        gradients, the D weights after D's step, and with ``timed`` the ms
+        of each part (CUDA events; the copies the checks keep are left out)
+        and the peak memory."""
+        import torch
+
+        marks = {}
+
+        def mark(name):
+            if timed:
+                marks[name] = torch.cuda.Event(enable_timing=True)
+                marks[name].record()
+
+        if timed:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mark("start")
+        fake = self.g(blurred)
+        mark("g_forward")
+        self.d_opt.zero_grad(set_to_none=True)
+        detached = fake.detach()
+        if self.cfg["disc_loss"] == "wgan-gp":
+            wass = [d(detached).mean() - d(sharp).mean() for d in self.ds.values()]
+            mark("d_forward")
+            pen = [self.disc_loss.calc_gradient_penalty(d, sharp, detached, alpha=alpha)
+                   for d in self.ds.values()]
+            mark("penalty")
+            loss_d = sum(w + p for w, p in zip(wass, pen)) / len(self.ds)
+        else:
+            loss_d = self.d_loss(detached, sharp, alpha)
+            mark("d_forward")
+            mark("penalty")
+        loss_d.backward()
+        mark("d_backward")
+        d_grads = {k: grads_of(d) for k, d in self.ds.items()}
+        mark("d_copied")
+        self.d_opt.step()
+        mark("d_optimizer")
+        d_after = {k: weights_of(d) for k, d in self.ds.items()}
+        mark("g_start")
+        self.g_opt.zero_grad(set_to_none=True)
+        loss_g = self.g_loss(fake, sharp)
+        loss_g.backward()
+        mark("g_backward")
+        g_grads = grads_of(self.g)
+        mark("g_copied")
+        self.g_opt.step()
+        mark("g_optimizer")
+        rec = {"loss_d": float(loss_d.detach()), "loss_g": float(loss_g.detach()),
+               "d_grads": d_grads, "g_grads": g_grads, "d_after": d_after,
+               "fake": fake.detach()}
+        if timed:
+            marks["g_optimizer"].synchronize()
+
+            def ms(a, b):
+                return marks[a].elapsed_time(marks[b])
+
+            rec["ms"] = {"g_forward": ms("start", "g_forward"),
+                         "d_forward": ms("g_forward", "d_forward"),
+                         "penalty": ms("d_forward", "penalty"),
+                         "d_backward": ms("penalty", "d_backward"),
+                         "d_optimizer": ms("d_copied", "d_optimizer"),
+                         "g_step": (ms("start", "g_forward") + ms("g_start", "g_backward")
+                                    + ms("g_copied", "g_optimizer"))}
+            rec["ms"]["d_step"] = sum(rec["ms"][k] for k in ("d_forward", "penalty",
+                                                             "d_backward", "d_optimizer"))
+            rec["ms"]["step"] = rec["ms"]["d_step"] + rec["ms"]["g_step"]
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return rec
+
+
+def median_ms(steps, key):
+    return float(np.median([s["ms"][key] for s in steps]))
+
+
+def gan_gradient_twin(device, start, vgg_sd, blurred, sharp, first):
+    """Phase 20 (a)'s gradients: step 1 again in float64 on the card and on
+    the CPU (the CPU's losses through ``get_loss``), every gradient of G and
+    of both Ds held to TRAIN_GRAD_RTOL relative L2 a tensor. In float32 the
+    bound is out of reach of any two implementations: a random-init
+    FPN-Inception's gradients through its per-sample norms differ from
+    float64 by up to 1e-2 relative a tensor on the CPU as on the card
+    (``python -m tpuir_torch.utils.gan_precision``); so the card's float32
+    gradients are printed against the float64 ones, unbounded."""
+    import torch
+
+    from tpuir_torch.models.deblurgan import fpn_inception
+
+    f64 = torch.float64
+    card = GanRun(RELEASED, device, fpn_inception.FPNInception, start["g"], start["ds"], vgg_sd,
+                  f64)
+    rec = card.step(blurred.to(f64), sharp.to(f64), start["alpha"])
+    cpu = GanRun(RELEASED, torch.device("cpu"), fpn_inception.FPNInception, start["g"],
+                 start["ds"], vgg_sd, f64)
+    b_cpu, s_cpu = blurred.cpu().to(f64), sharp.cpu().to(f64)
+    fake = cpu.g(b_cpu)
+    loss_d = cpu.d_loss(fake.detach(), s_cpu, start["alpha"])
+    loss_d.backward()
+    errs = [check_loss("released recipe step 1 (float64) D loss", rec["loss_d"],
+                       float(loss_d.detach()))]
+    held, f32 = [], []
+    for k, d in cpu.ds.items():
+        want = grads_of(d)
+        held.append(check_grads(f"released recipe step 1 (float64) D {k}", rec["d_grads"][k], want))
+        f32.append(gradient_spread(first["d_grads"][k], want))
+        d.load_state_dict(rec["d_after"][k])
+        d.zero_grad(set_to_none=True)
+    loss_g = cpu.g_loss(fake, s_cpu)
+    loss_g.backward()
+    errs.append(check_loss("released recipe step 1 (float64) G loss", rec["loss_g"],
+                           float(loss_g.detach())))
+    want = grads_of(cpu.g)
+    held.append(check_grads("released recipe step 1 (float64) G", rec["g_grads"], want))
+    f32.append(gradient_spread(first["g_grads"], want))
+    names = ("D patch", "D full", "G")
+    print("  released recipe step 1 in float64, card against CPU: losses "
+          f"{max(errs):.1e} relative; gradients " + ", ".join(
+              f"{n} worst {w:.1e} ({k}; {z} zero by construction)"
+              for n, (w, k, z) in zip(names, held)) + f" (limit {TRAIN_GRAD_RTOL})", flush=True)
+    print("  the card's float32 gradients of step 1 against float64 (no bound): " + ", ".join(
+        f"{n} worst {w:.2e} ({k}), {m} of {t} tensors past {TRAIN_GRAD_RTOL}, the whole "
+        f"gradient {a:.2e}" for n, (w, k, m, t, a) in zip(names, f32)), flush=True)
+
+
+def gradient_spread(got, want):
+    """(worst relative L2 a tensor, its name, tensors past TRAIN_GRAD_RTOL,
+    tensors counted, relative L2 of the whole gradient) of float32
+    gradients ``got`` against float64 ``want``, the tensors that are zero by
+    construction left out."""
+    import torch
+
+    total = float(torch.sqrt(sum((w.double() ** 2).sum() for w in want.values())))
+    rows = [(rel_l2(got[k], w), k) for k, w in want.items()
+            if float(torch.linalg.vector_norm(w.double())) > GAN_ZERO_SHARE * total]
+    whole = float(torch.sqrt(sum(((got[k].double() - w.double()) ** 2).sum()
+                                 for k, w in want.items()))) / total
+    worst = max(rows)
+    return worst[0], worst[1], sum(r > TRAIN_GRAD_RTOL for r, _ in rows), len(rows), whole
+
+
+def gan_released(device):
+    """Phase 20 (a): the released recipe at full width, 5 steps on the card;
+    step 1 against the same step on the CPU."""
+    import torch
+
+    from tpuir_torch.models.deblurgan import fpn_inception
+    from tpuir_torch.models.deblurgan.discriminators import get_discriminator
+    from tpuir_torch.train import deblurgan_losses, vgg_features
+    from tpuir_torch.utils.misc import seeded_state_dict
+
+    g_sd = fpn_inception.init_state_dict(seed=GAN_SEED)
+    d_sds = {k: seeded_state_dict(d, GAN_SEED + 1 + i)
+             for i, (k, d) in enumerate(get_discriminator(RELEASED, device="cpu").items())}
+    vgg_sd = vgg_features.init_state_dict(seed=GAN_SEED + 5)
+    blurred, sharp = gan_pair(device)
+    card = GanRun(RELEASED, device, fpn_inception.FPNInception, g_sd, d_sds, vgg_sd)
+    alphas = torch.Generator().manual_seed(GAN_SEED)
+    steps = []
+    for i in range(GAN_STEPS):
+        alpha = deblurgan_losses.DiscLossWGANGP.draw_alpha(alphas)
+        start = ({"g": weights_of(card.g), "ds": {k: weights_of(d) for k, d in card.ds.items()},
+                  "alpha": alpha} if i == 0 else None)
+        rec = card.step(blurred, sharp, alpha, timed=True)
+        if not (np.isfinite(rec["loss_d"]) and np.isfinite(rec["loss_g"])):
+            fail(f"DeblurGANv2 step {i + 1}: a loss is not finite ({rec['loss_d']}, "
+                 f"{rec['loss_g']})")
+        rec["start"] = start
+        steps.append(rec)
+        ms = rec["ms"]
+        print(f"  released recipe step {i + 1}: D loss {rec['loss_d']:.7e}, G loss "
+              f"{rec['loss_g']:.7e}; G forward {ms['g_forward']:.2f} ms, D forward "
+              f"{ms['d_forward']:.2f}, penalty {ms['penalty']:.2f}, D backward (the double "
+              f"backward) {ms['d_backward']:.2f}, D optimizer {ms['d_optimizer']:.2f}, G step "
+              f"{ms['g_step']:.2f}; peak {rec['peak_gb']:.2f} GB", flush=True)
+    later = steps[1:]
+    print(f"  released recipe, median of steps 2-{GAN_STEPS}: D step "
+          f"{median_ms(later, 'd_step'):.2f} ms (forward {median_ms(later, 'd_forward'):.2f}, penalty {median_ms(later, 'penalty'):.2f}"
+          f" and its double backward {median_ms(later, 'd_backward'):.2f}, optimizer "
+          f"{median_ms(later, 'd_optimizer'):.2f}), G step {median_ms(later, 'g_step'):.2f} ms "
+          f"(G forward {median_ms(later, 'g_forward'):.2f}); peak "
+          f"{max(s['peak_gb'] for s in later):.2f} GB", flush=True)
+
+    # the CPU twin of step 1 in float32: the same weights, pair and alpha,
+    # G's part against the card's updated discriminators: G's output and
+    # both losses (forwards only)
+    first, cpu_dev = steps[0], torch.device("cpu")
+    start = first["start"]
+    cpu = GanRun(RELEASED, cpu_dev, fpn_inception.FPNInception, start["g"], start["ds"], vgg_sd)
+    b_cpu, s_cpu = blurred.cpu(), sharp.cpu()
+    fake = cpu.g(b_cpu)
+    out_err = float((fake.detach() - first["fake"].cpu()).abs().max())
+    if out_err > GAN_OUT_ATOL:
+        fail(f"released recipe step 1: G's output is {out_err:.2e} from the CPU's")
+    errs = [check_loss("released recipe step 1 D loss", first["loss_d"],
+                       float(cpu.d_loss(fake.detach(), s_cpu, start["alpha"]).detach()))]
+    for k, d in cpu.ds.items():
+        d.load_state_dict(first["d_after"][k])
+    with torch.no_grad():
+        errs.append(check_loss("released recipe step 1 G loss", first["loss_g"],
+                               float(cpu.g_loss(fake, s_cpu))))
+    print(f"  released recipe step 1 against the CPU (float32): G output max|d| {out_err:.2e} "
+          f"(limit {GAN_OUT_ATOL}); losses {max(errs):.2e} relative (limit {GAN_LOSS_RTOL})",
+          flush=True)
+    gan_gradient_twin(device, start, vgg_sd, blurred, sharp, first)
+    return steps[-1]["fake"], sharp
+
+
+def clone_pool(pool, device):
+    from tpuir_torch.train.deblurgan_losses import ImagePool
+
+    out = ImagePool(pool.pool_size)
+    out.sample_size = pool.sample_size
+    out.images.extend(t.to(device) for t in pool.images)
+    return out
+
+
+def gan_relativistic(device):
+    """Phase 20 (b): FPN-MobileNet, patch_gan, ragan-ls, 3 steps; each step
+    against the CPU started from the card's weights and pools."""
+    import random
+
+    import torch
+
+    from tpuir_torch.models.deblurgan import fpn_mobilenet
+    from tpuir_torch.models.deblurgan.discriminators import get_discriminator
+    from tpuir_torch.utils.misc import seeded_state_dict
+
+    d_sds = {k: seeded_state_dict(d, GAN_SEED + 11)
+             for k, d in get_discriminator(RAGAN, device="cpu").items()}
+    blurred, sharp = gan_pair(device, GAN_SEED + 12)
+    card = GanRun(RAGAN, device, fpn_mobilenet.FPNMobileNet,
+                  fpn_mobilenet.init_state_dict(seed=GAN_SEED + 13), d_sds, None)
+    cpu_dev, errs, times = torch.device("cpu"), [], []
+    for i in range(RAGAN_STEPS):
+        start = (weights_of(card.g), {k: weights_of(d) for k, d in card.ds.items()},
+                 clone_pool(card.disc_loss.fake_pool, cpu_dev),
+                 clone_pool(card.disc_loss.real_pool, cpu_dev))
+        pooled = len(card.disc_loss.fake_pool.images)
+        rec = card.step(blurred, sharp, timed=True)
+        times.append(rec["ms"]["step"])
+        cpu = GanRun(RAGAN, cpu_dev, fpn_mobilenet.FPNMobileNet, start[0], start[1], None)
+        cpu.disc_loss.fake_pool, cpu.disc_loss.real_pool = start[2], start[3]
+        fake = cpu.g(blurred.cpu())
+        loss_d = cpu.d_loss(fake.detach(), sharp.cpu(), None)
+        if [len(p.images) for p in (card.disc_loss.fake_pool, card.disc_loss.real_pool)] != [
+                len(p.images) for p in (cpu.disc_loss.fake_pool, cpu.disc_loss.real_pool)]:
+            fail(f"ragan-ls step {i + 1}: the card's pools hold other counts than the CPU's")
+        for name, got, want in zip(("fake", "real"), card.disc_loss.pool_means(),
+                                   cpu.disc_loss.pool_means()):
+            errs.append(check_loss(f"ragan-ls step {i + 1} {name} pool mean", float(got),
+                                   float(want)))
+        for k, d in cpu.ds.items():
+            d.load_state_dict(rec["d_after"][k])
+        loss_g = cpu.g_loss(fake, sharp.cpu())
+        errs.append(check_loss(f"ragan-ls step {i + 1} D loss", rec["loss_d"],
+                               float(loss_d.detach())))
+        errs.append(check_loss(f"ragan-ls step {i + 1} G loss", rec["loss_g"],
+                               float(loss_g.detach())))
+        print(f"  ragan-ls step {i + 1}: D loss {rec['loss_d']:.7e}, G loss "
+              f"{rec['loss_g']:.7e} (pools held {pooled} earlier predictions); step "
+              f"{times[-1]:.2f} ms; peak {rec['peak_gb']:.2f} GB", flush=True)
+    # the pools' draws under one random seed: the card's and a CPU copy's
+    draws = []
+    for pool in (card.disc_loss.fake_pool, clone_pool(card.disc_loss.fake_pool, cpu_dev)):
+        pool.sample_size = len(pool.images) - 1
+        random.seed(GAN_SEED)
+        draws.append(pool.query().cpu())
+    if not torch.equal(draws[0], draws[1]):
+        fail("ragan-ls: the card's pool draws are not the CPU's under one random seed")
+    print(f"  ragan-ls against the CPU from the card's weights and pools: losses and the pools' "
+          f"means within "
+          f"{max(errs):.2e} relative (limit {GAN_LOSS_RTOL}); the pools' random.sample draws "
+          f"the CPU's; median step {float(np.median(times[1:])):.2f} ms", flush=True)
+
+
+GENERATORS = [("ResnetGenerator (ngf 64, 6 blocks)", "resnet_gen"),
+              ("FPN-Inception-Simple", "fpn_inception_simple"), ("FPN-Dense", "fpn_densenet"),
+              ("UNet-SEResNeXt", "unet_seresnext")]
+
+
+def gan_generators(device, blurred, sharp):
+    """Phase 20 (c): the four extra generators at full width, one L1 step
+    (forward and backward) each: the card's float32 output against the
+    CPU's, the gradients in float64 on both (as ``gan_gradient_twin``)."""
+    import importlib
+
+    import torch
+
+    for label, name in GENERATORS:
+        mod = importlib.import_module(f"tpuir_torch.models.deblurgan.{name}")
+        sd = mod.init_state_dict(seed=GAN_SEED + 20)
+        runs = []  # the card in float32 twice, then float64 on the card and on the CPU
+        for dev, dtype in ((device, None), (device, None), (device, torch.float64),
+                           (torch.device("cpu"), torch.float64)):
+            net = mod.build(sd, device=dev).train()
+            timed = dtype is None
+            if timed:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+            else:
+                net.to(dtype)
+            x, y = blurred.to(dev), sharp.to(dev)
+            out = net(x if timed else x.to(dtype))
+            if timed:
+                ev[1].record()
+            torch.mean(torch.abs(out - (y if timed else y.to(dtype)))).backward()
+            if timed:
+                ev[2].record()
+                ev[2].synchronize()
+            runs.append((out.detach().cpu(), grads_of(net),
+                         (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])) if timed else None,
+                         torch.cuda.max_memory_allocated() / 1e9 if timed else None))
+        with torch.no_grad():
+            want = mod.build(sd, device="cpu").train()(blurred.cpu())
+        (out1, g1, _, _), (out2, g2, ms, peak), (_, g64, _, _), (_, w64, _, _) = runs
+        repeat = (torch.equal(out1, out2), all(torch.equal(g1[k], g2[k]) for k in g1))
+        err = float((out2 - want).abs().max())
+        if err > GAN_OUT_ATOL:
+            fail(f"{label}: output {err:.2e} from the CPU's")
+        worst, key, zeros = check_grads(f"{label} (float64)", g64, w64)
+        w32, k32, past, count, whole = gradient_spread(g2, w64)
+        print(f"  {label} at {GAN_SIDE}x{GAN_SIDE}, batch 1: forward {ms[0]:.2f} ms, L1 backward "
+              f"{ms[1]:.2f} ms, peak {peak:.2f} GB; output max|d| {err:.2e} from the CPU "
+              f"(float32); gradients in float64 worst {worst:.1e} from the CPU's ({key}; {zeros} "
+              f"zero by construction); float32 against float64 (no bound): worst {w32:.2e} "
+              f"({k32}), {past} of {count} tensors past {TRAIN_GRAD_RTOL}, the whole gradient "
+              f"{whole:.2e}; float32 repeats bit for bit: output {repeat[0]}, gradients "
+              f"{repeat[1]}", flush=True)
+
+
+def gan_multi_scale(device, fake, sharp):
+    """Phase 20 (d): one D step of the multi-scale discriminator with
+    ``train/losses.multi_scale_gan_loss`` (lsgan) on the card and on the
+    CPU: the float32 loss, and the loss and gradients in float64 (as
+    ``gan_gradient_twin``)."""
+    import torch
+
+    from tpuir_torch.models.deblurgan.discriminators import get_discriminator
+    from tpuir_torch.train.losses import multi_scale_gan_loss
+    from tpuir_torch.train.trainer import build_optimizer
+    from tpuir_torch.utils.misc import seeded_state_dict
+
+    cfg = {"d_name": "multi_scale", "norm_layer": "instance"}
+    sd = seeded_state_dict(get_discriminator(cfg, device="cpu")["multi_scale"], GAN_SEED + 30)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for dev in (device, torch.device("cpu")):  # the card, then the CPU
+            d = get_discriminator(cfg, device=dev)["multi_scale"]
+            d.load_state_dict(sd)
+            d.to(dtype)
+            opt = build_optimizer({"type": "Adam", "lr": GAN_LR}, list(d.parameters()))
+            opt.zero_grad(set_to_none=True)
+            loss = 0.5 * (
+                multi_scale_gan_loss(d(fake.to(dev, dtype)), False, "lsgan", is_disc=True)
+                + multi_scale_gan_loss(d(sharp.to(dev, dtype)), True, "lsgan", is_disc=True))
+            loss.backward()
+            res.setdefault(dtype, []).append((float(loss.detach()), grads_of(d)))
+            opt.step()
+    (l32, _), (w32, _) = res[torch.float32]
+    (l64, g64), (w64, want) = res[torch.float64]
+    err = check_loss("multi_scale D loss", l32, w32)
+    err64 = check_loss("multi_scale D loss (float64)", l64, w64)
+    worst, key, zeros = check_grads("multi_scale D (float64)", g64, want)
+    print(f"  multi_scale (lsgan) D step: loss {l32:.7e}, {err:.2e} relative from the CPU; in "
+          f"float64 the loss {err64:.1e} and the gradients worst {worst:.1e} from the CPU's "
+          f"({key}; {zeros} zero by construction)", flush=True)
+
+
+def gan_metrics(device, fake, sharp):
+    """Phase 20 (e): FID Inception features of 4 seeded 299x299 images on
+    the card and the CPU, and DeblurGANv2's SSIM on the card against the
+    CPU. The FID of the two feature sets (a 2048x2048 ``sqrtm`` on the
+    host, about 15 s) starts in a thread; returns the function that waits
+    for it and checks it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from tpuir_torch.train import deblurgan_metrics, extra_metrics, fid_inception
+
+    images = np.random.RandomState(GAN_SEED + 40).rand(FID_IMAGES, FID_SIDE, FID_SIDE, 3)
+    images = images.astype(np.float32)
+    feats = []
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_fid_") as d:
+        path = os.path.join(d, "pt_inception-seeded.pth")  # a seeded checkpoint, read back
+        torch.save(fid_inception.init_state_dict(seed=GAN_SEED + 41), path)
+        for dev in (device, torch.device("cpu")):
+            net = fid_inception.load_patched_inception_v3(path, device=dev)
+            feats.append(fid_inception.extract_inception_features(
+                iter([images[:2], images[2:]]), net))
+    err = float(np.abs(feats[0] - feats[1]).max())
+    if err > FID_ATOL:
+        fail(f"FID Inception features: {err:.2e} from the CPU's")
+    pool = ThreadPoolExecutor(1)
+    fid_of = pool.submit(extra_metrics.calculate_fid_from_stats,
+                         *extra_metrics.feature_stats(feats[0]),
+                         *extra_metrics.feature_stats(feats[1]))
+    pool.shutdown(wait=False)
+    a, b = (fake + 1) / 2, (sharp + 1) / 2
+    got = float(deblurgan_metrics.ssim(a, b))
+    want = float(deblurgan_metrics.ssim(a.cpu(), b.cpu()))
+    if not abs(got - want) <= SSIM_ATOL:
+        fail(f"DeblurGANv2 SSIM: {got} on the card, {want} on the CPU")
+    p, s, vis = deblurgan_metrics.get_images_and_metrics(fake, fake, sharp)
+    print(f"  FID Inception ({FID_IMAGES} images {FID_SIDE}x{FID_SIDE}): features max|d| "
+          f"{err:.2e} from the CPU; SSIM {got:.7f} on the card, {abs(got - want):.1e} from the "
+          f"CPU; PSNR {p:.3f} dB, SSIM (uint8) {s:.4f} of the last fake", flush=True)
+
+    def finish():
+        fid = fid_of.result()
+        if not abs(fid) < FID_ZERO:
+            fail(f"FID of the card's features against the CPU's: {fid}")
+        print(f"  phase 20 (e): FID(card's features, CPU's) {fid:.3e} (limit {FID_ZERO})",
+              flush=True)
+
+    return finish
+
+
+def phase_deblurgan_training(device):
+    """Phase 20: DeblurGANv2 training on the card, float32 with TF32 off,
+    seeded weights, seeded synthetic pairs. No kernel is on this path.
+    Returns (e)'s function that waits for the FID and checks it."""
+    from tpuir_torch.core.engine import true_float32
+    from tpuir_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    with true_float32():
+        t0 = time.time()
+        fake, sharp = gan_released(device)
+        print(f"[20a released recipe {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        gan_relativistic(device)
+        print(f"[20b ragan-ls pools {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        gan_generators(device, *gan_pair(device, GAN_SEED + 50))
+        print(f"[20c extra generators {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        gan_multi_scale(device, fake, sharp)
+        print(f"[20d multi_scale {time.time() - t0:.0f} s]", flush=True)
+        t0 = time.time()
+        finish_fid = gan_metrics(device, fake, sharp)
+        print(f"[20e FID features and SSIM {time.time() - t0:.0f} s]", flush=True)
+    if any(_kernels.LAUNCHES.values()):
+        fail(f"DeblurGANv2 training launched kernels: {_kernels.LAUNCHES}")
+    return finish_fid
+
+
 def main() -> int:
     import torch
 
@@ -3340,7 +3957,7 @@ def main() -> int:
 
 
 def run_phases(device, card, prebuilt, threads) -> None:
-    """Phases 2-19 on ``device``, then the kernels line and the last line;
+    """Phases 2-20 on ``device``, then the kernels line and the last line;
     torch's CPU threads back to ``threads`` from phase 12 on."""
     import torch
 
@@ -3410,13 +4027,13 @@ def run_phases(device, card, prebuilt, threads) -> None:
     launches.update(phase_serving_path(device, restormer_outs))
     print(f"[serving {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    rows.update(phase_mair_serving_kernels(device, prebuilt=prebuilt))
+    rows.update(phase_mair_serving_kernels(device))
     print(f"[MaIR serving kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     launches.update(phase_mair_serving_path(device, mair_outs))
     print(f"[MaIR serving path {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    seq_rows, mixer_worst = phase_seq_serving_kernels(device, prebuilt=prebuilt)
+    seq_rows, mixer_worst = phase_seq_serving_kernels(device)
     rows.update(seq_rows)
     for name, err in mixer_worst.items():
         rows[name] = (max(rows[name][0], err),) + rows[name][1:]
@@ -3426,7 +4043,7 @@ def run_phases(device, card, prebuilt, threads) -> None:
         launches[name] = launches.get(name, 0) + n
     print(f"[MaIRUNet and off-stripe serving paths {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    rows["nss_scan_recur_serving"] = phase_recur_kernels(device, prebuilt=prebuilt)
+    rows["nss_scan_recur_serving"] = phase_recur_kernels(device)
     print(f"[recur kernels {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     for name, n in phase_recur_path(device).items():
@@ -3448,6 +4065,15 @@ def run_phases(device, card, prebuilt, threads) -> None:
     for name, n in phase_training(device).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[training {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    finish_fid = phase_deblurgan_training(device)
+    print(f"[DeblurGANv2 training {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for bodies, jobs in DEFERRED_MUTANTS:
+        mutant_controls(bodies, jobs, prebuilt)
+    finish_fid()
+    print(f"[the MaIR serving bodies' mutation controls, and the FID {time.time() - t0:.0f} s]",
+          flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -125,8 +125,9 @@ def test_port_imports_without_jax():
     """Every module of the port, found by walking the package (so a module
     added later is checked too), and chip_smoke import with tpuir, JAX and
     Flax blocked, optax too (the training core keeps optax's rules in
-    torch.optim), and gradio and matplotlib (the card's machine has
-    neither: the demo and test_demo import them where they draw)."""
+    torch.optim), gradio and matplotlib (the demo and test_demo import them
+    where they draw), and cv2 and lmdb (the data stack, the augmentations
+    and the scripts import them where they read, decode or write)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['tpuir'] = None\n"
@@ -135,6 +136,8 @@ def test_port_imports_without_jax():
         "sys.modules['optax'] = None\n"
         "sys.modules['gradio'] = None\n"
         "sys.modules['matplotlib'] = None\n"
+        "sys.modules['cv2'] = None\n"
+        "sys.modules['lmdb'] = None\n"
         "import tpuir_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(tpuir_torch.__path__, 'tpuir_torch.')]\n"
         "for name in names:\n"
@@ -151,11 +154,22 @@ def test_port_imports_without_jax():
         "        'tpuir_torch.scripts.test_patch_size', 'tpuir_torch.scripts.validate_serving',\n"
         "        'tpuir_torch.registry', 'tpuir_torch.train.pipeline', 'tpuir_torch.train.model',\n"
         "        'tpuir_torch.ops.kernel_grad', 'tpuir_torch.scripts.train',\n"
-        "        'tpuir_torch.scripts.test', 'tpuir_torch.scripts.testM'}\n"
+        "        'tpuir_torch.scripts.test', 'tpuir_torch.scripts.testM',\n"
+        "        'tpuir_torch.models.deblurgan.discriminators', 'tpuir_torch.train.vgg_features',\n"
+        "        'tpuir_torch.train.deblurgan_losses', 'tpuir_torch.train.deblurgan_metrics',\n"
+        "        'tpuir_torch.train.deblurgan_aug', 'tpuir_torch.models.deblurgan.resnet_gen',\n"
+        "        'tpuir_torch.models.deblurgan.fpn_inception_simple',\n"
+        "        'tpuir_torch.models.deblurgan.fpn_densenet',\n"
+        "        'tpuir_torch.models.deblurgan.unet_seresnext', 'tpuir_torch.utils.matlab_resize',\n"
+        "        'tpuir_torch.train.extra_metrics', 'tpuir_torch.train.fid_inception',\n"
+        "        'tpuir_torch.utils.flow_io', 'tpuir_torch.train.video_datasets',\n"
+        "        'tpuir_torch.utils.sidd_submission', 'tpuir_torch.scripts.make_meta_info',\n"
+        "        'tpuir_torch.scripts.create_lmdb'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
-        "(m in ('tpuir', 'jax', 'flax', 'optax', 'gradio', 'matplotlib') or m.startswith(\n"
-        "('tpuir.', 'jax.', 'flax.', 'optax.', 'gradio.', 'matplotlib.')))]\n"
+        "(m in ('tpuir', 'jax', 'flax', 'optax', 'gradio', 'matplotlib', 'cv2', 'lmdb') or\n"
+        "m.startswith(('tpuir.', 'jax.', 'flax.', 'optax.', 'gradio.', 'matplotlib.',\n"
+        "'cv2.')))]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -164,3 +178,34 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 40  # every module of the port, not a few
+
+
+def test_mutant_checks_share_a_process_yet_import_each_copy(tmp_path):
+    """``serving_mutants.CheckWorker`` runs a check script in several copies
+    of the package in one process: each run imports its own copy's modules
+    (the mutation controls hold each planted copy's library), reads the
+    shapes from ``sys.argv[1]``, and a failing copy gives its error and
+    leaves the others' results standing."""
+    from tpuir_torch.utils.serving_mutants import CheckWorker
+
+    for name in ("a", "b"):
+        pkg = tmp_path / name / "tpuir_torch" / "ops"
+        pkg.mkdir(parents=True)
+        (pkg.parent / "__init__.py").write_text(f"WHO = {name!r}\n")
+        (pkg / "__init__.py").write_text(f"X = {name + '-ops'!r}\n")
+    script = ("import json, sys\nimport tpuir_torch, tpuir_torch.ops\nprint('a build log')\n"
+              "if tpuir_torch.WHO == 'b' and sys.argv[1] == '[2]':\n    raise ValueError('b')\n"
+              "print(json.dumps([tpuir_torch.WHO, tpuir_torch.ops.X, json.loads(sys.argv[1])]))\n")
+    copies = [("m1", str(tmp_path / "a")), ("m2", str(tmp_path / "b")), ("m3", str(tmp_path / "a"))]
+    for shapes in ([1], [2]):
+        worker = CheckWorker(script, shapes, str(tmp_path))
+        try:
+            got = [worker.check(name, d) for name, d in copies]
+        finally:
+            worker.close()
+        assert got[0] == ("m1", ["a", "a-ops", shapes], "")
+        assert got[2] == ("m3", ["a", "a-ops", shapes], "")
+        if shapes == [1]:
+            assert got[1] == ("m2", ["b", "b-ops", [1]], "")
+        else:
+            assert got[1][1] is None and "ValueError: b" in got[1][2]

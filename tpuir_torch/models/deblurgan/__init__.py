@@ -1,4 +1,6 @@
-"""DeblurGANv2's FPN generators (MobileNet, Inception) in their plain layout."""
+"""DeblurGANv2's generators in their plain layout (FPN-MobileNet,
+FPN-Inception; the extra ones: ResNet, FPN-Inception-Simple, FPN-Dense,
+UNet-SEResNeXt) and its discriminators."""
 
 from .fpn_inception import FPNInception
 from .fpn_mobilenet import FPNMobileNet

@@ -44,14 +44,18 @@ def _reflect(x: torch.Tensor, pad) -> torch.Tensor:
 
 
 class FPN(nn.Module):
-    def __init__(self, num_filters: int = 256):
+    """The trunk, laterals and top-down path; with ``top_down=False`` the
+    maps are the raw sums (FPN-Inception-Simple's, no ``td*`` blocks)."""
+
+    def __init__(self, num_filters: int = 256, top_down: bool = True):
         super().__init__()
         self.inception = InceptionTrunk()
         for k, cin in enumerate((32, 64, 192, 1088, 2080)):
             setattr(self, f"lateral{k}",
                     nn.Conv2d(cin, num_filters // 2 if k == 0 else num_filters, 1, bias=False))
         for k in (1, 2, 3):
-            setattr(self, f"td{k}", conv_norm_relu(num_filters, num_filters))
+            setattr(self, f"td{k}", conv_norm_relu(num_filters, num_filters) if top_down
+                    else nn.Identity())
 
     def forward(self, x: torch.Tensor):
         enc0, enc1, enc2, enc3, enc4 = self.inception(x)
@@ -68,10 +72,11 @@ class FPN(nn.Module):
 
 
 class FPNInception(nn.Module):
-    def __init__(self, output_ch: int = 3, num_filters: int = 128, num_filters_fpn: int = 256):
+    def __init__(self, output_ch: int = 3, num_filters: int = 128, num_filters_fpn: int = 256,
+                 top_down: bool = True):
         super().__init__()
         nf = num_filters
-        self.fpn = FPN(num_filters_fpn)
+        self.fpn = FPN(num_filters_fpn, top_down)
         for k in (1, 2, 3, 4):
             setattr(self, f"head{k}", FPNHead(num_filters_fpn, nf, nf))
         self.smooth = conv_norm_relu(4 * nf, nf)

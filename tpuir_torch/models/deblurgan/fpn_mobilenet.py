@@ -111,13 +111,14 @@ class FPNMobileNet(nn.Module):
         return final_tail(self.final, smoothed, x)
 
 
-def put_fpn_tail(sd: Dict[str, torch.Tensor], p: Mapping[str, Any]) -> None:
-    """The keys both generators share: laterals, top-down convs, heads,
-    smoothing convs and the final conv (their norms' statistics included)."""
+def put_fpn_tail(sd: Dict[str, torch.Tensor], p: Mapping[str, Any], top_down: bool = True) -> None:
+    """The keys the FPN generators share: laterals, top-down convs (none
+    without ``top_down``), heads, smoothing convs and the final conv (their
+    norms' statistics included)."""
     for k in range(5):
         put_conv(sd, f"fpn.lateral{k}", p[f"lateral{k}"])
-    for name, prefix in [(f"td{k}", f"fpn.td{k}") for k in (1, 2, 3)] + [
-            ("smooth", "smooth"), ("smooth2", "smooth2")]:
+    tds = [(f"td{k}", f"fpn.td{k}") for k in (1, 2, 3)] if top_down else []
+    for name, prefix in tds + [("smooth", "smooth"), ("smooth2", "smooth2")]:
         put_conv(sd, f"{prefix}.0", p[name]["conv"])
         put_norm(sd, f"{prefix}.1", len(p[name]["conv"]["bias"]))
     for k in (1, 2, 3, 4):

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuir_torch.utils.misc import resolve_device
+
 _STATS = ("running_mean", "running_var", "num_batches_tracked")
 
 
@@ -42,7 +44,7 @@ class TrainNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays float64
         var, mu = torch.var_mean(x32, dim=(2, 3), correction=0, keepdim=True)
         y = (x32 - mu) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
@@ -101,6 +103,14 @@ def load_checkpoint(net: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
     if missing:
         raise KeyError(f"checkpoint lacks {missing[:5]}{' ...' if len(missing) > 5 else ''}")
     return net
+
+
+def build_on(device, net_fn, state_dict) -> nn.Module:
+    """The extra generators' builders: ``net_fn()`` with ``state_dict``
+    loaded (``load_checkpoint``), on ``device`` (card 0 for ``cuda``;
+    raises without a card before building)."""
+    dev = resolve_device(device)
+    return load_checkpoint(net_fn(), state_dict).to(dev)
 
 
 # Helpers of the ``state_dict_from_jax`` inverses of tpuir's converters.

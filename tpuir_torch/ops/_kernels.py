@@ -39,9 +39,13 @@ _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "tpuir_torch"
 OBJ_DIR = BUILD_DIR / "obj"
+# -fno-gnu-unique: a function-local static of a template (a kernel's shared
+# memory size set so far, ``tc_gemm.cuh``) stays the library's own, so
+# that two builds of the library loaded in one process (the serving
+# checks' planted copies, ``utils/serving_mutants.py``) each set their own
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique", "-Xptxas=-v",
 )
 
 LAUNCHES: Dict[str, int] = {

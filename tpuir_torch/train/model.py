@@ -36,19 +36,7 @@ from tpuir_torch.train.losses import build_loss
 from tpuir_torch.train.metrics import calculate_metric
 from tpuir_torch.train.schedulers import build_scheduler
 from tpuir_torch.train.trainer import TrainState, build_optimizer, train_step
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` (default ``cuda``) as a torch.device; ``cuda`` is card 0
-    and raises where torch finds no card."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found: pass device='cpu' (--device cpu) "
-                               "to train or test on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", 0)
-    return dev
+from tpuir_torch.utils.misc import resolve_device
 
 
 def to_nchw(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -80,3 +80,16 @@ def without_cudnn() -> Iterator[None]:
         yield
     finally:
         torch.backends.cudnn.enabled = saved
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` (default ``cuda``) as a torch.device; ``cuda`` is card 0
+    and raises where torch finds no card."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found: pass device='cpu' (--device cpu) "
+                               "to train or test on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    return dev

@@ -47,7 +47,11 @@ rejected. The source of the checked tree is never changed.
 The copies are built by ``Prebuilt``, in nvcc processes at nice 19 that
 need no card. ``run_mutants`` makes one for its body, or takes the one
 ``chip_smoke.py`` starts for all four bodies ahead, so that the builds
-overlap its card phases and its mutation controls only check.
+overlap its card phases and its mutation controls only check. It checks
+them in ``jobs`` worker processes (``CheckWorker``), each running the check
+script in one copy after another as they are built (a process takes
+seconds to reach the card); the library is built with ``-fno-gnu-unique``
+so that each copy's library loaded there keeps its own statics.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -415,14 +420,66 @@ def planted_copy(d: str, edits, pkg: str = _PKG) -> None:
     plant(os.path.join(d, "tpuir_torch"), edits)
 
 
-def _check(d: str, name: str, script: str, shapes) -> tuple:
-    """Run a check script in the copy at ``d``: (name, its result or None,
-    the error's tail)."""
-    r = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=d,
-                       capture_output=True, text=True)
-    if r.returncode:
-        return name, None, r.stderr[-2000:]
-    return name, json.loads(r.stdout.strip().splitlines()[-1]), ""
+# A check worker: reads [name, copy directory] lines from stdin and runs
+# the check script in each copy in turn, in one process: before each copy
+# its tpuir_torch modules are dropped and the copy's directory put first on
+# sys.path, so that the script imports the copy's package and loads the
+# copy's library (ctypes loads each library file apart); one JSON line a
+# copy: [name, the script's result or None, error].
+_WORKER = r"""
+import contextlib, gc, importlib, io, json, sys, traceback
+import torch
+script, shapes = sys.argv[1:3]
+for line in sys.stdin:
+    name, d = json.loads(line)
+    for m in [m for m in sys.modules if m == "tpuir_torch" or m.startswith("tpuir_torch.")]:
+        del sys.modules[m]
+    sys.path[0] = d
+    importlib.invalidate_caches()
+    sys.argv = ["-c", shapes]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            exec(compile(script, "<check>", "exec"), {"__name__": "__main__"})
+        res, err = json.loads(out.getvalue().strip().splitlines()[-1]), ""
+    except Exception:
+        res, err = None, traceback.format_exc()[-2000:]
+    print(json.dumps([name, res, err]), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+"""
+
+
+class CheckWorker:
+    """A process running ``script`` at ``shapes`` in one copy after another
+    (``check``), so that it reaches the card once, not once a copy."""
+
+    def __init__(self, script: str, shapes, cwd: str):
+        self._err = tempfile.TemporaryFile(mode="w+")
+        self._proc = subprocess.Popen([sys.executable, "-c", _WORKER, script, json.dumps(shapes)],
+                                      cwd=cwd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                      stderr=self._err, text=True)
+
+    def check(self, name: str, d: str) -> tuple:
+        """(name, the script's result in the copy at ``d`` or None, the
+        error's tail)."""
+        try:
+            self._proc.stdin.write(json.dumps([name, d]) + "\n")
+            self._proc.stdin.flush()
+            line = self._proc.stdout.readline()
+        except OSError:
+            line = ""
+        if not line:  # the process ended
+            self._err.seek(0)
+            return name, None, "the check process ended:\n" + self._err.read()[-2000:]
+        _, res, err = json.loads(line)
+        return name, res, err
+
+    def close(self) -> None:
+        with contextlib.suppress(OSError):
+            self._proc.stdin.close()
+        self._proc.wait()
+        self._err.close()
 
 
 _BUILD = "from tpuir_torch.ops import _kernels; _kernels.build()"
@@ -479,13 +536,6 @@ class Prebuilt:
         self._pool.shutdown(wait=True)
 
 
-def _check_mutant(prebuilt: Prebuilt, name: str, edits, script: str, shapes) -> tuple:
-    """Run a check script in the built copy of ``edits``: (name, its result
-    or None, the build's or the check's error tail)."""
-    d, err = prebuilt.copy(edits)
-    return (name, None, err) if err else _check(d, name, script, shapes)
-
-
 def _rejected(res: dict, name: str = "none") -> bool:
     """Whether a check script's result rejects mutant ``name``: K1's lists
     the stages that missed a shape; the mixer's, seq's and recur's give every stage's
@@ -506,9 +556,10 @@ def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4,
                 prebuilt: Prebuilt = None) -> dict:
     """Check every mutant of ``bodies`` in its copy of ``prebuilt`` (default:
     one built here under ``root``, else a temporary directory, ``jobs``
-    builds at once), ``jobs`` checks at once, printing one line each.
-    Returns {mutant: rejected (bool), or None if its copy did not build or
-    run}."""
+    builds at once), in ``jobs`` worker processes, each checking one copy
+    after another as they are built (a process takes seconds to reach the
+    card), printing one line each. Returns {mutant: rejected (bool), or
+    None if its copy did not build or run}."""
     from tpuir_torch.ops import _kernels
 
     required, reported, script, shapes = BODIES[bodies]
@@ -519,11 +570,27 @@ def run_mutants(bodies: str = "K1", root: str = None, jobs: int = 4,
             prebuilt = Prebuilt((bodies,), root or stack.enter_context(
                 tempfile.TemporaryDirectory(prefix="tpuir_serving_mutants_")), jobs)
             stack.callback(prebuilt.close)
+        # ``jobs`` workers take the mutants in the copies' build order, each
+        # as soon as its copy is built
+        todo, lock, ran = list(mutants), threading.Lock(), {}
+
+        def work(_):
+            worker = CheckWorker(script, shapes, prebuilt.root)
+            try:
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        name = todo.pop(0)
+                    d, err = prebuilt.copy(mutants[name])
+                    ran[name] = (name, None, err) if err else worker.check(name, d)
+            finally:
+                worker.close()
+
         with ThreadPoolExecutor(jobs) as ex:
-            runs = ex.map(lambda n: _check_mutant(prebuilt, n, mutants[n], script, shapes),
-                          mutants)
+            list(ex.map(work, range(min(jobs, len(mutants)))))
             verdicts = {}
-            for name, res, err in runs:
+            for name, res, err in (ran[n] for n in mutants):
                 if res is None:
                     print(f"{name}: the copy did not build or run:\n{err}", flush=True)
                     verdicts[name] = None
