@@ -286,6 +286,32 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     1e-4), the FID of the two sets (below 1e-3; computed on the host beside
     the deferred mutation controls), and DeblurGANv2's SSIM on the card
     against the CPU.
+21. Data parallelism (``tpuir_torch/parallel/``) on the one card. Phase
+    18's Restormer 512x512 and MaIR-CDN 256x256 sigma=25 requests on its
+    seeded checkpoints, in parity and in serving, whose batch-8 outputs and
+    ms at ``max_in_flight`` 4 are the single-device reference, are served
+    through ``parallel.inference.run_model_inference_sharded`` (a) in a
+    world of one on NCCL, in this process, and (b) in a world of two on
+    gloo, two processes spawned by ``parallel.launch`` on the one card
+    (NCCL refuses two ranks on one GPU; the world starts beside (a) and
+    (c)'s single-process steps and waits for them), each rank building its
+    models with ``zoo.get_model_instance``, three rounds each. The world
+    of one must be bit-equal to the engine; the world of two within 1 LSB,
+    both ranks returning the same image. Each rank's launches must be 44 of K1 (or
+    its serving body) and 36 of K6, K2, K7 (or their serving bodies) a
+    forward chunk of its share; the ranks' counts come back with their
+    results and count in the kernels line. The gather of the Restormer
+    request's predictions is timed both ways (``"host"``: gloo on CPU
+    tensors; ``"device"``: the default group on CUDA tensors, NCCL in the
+    world of one). (c) MaIR-CDN at full width cut to one residual group of
+    six layers (``DDP_DEPTHS``; phase 19 keeps the full depth), phase
+    19's ``train`` section with mixup off, crop 64, global batch 4, two
+    steps through ``SRModel.optimize_parameters`` under
+    DistributedDataParallel in both worlds (each rank its contiguous
+    half), against the single-process steps on the full batch: each step's
+    loss within 1e-5 relative, step 1's gradients within 1e-3 relative L2
+    a tensor (phase 19's bounds), the two ranks' weights equal after each
+    step, 6 launches each of K6, K2 and K7 a step's forward; each step's ms.
 
 The serving checks' planted copies (phases 12-15) are built by
 ``serving_mutants.Prebuilt`` in ``MUTANT_BUILD_JOBS`` background builds
@@ -2072,8 +2098,11 @@ def mutant_controls(bodies, jobs, prebuilt=None):
     ``serving_mutants.Prebuilt``, built ahead while the card ran the earlier
     phases), ``jobs`` copies checked at once; fails if the check accepts a
     required mutant or rejects the unmutated copy."""
+    import torch
+
     from tpuir_torch.utils.serving_mutants import failures, run_mutants
 
+    torch.cuda.empty_cache()  # the workers check their copies on this card beside us
     t0 = time.time()
     if prebuilt is not None:
         print(f"{bodies} serving mutants: planted copies {prebuilt.summary()}", flush=True)
@@ -2781,14 +2810,16 @@ def print_split(label, precision, model, img, sigma):
 
 
 def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
-    """Phase 18 (a) and (b). Returns {kernel: launches}."""
+    """Phase 18 (a) and (b). Returns ({kernel: launches}, {(key, precision):
+    (output, median ms at max_in_flight 4, {kernel: launches a chunk})} of
+    the batch-8 cells, phase 21's single-device reference)."""
     import torch
 
     from tpuir_torch.core.engine import run_model_inference
     from tpuir_torch.ops import _kernels
     from tpuir_torch.utils.profiling import write_seeded_checkpoint
 
-    launches = {}
+    launches, served = {}, {}
     with tempfile.TemporaryDirectory(prefix="tpuir_torch_window_") as wdir:
         for key in dict.fromkeys(cell[1] for cell in cells):
             write_seeded_checkpoint(key, wdir, seed=SEED)
@@ -2824,6 +2855,7 @@ def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
                       f"max_in_flight={m} {h * w / 1e3 / float(np.median(v)):.3f} Mpix/s"
                       for m, v in ms.items()), flush=True)
             if batch == 8:
+                served[(key, precision)] = (outs[0], float(np.median(ms[4])), per_chunk)
                 print_split(label, precision, model, img, sigma)
             del model
             torch.cuda.empty_cache()
@@ -2837,7 +2869,7 @@ def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
                 print_split(label, precision, model, img, sigma)
                 del model
                 torch.cuda.empty_cache()
-    return launches
+    return launches, served
 
 
 def phase_entry_points(device, demo_image=DEMO_IMAGE):
@@ -3916,6 +3948,231 @@ def phase_deblurgan_training(device):
     return finish_fid
 
 
+# -- phase 21: data parallelism ----------------------------------------------
+
+# phase 18's requests (``utils.profiling.ENGINE_REQUESTS``: Restormer 512x512,
+# MaIR-CDN 256x256, sigma=25) on its seeded checkpoints; its batch-8 cells'
+# outputs and ms are the single-device reference
+PARALLEL_CELLS = (("restormer", "parity"), ("mair", "parity"), ("restormer", "serving"),
+                  ("mair", "serving"))
+PARALLEL_LABELS = {"restormer": "Restormer", "mair": "MaIR-CDN"}
+PARALLEL_BATCH = 8  # the zoo's batch, phase 18's batch-8 cells'
+PARALLEL_LSB = 1  # a world of two against the single-device engine
+DDP_DEPTHS = (6,)  # MaIR-CDN cut to one residual group of six layers (phase 19: 6 x 6)
+DDP_STEPS = 2
+PARALLEL_THREADS = 4  # torch's CPU threads in each of the two ranks
+PARALLEL_TIMEOUT_S = 300  # the world of two's limit: spawn, builds, serving, steps
+
+
+def parallel_cells(engine_outs, wdir):
+    """Phase 21's cells, their seeded checkpoints (phase 18's) written under
+    ``wdir``: label, the zoo call a rank builds its model with, request
+    (image, AWGN sigma), phase 18's single-device (output, ms), launches a
+    forward chunk, patch size and patches a rank at worlds 1 and 2
+    (``engine_outs`` is ``phase_window``'s)."""
+    import functools
+
+    from tpuir_torch import zoo
+    from tpuir_torch.config import get_patch_config
+    from tpuir_torch.utils.profiling import ENGINE_REQUESTS, write_seeded_checkpoint
+
+    cells = []
+    for key in dict.fromkeys(key for key, _ in PARALLEL_CELLS):
+        write_seeded_checkpoint(key, wdir, seed=SEED)
+    for key, precision in PARALLEL_CELLS:
+        (task, subtask, name, gray, sigma), _, _ = ENGINE_REQUESTS[key]
+        img, noise = window_request(key)
+        pc = get_patch_config(task, subtask, name)
+        out, ms, per_chunk = engine_outs[(key, precision)]
+        cells.append({
+            "label": f"{PARALLEL_LABELS[key]} {precision}",
+            "build": functools.partial(zoo.get_model_instance, task, subtask, name, gray=gray,
+                                       sigma=sigma, weights_dir=wdir, precision=precision),
+            "request": (img, noise), "single": (out, ms),
+            "per_chunk": per_chunk, "patch": pc["patch_size"],
+            "shares": {world: sharded_share(pc["patch_size"], pc["patch_overlap"],
+                                            *img.shape[:2], world) for world in (1, 2)}})
+    return cells
+
+
+def sharded_share(patch, overlap, h, w, world) -> int:
+    """Patches a rank serves of an h x w request in a world of ``world``
+    (the grid padded to a multiple of the world)."""
+    from tpuir_torch.core.tiling import tile_indices
+
+    _, hs, ws = tile_indices(h, w, patch, overlap)
+    return -(-len(hs) * len(ws) // world)
+
+
+def ddp_options(device):
+    """Phase 21 (c)'s option dict: phase 19's MaIR-CDN and ``train``
+    section with the depth cut to ``DDP_DEPTHS`` and mixup off (each rank
+    would mix its own share)."""
+    from tpuir_torch.train.options import yaml_load
+
+    train = dict(yaml_load(TRAIN_OPTIONS)["train"])
+    train["mixing_augs"] = dict(train.get("mixing_augs") or {}, mixup=False)
+    net = dict(yaml_load(MAIR_TEST_OPTIONS)["network_g"], depths=list(DDP_DEPTHS))
+    return {"model_type": "SRModel", "is_train": True, "manual_seed": 21,
+            "device": str(device), "network_g": net, "path": {}, "train": train}
+
+
+def ddp_batches():
+    """``DDP_STEPS`` global batches of ``TRAIN_BATCH`` seeded crops
+    (``TRAIN_CROP``), clean and with sigma=25 noise, NHWC float32."""
+    rng = np.random.RandomState(2100)
+    gt = np.empty((DDP_STEPS, TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.float32)
+    for s in range(DDP_STEPS):
+        for b in range(TRAIN_BATCH):
+            img = synthetic_image(96, 80, 2100 + s * TRAIN_BATCH + b)
+            y, x = rng.randint(0, 96 - TRAIN_CROP), rng.randint(0, 80 - TRAIN_CROP)
+            gt[s, b] = img[y:y + TRAIN_CROP, x:x + TRAIN_CROP] / 255.0
+    lq = (gt + rng.standard_normal(gt.shape) * (SIGMA / 255.0)).astype(np.float32)
+    return lq, gt
+
+
+def check_ddp(label, got, ref):
+    """A data-parallel run's steps against the single-process steps
+    ``ref`` on the full batch: each step's loss within TRAIN_LOSS_RTOL,
+    step 1's gradients within TRAIN_GRAD_RTOL relative L2 a tensor (phase
+    19's bounds); the weights after each step printed against ``ref``'s."""
+    import torch
+
+    for i in range(DDP_STEPS):
+        d = abs(got["loss"][i] - ref["loss"][i]) / abs(ref["loss"][i])
+        weights = max(float(np.abs(got["params"][i][k] - v).max())
+                      for k, v in ref["params"][i].items())
+        line = (f"  {label} step {i + 1}: {got['ms'][i]:.1f} ms (single process "
+                f"{ref['ms'][i]:.1f} ms); loss {got['loss'][i]:.7e}, rel diff {d:.2e} "
+                f"(limit {TRAIN_LOSS_RTOL:g}); weights after it max|d| {weights:.3e}")
+        if i == 0:
+            worst = max((rel_l2(torch.from_numpy(got["grads"][0][k]), torch.from_numpy(v)), k)
+                        for k, v in ref["grads"][0].items())
+            line += (f"; gradients, worst tensor {worst[1]}: rel L2 {worst[0]:.2e} "
+                     f"(limit {TRAIN_GRAD_RTOL:g})")
+            if worst[0] > TRAIN_GRAD_RTOL:
+                fail(f"{label}: step 1's gradient {worst[1]} {worst[0]:.2e} from one process's")
+        print(line, flush=True)
+        if d > TRAIN_LOSS_RTOL:
+            fail(f"{label} step {i + 1}: loss {got['loss'][i]} against one process's "
+                 f"{ref['loss'][i]}")
+
+
+def phase_parallel(device, engine_outs):
+    """Phase 21: data parallelism on the one card (see the module
+    docstring), against phase 18's single-device outputs ``engine_outs``.
+    Returns the launches of its sharded requests and DDP steps, the
+    spawned ranks' included."""
+    import concurrent.futures
+
+    from tpuir_torch.parallel import jobs
+    from tpuir_torch.parallel.dist import destroy_dist, init_dist
+    from tpuir_torch.parallel.launch import launch
+
+    opt, (lq, gt) = ddp_options(device), ddp_batches()
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_parallel_") as wdir:
+        cells = parallel_cells(engine_outs, wdir)
+        gathered = cells[0]  # Restormer parity: the gathers' share, its predictions
+        gather_shape = {world: (n, gathered["patch"], gathered["patch"], 3)
+                        for world, n in gathered["shares"].items()}
+        requests = [[c["request"]] for c in cells]
+        builds = [c["build"] for c in cells]
+
+        # the world of two starts now, beside this process's runs below (its
+        # spawn, imports, CUDA context and group: host work), and waits for
+        # ``go`` before it builds its models and serves; time.time() between
+        # its jobs
+        go, clock = os.path.join(wdir, "go"), (time.time, ())
+        world2_calls = [
+            (jobs.wait_for, (go, PARALLEL_TIMEOUT_S)), clock,
+            (jobs.serve, (builds, requests, ROUNDS)), clock,
+            (jobs.time_gathers, (gather_shape[2],)), clock,
+            (jobs.train_steps, (opt, lq, gt)), clock]
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            t_launch = time.time()
+            pending = pool.submit(launch, jobs.several, 2, args=(world2_calls,),
+                                  backend="gloo", device=str(device),
+                                  timeout=PARALLEL_TIMEOUT_S, threads=PARALLEL_THREADS)
+            try:
+                t0 = time.time()
+                ref = jobs.train_steps(opt, lq, gt)  # one process on the full batch
+                print(f"  {DDP_STEPS} single-process steps [{time.time() - t0:.0f} s]",
+                      flush=True)
+
+                # a world of one on NCCL, in this process
+                t0 = time.time()
+                with tempfile.TemporaryDirectory(prefix="tpuir_torch_store_") as store:
+                    init_dist("nccl", 0, 1, device=device,
+                              init_method="file://" + os.path.join(store, "store"))
+                    try:
+                        world1 = jobs.several([
+                            (jobs.serve, (builds, requests, ROUNDS)),
+                            (jobs.time_gathers, (gather_shape[1],)),
+                            (jobs.train_steps, (opt, lq, gt))])
+                    finally:
+                        destroy_dist()
+                print(f"  world of one on NCCL [{time.time() - t0:.0f} s]", flush=True)
+            finally:
+                with open(go, "w"):
+                    pass
+            t_go = time.time()
+            world2 = pending.result()
+        for rank, r in enumerate(world2):
+            print(f"  world of two on gloo, rank {rank}: ready {t_go - t_launch - r[0]:.1f} s "
+                  f"after the launch; then serving {r[3] - r[1]:.1f} s (its models built), "
+                  f"gathers {r[5] - r[3]:.1f} s, DDP steps {r[7] - r[5]:.1f} s (its model "
+                  f"built)", flush=True)
+        print(f"  world of two on gloo, one card: {time.time() - t_go:.0f} s after this "
+              f"process's runs", flush=True)
+        world2 = [r[2::2] for r in world2]
+
+    launches = {}
+    for world, ranks in ((1, [world1]), (2, world2)):
+        for rank, (served, gathers, steps) in enumerate(ranks):
+            want = {}
+            for c in cells:
+                chunks = -(-c["shares"][world] // PARALLEL_BATCH)
+                for k, n in c["per_chunk"].items():
+                    want[k] = want.get(k, 0) + n * chunks * ROUNDS
+            got = {k: served["launches"][k] for k in want}
+            if got != want:
+                fail(f"world {world} rank {rank}: sharded launches {got}, expected {want}")
+            train_want = dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue"),
+                                       sum(DDP_DEPTHS) * DDP_STEPS)
+            train_got = {k: v for k, v in steps["launches"].items() if v}
+            if train_got != train_want:
+                fail(f"world {world} rank {rank}: DDP launches {train_got}, "
+                     f"expected {train_want}")
+            for k, n in list(got.items()) + list(train_got.items()):
+                launches[k] = launches.get(k, 0) + n
+            print(f"  world {world} rank {rank}: launches, sharded requests {got}, "
+                  f"DDP steps {train_got}", flush=True)
+            for i, c in enumerate(cells):
+                out, ms = served["outputs"][i][0], served["ms"][i][0]
+                single, single_ms = c["single"]
+                lsb = int(np.abs(out.astype(int) - single.astype(int)).max())
+                h, w = out.shape[:2]
+                print(f"  world {world} rank {rank}: {c['label']} {h}x{w}: sharded {ms:.1f} ms "
+                      f"({c['shares'][world]} patches a rank), single device (phase 18) "
+                      f"{single_ms:.1f} ms; max|sharded - single| {lsb} LSB", flush=True)
+                if world == 1 and lsb:
+                    fail(f"{c['label']}: the world of one is not bit-equal to the engine")
+                if lsb > PARALLEL_LSB:
+                    fail(f"{c['label']}: the world of two differs by {lsb} LSB from the engine")
+                if rank and not np.array_equal(out, world2[0][0]["outputs"][i][0]):
+                    fail(f"{c['label']}: the ranks of the world of two return other images")
+            print(f"  world {world} rank {rank}: gather of the Restormer 512x512 request's "
+                  f"predictions ({gather_shape[world]} float32 a rank), median ms: "
+                  + ", ".join(f"{r} {ms:.3f} ms" for r, ms in gathers.items()), flush=True)
+            check_ddp(f"DDP world {world} rank {rank}", steps, ref)
+            if rank:
+                for i in range(DDP_STEPS):
+                    for k, v in steps["params"][i].items():
+                        if not np.array_equal(v, world2[0][2]["params"][i][k]):
+                            fail(f"DDP: the two ranks hold other weights after step {i + 1}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3957,7 +4214,7 @@ def main() -> int:
 
 
 def run_phases(device, card, prebuilt, threads) -> None:
-    """Phases 2-20 on ``device``, then the kernels line and the last line;
+    """Phases 2-21 on ``device``, then the kernels line and the last line;
     torch's CPU threads back to ``threads`` from phase 12 on."""
     import torch
 
@@ -4057,9 +4314,9 @@ def run_phases(device, card, prebuilt, threads) -> None:
     phase_plain_conv(device)
     print(f"[plain-conv families {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
-    for phase in (phase_window, phase_entry_points):
-        for name, n in phase(device).items():
-            launches[name] = launches.get(name, 0) + n
+    window_launches, engine_outs = phase_window(device)
+    for name, n in list(window_launches.items()) + list(phase_entry_points(device).items()):
+        launches[name] = launches.get(name, 0) + n
     print(f"[window, split and entry points {time.time() - t0:.0f} s]", flush=True)
     t0 = time.time()
     for name, n in phase_training(device).items():
@@ -4074,6 +4331,10 @@ def run_phases(device, card, prebuilt, threads) -> None:
     finish_fid()
     print(f"[the MaIR serving bodies' mutation controls, and the FID {time.time() - t0:.0f} s]",
           flush=True)
+    t0 = time.time()
+    for name, n in phase_parallel(device, engine_outs).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[data parallelism {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -47,10 +47,12 @@ def test_option_files_parse_as_tpuir(path):
 
 
 def test_options_refuse_a_launcher():
+    """BasicSR's launchers none, pytorch and slurm are taken; any other
+    (tpuir's own ``jax`` among them) raises."""
     from tpuir_torch.train.options import parse_options
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        parse_options("/nowhere", True, ["-opt", OPTION_FILES[0], "--launcher", "pytorch"])
+    with pytest.raises(NotImplementedError, match="takes none, pytorch, slurm"):
+        parse_options("/nowhere", True, ["-opt", OPTION_FILES[0], "--launcher", "jax"])
 
 
 def test_dict2str_as_tpuir():

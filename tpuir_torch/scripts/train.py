@@ -2,13 +2,18 @@
 
     python -m tpuir_torch.scripts.train -opt options/train/XXX.yml [--auto_resume]
         [--force_yml train:total_iter=1000 ...] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m tpuir_torch.scripts.train -opt ... --launcher pytorch
 
 The counterpart of ``scripts/train.py``: it reads the same option files
 (``train/options.py``) and runs ``train/pipeline.train_pipeline``, writing
 ``experiments/<name>/`` under the repository root: ``models/net_g_*.pth``
 and ``training_states/*.state``. It trains on ``cuda:0`` unless
-``--device cpu`` is given, and raises where no card is found. Only
-``--launcher none`` is taken (one card).
+``--device cpu`` is given, and raises where no card is found. Under
+``torchrun`` with ``--launcher pytorch`` (or SLURM with ``--launcher
+slurm``) each process trains on ``cuda:LOCAL_RANK`` (``--device cpu``: on
+the CPU over gloo) under DistributedDataParallel, reading its share of each
+epoch; ``batch_size_per_gpu`` is each process's batch, and rank 0 alone
+writes the logs and checkpoints.
 """
 
 import os

@@ -8,7 +8,8 @@ extra datasets (``video_datasets``), DeblurGANv2's training parts
 FID, with ``fid_inception``). Importing it fills the registries of
 ``tpuir_torch/registry.py`` as importing ``tpuir.train`` fills tpuir's.
 
-Not ported yet: multi-GPU (``tpuir/parallel/``; ROADMAP Queue 1).
+Multi-GPU training (``--launcher pytorch|slurm``) runs the model wrappers
+under DistributedDataParallel over ``tpuir_torch/parallel/``'s group.
 """
 
 from tpuir_torch.train import archs, data, losses, metrics, model, schedulers  # noqa: F401

@@ -12,6 +12,8 @@ import logging
 import time
 from typing import Dict, Optional
 
+from tpuir_torch.parallel.dist import get_dist_info
+
 
 class AvgTimer:
     def __init__(self, window: int = 200):
@@ -114,6 +116,8 @@ _root_logger_initialized = False
 def get_root_logger(
     logger_name: str = "tpuir_torch", log_level=logging.INFO, log_file: Optional[str] = None
 ):
+    """The port's logger; on a rank other than 0 of a process group it
+    reports errors only and writes no file (BasicSR's ``get_root_logger``)."""
     global _root_logger_initialized
     logger = logging.getLogger(logger_name)
     if not _root_logger_initialized:
@@ -124,7 +128,9 @@ def get_root_logger(
         logger.setLevel(log_level)
         logger.propagate = False
         _root_logger_initialized = True
-    if log_file is not None and not any(
+    if get_dist_info()[0] != 0:
+        logger.setLevel(logging.ERROR)
+    elif log_file is not None and not any(
         isinstance(h, logging.FileHandler) for h in logger.handlers
     ):
         fh = logging.FileHandler(log_file)

@@ -15,7 +15,16 @@ each written with tpuir's retry loop. So a trained checkpoint is served by
 
 The device is ``cuda:0`` unless the caller asks for another (``device=``,
 or the option dict's ``device``, which ``parse_options`` sets from
-``--device``); without a card, ``cuda`` raises.
+``--device`` and the launcher); without a card, ``cuda`` raises.
+
+Under a launcher (``opt["dist"]``: one process a GPU in a
+``torch.distributed`` group, ``parallel/dist.py``) the training forward
+runs through ``DistributedDataParallel`` around ``net_g``, which averages
+the gradients of the ranks' shares over the group, so that W ranks on B/W
+samples each take the step one process takes on B; the logged loss is the
+mean over the ranks. ``net_g`` itself keeps the state dict (no
+``module.`` prefix), the EMA, validation and the checkpoints, which rank 0
+alone writes.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuir_torch.parallel.dist import master_only
 from tpuir_torch.registry import MODEL_REGISTRY
 from tpuir_torch.train import archs
 from tpuir_torch.train.data import MixingAugment
@@ -118,9 +128,15 @@ class SRModel:
         sched_opt = train_opt.get("scheduler", {"type": "MultiStepLR", "milestones": [10**9]})
         self.schedule = build_scheduler(optim_opt.get("lr", 2e-4), sched_opt)
         self.net_g.train()
+        forward_net = None
+        if self.opt.get("dist"):
+            from torch.nn.parallel import DistributedDataParallel
+
+            forward_net = DistributedDataParallel(
+                self.net_g, device_ids=[self.device] if self.device.type == "cuda" else None)
         self.state = TrainState(
             self.net_g, build_optimizer(optim_opt, [p for p in self.net_g.parameters()]),
-            self.schedule, ema_decay=self.ema_decay or None)
+            self.schedule, ema_decay=self.ema_decay or None, forward_net=forward_net)
         self.grad_clip = 0.01 if train_opt.get("use_grad_clip") else None
         self.mixing_flag = bool((train_opt.get("mixing_augs") or {}).get("mixup", False))
         if self.mixing_flag:
@@ -143,7 +159,12 @@ class SRModel:
         if self.is_train and self.mixing_flag:
             gt, lq = self.mixing_augmentation(gt, lq)
         metrics = train_step(self.state, lq, gt, self.cri_pix, self.grad_clip)
-        self.log_dict = {"l_pix": float(metrics["loss"])}
+        loss = metrics["loss"]
+        if self.opt.get("dist"):  # the mean over the ranks (BasicSR's reduce_loss_dict)
+            loss = loss.clone()
+            torch.distributed.all_reduce(loss)
+            loss /= torch.distributed.get_world_size()
+        self.log_dict = {"l_pix": float(loss)}
         return self.log_dict
 
     @property
@@ -201,6 +222,7 @@ class SRModel:
 
     # -- checkpointing -----------------------------------------------------
 
+    @master_only
     def save(self, epoch: int, current_iter: int) -> None:
         models_dir = self.opt["path"]["models"]
         states_dir = self.opt["path"]["training_states"]

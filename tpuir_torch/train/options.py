@@ -2,13 +2,17 @@
 
 Ordered YAML with ``!!float`` tags, the CLI overrides ``-opt``,
 ``--launcher``, ``--auto_resume``, ``--debug`` and ``--force_yml``, seed
-handling, path expansion and ``num_gpu: auto``. One process on one card:
-``--launcher`` takes only ``none`` (multi-GPU training is not ported: ROADMAP
-Queue 1 item 4), so ``dist`` is False, ``rank`` 0 and ``world_size`` 1.
-``num_gpu: auto`` becomes ``torch.cuda.device_count()``, which is 0 where
-torch has no CUDA (tpuir's ``len(jax.devices())`` counts the CPU as one
-device); ``--device`` (default ``cuda``) names the device the scripts train
-and test on, stored as ``opt["device"]``.
+handling, path expansion and ``num_gpu: auto``. ``--launcher`` takes
+BasicSR's names: ``none`` (one process: ``dist`` False, ``rank`` 0,
+``world_size`` 1), ``pytorch`` (one process a GPU under ``torchrun``) and
+``slurm`` (one a SLURM task), where tpuir has ``jax``: both join the group
+that ``parallel.dist.init_dist`` forms from the environment and fill
+``dist``, ``rank`` and ``world_size`` from it. ``num_gpu: auto`` becomes
+``torch.cuda.device_count()``, which is 0 where torch has no CUDA (tpuir's
+``len(jax.devices())`` counts the CPU as one device); ``--device`` (default
+``cuda``: under a launcher ``cuda:LOCAL_RANK``; ``cpu`` trains on the CPU
+over gloo) names the device the scripts train and test on, stored as
+``opt["device"]``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from os import path as osp
 
 import torch
 
+from tpuir_torch.parallel.dist import get_dist_info, init_dist
+
+LAUNCHERS = ("none", "pytorch", "slurm")
 
 def ordered_yaml():
     """Ordered yaml Loader/Dumper (BasicSR options.py:12-34). PyYAML is
@@ -100,7 +107,7 @@ def parse_options(root_path: str, is_train: bool = True, args=None):
     parser.add_argument("-opt", type=str, required=True, help="option YAML file")
     parser.add_argument(
         "--launcher", default="none",
-        help="multi-process launcher: only 'none' (one process on one card)",
+        help="multi-process launcher: none (one process), pytorch (torchrun) or slurm",
     )
     parser.add_argument("--device", default="cuda",
                         help="device to train or test on: cuda (the default) or cpu")
@@ -112,14 +119,16 @@ def parse_options(root_path: str, is_train: bool = True, args=None):
 
     opt = yaml_load(parsed.opt)
 
-    if parsed.launcher != "none":
+    if parsed.launcher not in LAUNCHERS:
         raise NotImplementedError(
-            f"--launcher {parsed.launcher}: multi-GPU training is not ported to tpuir_torch "
-            "(ROADMAP Queue 1 item 4); use --launcher none")
-    opt["dist"] = False
-    opt["rank"] = 0
-    opt["world_size"] = 1
+            f"--launcher {parsed.launcher}: tpuir_torch takes {', '.join(LAUNCHERS)}")
+    opt["dist"] = parsed.launcher != "none"
     opt["device"] = parsed.device
+    opt["rank"], opt["world_size"] = 0, 1
+    if opt["dist"]:
+        # --device cuda: this rank's card, cuda:LOCAL_RANK
+        opt["device"] = str(init_dist(device=None if parsed.device == "cuda" else parsed.device))
+        opt["rank"], opt["world_size"] = get_dist_info()
 
     apply_force_yml(opt, parsed.force_yml)
 

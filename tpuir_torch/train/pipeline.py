@@ -5,7 +5,10 @@ The epoch and iteration loop, the lr schedule set on the optimizer each
 step, the progressive-learning batch shaper, periodic validation (with
 the two-stage frequency) and checkpoints, and ``--auto_resume`` from the
 newest training state. Each batch goes to the model's device as NCHW
-tensors (``model.feed``) before the progressive crop.
+tensors (``model.feed``) before the progressive crop. Under a launcher
+each rank reads its share of every epoch (``EnlargedEpochIterator``'s
+``rank``, ``world_size``) and validates on its own, with no collective;
+rank 0 alone logs and writes the checkpoints.
 """
 
 from __future__ import annotations

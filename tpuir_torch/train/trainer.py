@@ -46,11 +46,17 @@ def global_norm(grads) -> torch.Tensor:
 class TrainState:
     """The network, its optimizer, the lr schedule, the step count (the
     optimizer steps taken) and, with ``ema_decay``, an EMA copy of the
-    parameters ({name: tensor})."""
+    parameters ({name: tensor}). ``forward_net`` (default ``net``) runs the
+    training forward: under data parallelism, ``net`` wrapped in
+    ``DistributedDataParallel``, whose backward averages the gradients over
+    the ranks. The bare ``net`` keeps the state dict, the EMA and the
+    checkpoints."""
 
     def __init__(self, net: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float], ema_decay: Optional[float] = None):
+                 schedule: Callable[[int], float], ema_decay: Optional[float] = None,
+                 forward_net: Optional[torch.nn.Module] = None):
         self.net = net
+        self.forward_net = net if forward_net is None else forward_net
         self.optimizer = optimizer
         self.schedule = schedule
         self.ema_decay = ema_decay or None
@@ -64,7 +70,7 @@ class TrainState:
     def forward_loss(self, lq: torch.Tensor, gt: torch.Tensor, loss_fn) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
         with true_float32():
-            return loss_fn(self.net(lq), gt)
+            return loss_fn(self.forward_net(lq), gt)
 
     def backward(self, loss: torch.Tensor) -> None:
         with true_float32():
