@@ -37,10 +37,13 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    width and depth) are written as ``MaIR/denoising/MaIR_CDN_s25.pth`` and
    loaded through the zoo; a 256x256 request (9 tiles, chunks 8+1), a
    200x150 request (4 tiles) and a 96x72 request (one rectangular tile) are
-   served with host AWGN and scored, three rounds. Each of K6, K2 and K7
-   must launch 36 times per forward chunk, and the kernel path must repeat
-   bit for bit; one round with plain mixers, and the 96x72 request on the
-   CPU, must agree with it to 1 uint8 LSB.
+   served with host AWGN, three rounds. Each of K6, K2 and K7 must launch
+   36 times per forward chunk, and the kernel path must repeat bit for
+   bit. The same model cut to one residual group of six layers
+   (``MAIR_CUT_DEPTHS``, seeded weights) serves the same requests, scored,
+   three kernel rounds (6 launches a chunk) and one round with plain
+   mixers, and the 96x72 request on the CPU: they must agree to 1 uint8
+   LSB (the plain scan and the CPU at full depth took most of the phase).
 
 6. K6, K2 and K7 at the five level shapes of MaIRUNet's 384x384 tile at
    batch 8 (d_state 4, 8, 8, 16 and 32), K2 at the rectangular 384x328
@@ -73,8 +76,9 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
    ``nss="fused"`` on the seeded weights of phases 5 and 7. MaIR-CDN serves
    phase 5's three requests, three rounds: 36 K5 launches a chunk and none
    of K6, K2 or K7, repeatable, within 1 uint8 LSB of phase 5's stripe-route
-   outputs, and on 96x72 of the fused route's plain path and of the CPU;
-   engine Mpix/s beside the stripe route's. MaIRUNet serves the 481x321
+   outputs; engine Mpix/s beside the stripe route's. On 96x72, cut to one
+   group of six as in phase 5, the fused route's kernel path within 1 LSB
+   of its plain path and of the CPU. MaIRUNet serves the 481x321
    request, three rounds: 24 K5 and 20 K3 launches a chunk, within 1 LSB of
    phase 7's output.
 10. K4 (``selective_scan_kernel``): its entry point at MaIR-CDN's shape
@@ -208,12 +212,12 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     720x1280 frame (parity), built through the zoo from seeded checkpoints,
     and Restormer and REDNet serving again at engine batch 2 (5 and 10
     chunks: every staging buffer refilled, the window full), are served
-    with ``max_in_flight`` 1, 2 and 4 in turns, three rounds: the outputs
+    with ``max_in_flight`` 1, 2 and 4 in turns, two rounds: the outputs
     must be bit-equal across windows and rounds and each serve's launches
     the same, a chunk's as its path's; engine Mpix/s for each window.
     (b) Each batch-8 request of (a), DnCNN gray sigma=25 on 481x321 and
     DeblurGANv2 MobileNet and Inception on 720x1280 in parity and serving,
-    split by ``utils.profiling.engine_split`` (host ms by step, median of 3)
+    split by ``utils.profiling.engine_split`` (host ms by step, median of 2)
     and ``profiled_requests`` (the card's copy and kernel ms, busy ms and
     idle share over two requests). (c) ``demo_core.run_restoration`` on
     ``cuda:0`` with the seeded sigma=25 color Restormer and MaIR-CDN, on a
@@ -312,6 +316,33 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc
     loss within 1e-5 relative, step 1's gradients within 1e-3 relative L2
     a tensor (phase 19's bounds), the two ranks' weights equal after each
     step, 6 launches each of K6, K2 and K7 a step's forward; each step's ms.
+22. Spatial and tensor parallelism (``parallel/{collectives,spatial,
+    tensor,train,dryrun}.py``): tpuir's ``dryrun_multichip`` on its mesh of
+    8, ``{dp: 2, sp: 2, tp: 2}``, as eight ranks on gloo on the one card
+    (spawned by ``parallel.launch``, one CPU thread each; they start beside
+    this process's reference and wait for it), after a world of two probes
+    which collectives gloo takes on CUDA tensors. In tpuir's order: (a) two
+    steps (AdamW, the 0.01 clip, EMA 0.999, L1) of the Restormer sigma=25
+    file's network at full width and depth, plain, its wide parameters over
+    ``tp`` (``shard_params_tp(..., min_dim=64)``), of MaIR-CDN cut to one
+    group of six (``MAIR_CUT_DEPTHS``) and of MaIRUNet at the zoo's width
+    with one block a level, both replicated, on phase 21's crops (64x64,
+    global batch 4, MaIR-CDN's 2: N over ``dp``, H over ``sp``; eight ranks
+    of MaIR-CDN at two images each ran out of the card's memory in the
+    backward's plain K2 recompute), each against this
+    process stepping alone on the full batch: the loss within 1e-5
+    relative, every step's gradient within 1e-3 relative L2 a tensor (phase
+    19's), the weights and EMA within 1e-6, every rank holding the same
+    whole state; each rank's launches 6 (MaIR-CDN) and 8 (MaIRUNet) of K6,
+    K2 and K7 a step, none for Restormer; each step's ms and collectives.
+    (b) K2 on each ``dp`` rank's share of a seeded batch at MaIR-CDN's width
+    (``SPTP_SCAN``), gathered over ``dp``, within 1e-6 of one call on the
+    whole batch here. (c) Phase 18's Restormer 512x512 and MaIR-CDN
+    256x256 parity requests through ``run_model_inference_sharded`` on the
+    mesh (the grid over ``dp``; each rank's engine batch 1: a Restormer
+    forward of two patches peaks at 9.4 GiB, one at 2.5, and eight ranks
+    share the 80 GB): within 1 LSB of phase 18's engine, every rank the
+    same image, 44 K1 and 36 K6, K2, K7 launches a chunk of a rank's share.
 
 The serving checks' planted copies (phases 12-15) are built by
 ``serving_mutants.Prebuilt`` in ``MUTANT_BUILD_JOBS`` background builds
@@ -387,6 +418,7 @@ REQUESTS = [(512, 512), (481, 321), (200, 150)]  # H x W x 3 uint8
 MAIR_REQUESTS = [(256, 256), (200, 150), (96, 72)]
 MAIR_TILE = 128  # MaIR-CDN's patch: the kernels' shapes on its path
 MAIR_BLOCKS = 36
+MAIR_CUT_DEPTHS = (6,)  # MaIR-CDN cut to one residual group of six layers
 # MaIRUNet@384 at batch 8: (label, tile side, the stage whose block 0 gives
 # the mixer's weights, that width's blocks a forward)
 UNET_LEVELS = [
@@ -857,6 +889,24 @@ def plain_twin(model, net):
     )
 
 
+def mair_cut(model, device, **kw):
+    """The zoo's MaIR-CDN ``model`` (its hooks) with a network cut to
+    ``MAIR_CUT_DEPTHS`` on ``device``: seeded weights, ``MaIR(**kw)``."""
+    import dataclasses
+
+    import torch
+
+    from tpuir_torch import zoo
+    from tpuir_torch.models.mair import MaIR, init_state_dict
+
+    cfg = dict(zoo.MAIR_CDN_CONFIG, depths=MAIR_CUT_DEPTHS)
+    net = MaIR(**cfg, **kw)
+    net.load_state_dict(init_state_dict(cfg, seed=SEED))
+    device = torch.device(device)
+    return dataclasses.replace(model, name=f"{model.name} (one group of six)",
+                               net=net.to(device).eval(), device=device)
+
+
 def serve_and_check(label, model, plain, cpu_model, requests, per_chunk, order,
                     sigma=SIGMA, kernel_only=()):
     """Serve ``requests`` on the kernel and plain paths in the given order of
@@ -1105,12 +1155,14 @@ def phase_mair_kernels(device):
 
 
 def phase_mair_path(device, requests=MAIR_REQUESTS):
-    """Serve MaIR-CDN on the kernel and plain paths; returns
-    ({kernel: launches}, {path: Mpix/s}, {(h, w): (kernel output, ms)})."""
+    """Serve MaIR-CDN at full depth on the kernel path (launches, repeat),
+    then cut to ``MAIR_CUT_DEPTHS`` on the kernel and plain paths and the
+    CPU; returns ({kernel: launches} at full depth, {path: Mpix/s} at the
+    cut depth, {(h, w): (full-depth kernel output, ms)})."""
     import torch
 
     from tpuir_torch import zoo
-    from tpuir_torch.models.mair import MaIR, init_state_dict
+    from tpuir_torch.models.mair import init_state_dict
 
     with tempfile.TemporaryDirectory(prefix="tpuir_torch_smoke_") as wdir:
         path = os.path.join(wdir, "MaIR", "denoising", f"MaIR_CDN_s{SIGMA}.pth")
@@ -1118,17 +1170,26 @@ def phase_mair_path(device, requests=MAIR_REQUESTS):
         torch.save({"params": init_state_dict(zoo.MAIR_CDN_CONFIG, seed=SEED)}, path)
         model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
                                        weights_dir=wdir, device=device)
-        cpu_model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
-                                           weights_dir=wdir, device="cpu")
     print(f"main path: MaIR-CDN sigma={SIGMA}, {model.param_count:,} params, "
           f"patch {model.patch_size} overlap {model.patch_overlap} batch {model.batch_size}",
           flush=True)
-    plain = plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False))
-    # the plain scan is slow: one plain round between the kernel rounds
-    order = ["kernel", "plain"] + ["kernel"] * (ROUNDS - 1)
+    images = [synthetic_image(h, w, SEED + i) for i, (h, w) in enumerate(requests)]
     per_chunk = dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue"), MAIR_BLOCKS)
-    return serve_and_check("MaIR", model, plain, cpu_model, requests, lambda h, w: per_chunk,
-                           order)
+    launches, outs = serve_kernel_rounds("MaIR", model, images, requests,
+                                         lambda h, w: per_chunk, SIGMA)
+    for (h, w), (_, ms) in zip(requests, outs):
+        print(f"MaIR request {h}x{w}x3: kernel path {ms:.1f} ms {h * w / 1e3 / ms:.3f} Mpix/s "
+              f"(full depth)", flush=True)
+    # the plain scan is slow: the plain path and the CPU at the cut depth,
+    # one plain round between the kernel rounds
+    cut = mair_cut(model, device, fused=True)
+    order = ["kernel", "plain"] + ["kernel"] * (ROUNDS - 1)
+    cut_chunk = {k: sum(MAIR_CUT_DEPTHS) for k in per_chunk}
+    _, rate, _ = serve_and_check("MaIR (one group of six)", cut,
+                                 mair_cut(model, device, fused=False),
+                                 mair_cut(model, "cpu", fused=True), requests,
+                                 lambda h, w: cut_chunk, order)
+    return launches, rate, dict(zip(requests, outs))
 
 
 def check_case(label, kern, want, check, iters, plain_ms, work, repeat=False):
@@ -1461,7 +1522,6 @@ def phase_fused_path(device, mair_stripe, unet_stripe):
     import torch
 
     from tpuir_torch import zoo
-    from tpuir_torch.models.mair import MaIR
     from tpuir_torch.models.mair import init_state_dict as mair_state_dict
     from tpuir_torch.models.mair_unet import init_state_dict as unet_state_dict
 
@@ -1473,8 +1533,6 @@ def phase_fused_path(device, mair_stripe, unet_stripe):
                    os.path.join(wdir, "MaIR", "denoising", "MaIR_RealDN.pth"))
         model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
                                        weights_dir=wdir, device=device, nss="fused")
-        cpu_model = zoo.get_model_instance("denoising", "gaussian", "MaIR", sigma=SIGMA,
-                                           weights_dir=wdir, device="cpu", nss="fused")
         unet = zoo.get_model_instance("denoising", "real", "MaIR", weights_dir=wdir,
                                       device=device, nss="fused")
     print(f"fused route: MaIR-CDN sigma={SIGMA} and MaIRUNet real denoising, nss=fused",
@@ -1495,17 +1553,19 @@ def phase_fused_path(device, mair_stripe, unet_stripe):
     stripe_rate = mpix / (sum(mair_stripe[hw][1] for hw in MAIR_REQUESTS) / 1e3)
     print(f"MaIR-CDN engine over the {len(MAIR_REQUESTS)} requests ({mpix:.4f} Mpix): fused "
           f"route {rate:.3f} Mpix/s, stripe route {stripe_rate:.3f} Mpix/s", flush=True)
-    # the last request on the fused route's plain path and on the CPU
-    plain = plain_twin(model, MaIR(**zoo.MAIR_CDN_CONFIG, fused=False, nss="fused"))
-    for name, net in (("plain path", plain), ("CPU", cpu_model)):
+    # the last request, cut to MAIR_CUT_DEPTHS, on the fused route's kernel
+    # and plain paths and on the CPU
+    h, w = MAIR_REQUESTS[-1]
+    (want, _, _, _), = serve(mair_cut(model, device, nss="fused"), images[-1:], SIGMA)
+    for name, net in (("plain path", mair_cut(model, device, fused=False, nss="fused")),
+                      ("CPU", mair_cut(model, "cpu", nss="fused"))):
         (pred, _, _, _), = serve(net, images[-1:], SIGMA)
-        diff = lsb(pred, outs[-1][0])
-        h, w = MAIR_REQUESTS[-1]
-        print(f"MaIR-CDN fused request {h}x{w}x3 kernel path vs {name}: max {diff} LSB",
-              flush=True)
+        diff = lsb(pred, want)
+        print(f"MaIR-CDN fused request {h}x{w}x3, one group of six, kernel path vs {name}: "
+              f"max {diff} LSB", flush=True)
         if diff > 1:
             fail(f"the fused route's kernel path and {name} differ by {diff} LSB on {h}x{w}")
-    del model, plain, cpu_model
+    del model
 
     h, w = UNET_FUSED_REQUEST
     i = (UNET_KERNEL_ONLY + UNET_REQUESTS).index(UNET_FUSED_REQUEST)  # phase 7's image
@@ -2757,6 +2817,7 @@ WINDOW_CELLS = [
         ("mixer_prologue", "nss_scan", "mixer_epilogue"), 44), 8),
 ]
 WINDOWS = (1, 2, 4)
+WINDOW_ROUNDS = 2  # rounds of the windows in turns, and of each split
 SPLIT_CELLS = [("DnCNN gray sigma=25", "dncnn"), ("DeblurGANv2 (MobileNet)", "deblurgan-mobilenet"),
                ("DeblurGANv2 (Inception)", "deblurgan-inception")]
 DEMO_IMAGE = (200, 150)
@@ -2795,7 +2856,7 @@ def print_split(label, precision, model, img, sigma):
     want, _ = run_model_inference(model, img, need_degradation=sigma is not None,
                                   noise_level=sigma)
     splits = []
-    for _ in range(ROUNDS):
+    for _ in range(WINDOW_ROUNDS):
         out, ms = engine_split(model, img, sigma)
         if not np.array_equal(out, want):
             fail(f"{label} {precision}: the split's output differs from the engine's")
@@ -2834,7 +2895,7 @@ def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
             chunks = chunks_for(model, h, w)
             want = {k: n * chunks for k, n in per_chunk.items()}
             outs, ms = [], {m: [] for m in WINDOWS}
-            for r in range(ROUNDS):
+            for r in range(WINDOW_ROUNDS):
                 for mif in WINDOWS[r % len(WINDOWS):] + WINDOWS[:r % len(WINDOWS)]:
                     _kernels.reset_launches()
                     pred, t_ms = run_model_inference(model, img, max_in_flight=mif, **serve_kw)
@@ -2850,7 +2911,8 @@ def phase_window(device, cells=WINDOW_CELLS, split_cells=SPLIT_CELLS):
             if any(not np.array_equal(o, outs[0]) for o in outs):
                 fail(f"window {label} {precision}: outputs differ across windows or rounds")
             print(f"window {label} {precision} {h}x{w} batch {batch} ({chunks} chunks): bit-equal "
-                  f"over max_in_flight {', '.join(map(str, WINDOWS))}, {ROUNDS} rounds; launches "
+                  f"over max_in_flight {', '.join(map(str, WINDOWS))}, {WINDOW_ROUNDS} rounds; "
+                  f"launches "
                   f"a serve {want}; engine " + ", ".join(
                       f"max_in_flight={m} {h * w / 1e3 / float(np.median(v)):.3f} Mpix/s"
                       for m, v in ms.items()), flush=True)
@@ -3958,14 +4020,14 @@ PARALLEL_CELLS = (("restormer", "parity"), ("mair", "parity"), ("restormer", "se
 PARALLEL_LABELS = {"restormer": "Restormer", "mair": "MaIR-CDN"}
 PARALLEL_BATCH = 8  # the zoo's batch, phase 18's batch-8 cells'
 PARALLEL_LSB = 1  # a world of two against the single-device engine
-DDP_DEPTHS = (6,)  # MaIR-CDN cut to one residual group of six layers (phase 19: 6 x 6)
+DDP_DEPTHS = MAIR_CUT_DEPTHS  # phase 19 keeps 6 x 6
 DDP_STEPS = 2
 PARALLEL_THREADS = 4  # torch's CPU threads in each of the two ranks
 PARALLEL_TIMEOUT_S = 300  # the world of two's limit: spawn, builds, serving, steps
 
 
-def parallel_cells(engine_outs, wdir):
-    """Phase 21's cells, their seeded checkpoints (phase 18's) written under
+def parallel_cells(engine_outs, wdir, which=PARALLEL_CELLS):
+    """Phase 21's cells (``which``), their seeded checkpoints (phase 18's) written under
     ``wdir``: label, the zoo call a rank builds its model with, request
     (image, AWGN sigma), phase 18's single-device (output, ms), launches a
     forward chunk, patch size and patches a rank at worlds 1 and 2
@@ -3977,9 +4039,9 @@ def parallel_cells(engine_outs, wdir):
     from tpuir_torch.utils.profiling import ENGINE_REQUESTS, write_seeded_checkpoint
 
     cells = []
-    for key in dict.fromkeys(key for key, _ in PARALLEL_CELLS):
+    for key in dict.fromkeys(key for key, _ in which):
         write_seeded_checkpoint(key, wdir, seed=SEED)
-    for key, precision in PARALLEL_CELLS:
+    for key, precision in which:
         (task, subtask, name, gray, sigma), _, _ = ENGINE_REQUESTS[key]
         img, noise = window_request(key)
         pc = get_patch_config(task, subtask, name)
@@ -4173,6 +4235,219 @@ def phase_parallel(device, engine_outs):
     return launches
 
 
+# -- phase 22: spatial and tensor parallelism -----------------------------------
+
+SPTP_AXES = {"dp": 2, "sp": 2, "tp": 2}  # tpuir's _mesh_axes(8)
+SPTP_MIN_DIM = 64  # dryrun_multichip's shard_params_tp(..., min_dim=64)
+SPTP_MAIR_BATCH = 2  # MaIR-CDN's global batch: one image a dp rank (sptp_trains)
+SPTP_SCAN = (4, 64, 64, 234, 16, 12)  # K2 at MaIR-CDN's width on crop-64 images
+SPTP_SCAN_TOL = 1e-6  # dryrun_multichip's bound for K2 under dp
+WEIGHT_ATOL = 1e-6  # weights and EMA after a step, against one process's
+SPTP_SERVE_BATCH = 1  # each rank's engine batch: a Restormer chunk of 2 peaks at 9.4 GiB
+SPTP_THREADS = 1  # torch's CPU threads in each of the eight ranks
+SPTP_TIMEOUT_S = 420
+
+
+def sptp_trains(lq, gt):
+    """Phase 22's train parts (``dryrun.train_part``'s arguments): the
+    Restormer sigma=25 file's network at full width and depth, its wide
+    parameters over ``tp``; MaIR-CDN cut to ``MAIR_CUT_DEPTHS`` and
+    MaIRUNet at the zoo's width with one block a level, replicated.
+    MaIR-CDN takes ``SPTP_MAIR_BATCH`` images a step: the plain recompute
+    of a K2 backward (``ops/kernel_grad.py``) at its width holds about 4
+    GB an image of 64x64, and eight ranks share the one card."""
+    from tpuir_torch import zoo
+    from tpuir_torch.train.options import yaml_load
+
+    unet = dict(zoo.MAIR_UNET_CONFIG, num_blocks=[1, 1, 1, 1], num_refinement_blocks=1)
+    nets = [(dict(yaml_load(TRAIN_OPTIONS)["network_g"]), SPTP_MIN_DIM, lq.shape[1]),
+            (dict(yaml_load(MAIR_TEST_OPTIONS)["network_g"], depths=list(MAIR_CUT_DEPTHS)),
+             None, SPTP_MAIR_BATCH),
+            (dict(unet, type="MaIRUNet"), None, lq.shape[1])]
+    return [{"network_g": net, "seed": SEED + 22 + i, "lq": lq[:, :n], "gt": gt[:, :n],
+             "min_dim": min_dim} for i, (net, min_dim, n) in enumerate(nets)]
+
+
+def sized_model(build, batch_size, device=None):
+    """``build(device=device)`` with the engine batch ``batch_size``: a
+    phase-22 rank's model."""
+    model = build(device=device)
+    model.batch_size = batch_size
+    return model
+
+
+def mixer_blocks(network_g) -> int:
+    """The mixers a forward of ``network_g`` runs (MaIR: its depths;
+    MaIRUNet: its levels' blocks, the decoder's and the refinement's)."""
+    if network_g["type"] == "MaIR":
+        return sum(network_g["depths"])
+    if network_g["type"] == "MaIRUNet":
+        nb = network_g["num_blocks"]
+        return sum(nb) + sum(nb[:3]) + network_g["num_refinement_blocks"]
+    return 0
+
+
+def check_mesh_steps(label, runs, ref):
+    """Each rank's steps of one train part against one process's ``ref``:
+    every rank the same whole state; the loss within TRAIN_LOSS_RTOL, every
+    step's gradient within TRAIN_GRAD_RTOL relative L2 a tensor, the
+    weights and EMA within WEIGHT_ATOL."""
+    import torch
+
+    for i in range(len(ref["loss"])):
+        if len({str(r["digests"][i]) for r in runs}) != 1:
+            fail(f"{label} step {i + 1}: the ranks hold other weights, EMA or gradients")
+        got = runs[0]
+        d = abs(got["loss"][i] - ref["loss"][i]) / abs(ref["loss"][i])
+        worst = max((rel_l2(torch.from_numpy(got["grads"][i][k]), torch.from_numpy(v)), k)
+                    for k, v in ref["grads"][i].items())
+        weights = {what: max(float(np.abs(got[what][i][k] - v).max())
+                             for k, v in ref[what][i].items()) for what in ("params", "ema")}
+        calls = got["collectives"][i]
+        print(f"  {label} step {i + 1}: {float(np.median([r['ms'][i] for r in runs])):.1f} ms "
+              f"(median over ranks; one process {ref['ms'][i]:.1f} ms); collectives "
+              + ", ".join(f"{c} {n} ({calls['ms'][c]:.1f} ms)" for c, n in
+                          calls["calls"].items())
+              + f"; loss {got['loss'][i]:.7e}, rel diff {d:.2e} (limit {TRAIN_LOSS_RTOL:g}); "
+              f"gradients, worst tensor {worst[1]}: rel L2 {worst[0]:.2e} "
+              f"(limit {TRAIN_GRAD_RTOL:g}); weights max|d| {weights['params']:.3e}, EMA "
+              f"{weights['ema']:.3e} (limit {WEIGHT_ATOL:g}); the ranks' state equal",
+              flush=True)
+        if d > TRAIN_LOSS_RTOL:
+            fail(f"{label} step {i + 1}: loss {got['loss'][i]} against {ref['loss'][i]}")
+        if worst[0] > TRAIN_GRAD_RTOL:
+            fail(f"{label} step {i + 1}: gradient {worst[1]} {worst[0]:.2e} from one process's")
+        if max(weights.values()) > WEIGHT_ATOL:
+            fail(f"{label} step {i + 1}: weights {weights} from one process's")
+
+
+def phase_sptp(device, engine_outs):
+    """Phase 22: tpuir's dryrun_multichip on a ``SPTP_AXES`` mesh of eight
+    ranks on gloo on the one card (see the module docstring), against this
+    process alone and phase 18's single-device outputs ``engine_outs``.
+    Returns the launches of the ranks' steps, K2 calls and sharded requests."""
+    import concurrent.futures
+    import functools
+
+    import torch
+
+    from tpuir_torch.parallel import dryrun, jobs
+    from tpuir_torch.parallel.launch import launch
+    from tpuir_torch.parallel.mesh import volume
+
+    world = volume(SPTP_AXES)
+    lq, gt = ddp_batches()
+    trains = sptp_trains(lq, gt)
+    scan = {"shape": SPTP_SCAN, "seed": SEED + 22}
+    labels = [f"{t['network_g']['type']}" + (f" (tp min_dim {t['min_dim']})" if t["min_dim"]
+                                             else " (replicated)") for t in trains]
+    with tempfile.TemporaryDirectory(prefix="tpuir_torch_sptp_") as wdir:
+        cells = parallel_cells(engine_outs, wdir, [(k, "parity") for k in PARALLEL_LABELS])
+        serving = ([functools.partial(sized_model, c["build"], SPTP_SERVE_BATCH) for c in cells],
+                   [[c["request"]] for c in cells])
+        go, clock = os.path.join(wdir, "go"), (time.time, ())
+        calls = [(jobs.wait_for, (go, SPTP_TIMEOUT_S)), clock,
+                 (dryrun.dryrun_multichip, (SPTP_AXES, trains, scan, serving)), clock]
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            t_launch = time.time()
+            probes = [pool.submit(launch, jobs.probe_collectives, 2, args=(names,),
+                                  backend="gloo", device=str(device), timeout=120, threads=1)
+                      for names in (jobs.PROBES[:-1], jobs.PROBES[-1:])]
+            pending = pool.submit(launch, jobs.several, world, args=(calls,), backend="gloo",
+                                  device=str(device), timeout=SPTP_TIMEOUT_S,
+                                  threads=SPTP_THREADS)
+            try:
+                t0 = time.time()
+                torch.cuda.empty_cache()
+                ref = dryrun.dryrun_multichip({"dp": 1}, trains, scan)  # one process
+                print(f"  one process on the full batch [{time.time() - t0:.0f} s]: " + ", ".join(
+                    f"{k} {v / 1e3:.1f} s" for k, v in ref["ms"].items()), flush=True)
+            finally:
+                torch.cuda.empty_cache()  # the card's memory to the eight ranks
+                with open(go, "w"):
+                    pass
+            t_go = time.time()
+            ranks = pending.result()
+            for probe in probes:  # a probe that kills its ranks is an answer, not a failure
+                try:
+                    probed = probe.result()[0]
+                except RuntimeError as e:
+                    probed = {"probe": str(e).splitlines()[0]}
+                print("  gloo on CUDA tensors (a world of two): " + "; ".join(
+                    f"{k}: {v}" for k, v in probed.items()), flush=True)
+    print(f"  the mesh {SPTP_AXES} of {world} ranks on gloo, one card: ready "
+          f"{t_go - t_launch - min(r[0] for r in ranks):.1f} s after the launch at the "
+          f"earliest; {time.time() - t_go:.0f} s after this process's runs", flush=True)
+    ranks = [r[2] for r in ranks]
+    for part in ranks[0]["ms"]:
+        print(f"  {part}: " + ", ".join(f"{r['ms'][part] / 1e3:.1f}" for r in ranks)
+              + f" s by rank, peak {max(r['peak_bytes'][part] or 0 for r in ranks) / 2**30:.2f} "
+              "GiB a rank; collectives (rank 0, with the gathers of the returned state) "
+              + ", ".join(f"{c} {n} ({ranks[0]['collectives'][part]['ms'][c]:.0f} ms)"
+                          for c, n in ranks[0]["collectives"][part]["calls"].items()),
+              flush=True)
+
+    launches = {}
+    for i, (label, t) in enumerate(zip(labels, trains)):
+        runs = [r["train"][i] for r in ranks]
+        check_mesh_steps(label, runs, ref["train"][i])
+        n = mixer_blocks(t["network_g"]) * len(lq)
+        want = (dict.fromkeys(("mixer_prologue", "nss_scan", "mixer_epilogue"), n) if n else {})
+        for rank, r in enumerate(runs):
+            got = {k: v for k, v in r["launches"].items() if v}
+            if got != want:
+                fail(f"{label}: rank {rank} launched {got}, expected {want}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        print(f"  {label}: every rank launched {want or 'no kernel'} in its "
+              f"{len(lq)} steps", flush=True)
+
+    want_y, want_pooled = ref["scan"]["y"], ref["scan"]["pooled"]
+    for rank, r in enumerate(ranks):
+        got = {k: v for k, v in r["scan"]["launches"].items() if v}
+        if got != {"nss_scan": 1}:
+            fail(f"K2 under dp: rank {rank} launched {got}")
+        launches["nss_scan"] = launches.get("nss_scan", 0) + 1
+        for name, a, b in (("y", r["scan"]["y"], want_y),
+                           ("pooled", r["scan"]["pooled"], want_pooled)):
+            d = float(np.abs(a - b).max())
+            if rank == 0:
+                print(f"  K2 under dp {SPTP_SCAN}: {name} gathered over dp, max|d| {d:.2e} "
+                      f"from one process's call on the whole batch (limit {SPTP_SCAN_TOL:g})",
+                      flush=True)
+            if not np.allclose(a, b, rtol=SPTP_SCAN_TOL, atol=SPTP_SCAN_TOL):
+                fail(f"K2 under dp: rank {rank}'s {name} {d:.2e} from one process's")
+
+    for rank, r in enumerate(ranks):
+        served = r["serve"]
+        want = {}
+        for c in cells:
+            chunks = -(-c["shares"][SPTP_AXES["dp"]] // SPTP_SERVE_BATCH)
+            for k, n in c["per_chunk"].items():
+                want[k] = want.get(k, 0) + n * chunks
+        got = {k: served["launches"][k] for k in want}
+        if got != want:
+            fail(f"sharded inference: rank {rank} launched {got}, expected {want}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        for i, c in enumerate(cells):
+            out, ms = served["outputs"][i][0], served["ms"][i][0]
+            single, single_ms = c["single"]
+            d = lsb(out, single)
+            if rank == 0 or d > PARALLEL_LSB:
+                h, w = out.shape[:2]
+                print(f"  rank {rank}: {c['label']} {h}x{w} on the mesh: {ms:.1f} ms "
+                      f"({c['shares'][SPTP_AXES['dp']]} patches a rank), single device (phase "
+                      f"18) {single_ms:.1f} ms; max|mesh - single| {d} LSB; launches {got}",
+                      flush=True)
+            if d > PARALLEL_LSB:
+                fail(f"{c['label']}: the mesh differs by {d} LSB from the engine")
+            if not np.array_equal(out, ranks[0]["serve"]["outputs"][i][0]):
+                fail(f"{c['label']}: the ranks of the mesh return other images")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4214,7 +4489,7 @@ def main() -> int:
 
 
 def run_phases(device, card, prebuilt, threads) -> None:
-    """Phases 2-21 on ``device``, then the kernels line and the last line;
+    """Phases 2-22 on ``device``, then the kernels line and the last line;
     torch's CPU threads back to ``threads`` from phase 12 on."""
     import torch
 
@@ -4335,6 +4610,10 @@ def run_phases(device, card, prebuilt, threads) -> None:
     for name, n in phase_parallel(device, engine_outs).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[data parallelism {time.time() - t0:.0f} s]", flush=True)
+    t0 = time.time()
+    for name, n in phase_sptp(device, engine_outs).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[spatial and tensor parallelism {time.time() - t0:.0f} s]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -165,7 +165,10 @@ def test_port_imports_without_jax():
         "        'tpuir_torch.utils.flow_io', 'tpuir_torch.train.video_datasets',\n"
         "        'tpuir_torch.utils.sidd_submission', 'tpuir_torch.scripts.make_meta_info',\n"
         "        'tpuir_torch.scripts.create_lmdb', 'tpuir_torch.parallel.dist',\n"
-        "        'tpuir_torch.parallel.mesh', 'tpuir_torch.parallel.inference'}\n"
+        "        'tpuir_torch.parallel.mesh', 'tpuir_torch.parallel.inference',\n"
+        "        'tpuir_torch.parallel.collectives', 'tpuir_torch.parallel.spatial',\n"
+        "        'tpuir_torch.parallel.tensor', 'tpuir_torch.parallel.train',\n"
+        "        'tpuir_torch.parallel.dryrun'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and "
         "(m in ('tpuir', 'jax', 'flax', 'optax', 'gradio', 'matplotlib', 'cv2', 'lmdb') or\n"

@@ -31,7 +31,8 @@ from tpuir_torch.core.engine import InferenceModel, run_model_inference
 from tpuir_torch.parallel import jobs
 from tpuir_torch.parallel.dist import World, get_dist_info, master_only, world_from_env
 from tpuir_torch.parallel.launch import launch
-from tpuir_torch.parallel.mesh import Mesh, batch_sharding, make_mesh, shard_params_tp
+from tpuir_torch.parallel.mesh import Mesh, batch_sharding, make_mesh
+from tpuir_torch.parallel.tensor import shard_params_tp
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
@@ -364,17 +365,29 @@ def test_a_process_alone_is_rank_0_of_1():
     assert gather_patches(x, mesh) is x
 
 
-@pytest.mark.parametrize("axes", [{"dp": 1, "sp": 1}, {"tp": 1}])
-def test_mesh_refuses_the_axes_not_ported(axes):
-    with pytest.raises(NotImplementedError, match="Tensor and spatial parallelism"):
+@pytest.mark.parametrize("axes", [{"dp": 1, "sp": 1}, {"tp": 1}, {"dp": 1, "sp": 1, "tp": 1}])
+def test_mesh_takes_the_sp_and_tp_axes(axes):
+    """A process alone makes a mesh of any of tpuir's axes, in the order
+    given, each of size 1: coordinate 0 on each, no group."""
+    mesh = make_mesh(axes)
+    assert list(mesh.axes) == list(axes) and mesh.world == 1
+    assert mesh.coords == dict.fromkeys(axes, 0)
+    assert mesh.host_group is None and not mesh.groups and mesh.grad_group is None
+
+
+@pytest.mark.parametrize("axes", [{"dp": 2}, {"sp": 2}, {"dp": 1, "tp": 2},
+                                  {"dp": 2, "sp": 2, "tp": 2}])
+def test_mesh_checks_the_world_on_every_axis(axes):
+    with pytest.raises(ValueError, match="does not match 1 processes"):
         make_mesh(axes)
 
 
-def test_mesh_checks_the_world_and_tp_placement_is_not_ported():
-    with pytest.raises(ValueError, match="does not match 1 processes"):
-        make_mesh({"dp": 2})
-    with pytest.raises(NotImplementedError, match="Tensor and spatial parallelism"):
-        shard_params_tp({}, make_mesh())
+def test_mesh_refuses_an_unknown_axis_and_a_mesh_of_one_shards_nothing():
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        make_mesh({"dp": 1, "ep": 1})
+    net = torch.nn.Linear(256, 256)
+    assert shard_params_tp(net, make_mesh({"tp": 1}), min_dim=64) is net
+    assert type(net) is torch.nn.Linear and net.weight.shape == (256, 256)
 
 
 def test_batch_sharding_gives_contiguous_equal_shares():

@@ -4,19 +4,22 @@ counterpart of ``tpuir/parallel/inference.py``.
 Every rank takes the same image and cuts the same tile grid
 (``core/native.extract_patches``), adds the host AWGN to every patch before
 the split (so each patch keeps the seed-0 field the engine gives it), pads
-the patch batch to a multiple of the ranks by repeating the last patch, and
-runs its contiguous share through ``InferenceModel.forward_patches`` (the
-model's precision mode and in-flight window). The predictions are gathered
-on every rank, which blends the whole image on the host with the engine's
-window and returns it in the input's dtype. The forward path has no
-collective but that gather.
+the patch batch to a multiple of the mesh's ``dp`` axis by repeating the
+last patch, and runs its ``dp`` coordinate's contiguous share through
+``InferenceModel.forward_patches`` (the model's precision mode and
+in-flight window), as tpuir splits the grid over ``mesh.shape["dp"]``:
+ranks that differ only in ``sp`` or ``tp`` hold the same share. The
+predictions are gathered on every rank, which blends the whole image on
+the host with the engine's window and returns it in the input's dtype. The
+forward path has no collective but that gather.
 
 The gather moves host arrays, since the blend is on the host: it
-all-gathers CPU tensors over the mesh's gloo group. ``gather_patches``
-also has the other route, for its measurement: the share copied to the
-device, all-gathered there on the default group (NCCL where it is one)
-and copied back once, which cost as much or more on the H100 in worlds of
-one and two (``PERF.md``, §6, data parallelism).
+all-gathers CPU tensors over the mesh's gloo group along ``dp``, which
+holds one rank of each share. ``gather_patches`` also has the other route,
+for its measurement: the share copied to the device, all-gathered there on
+the group along ``dp`` (NCCL where it is one) and copied back once, which
+cost as much or more on the H100 in worlds of one and two (``PERF.md``,
+§6, data parallelism).
 """
 
 from __future__ import annotations
@@ -43,23 +46,31 @@ _all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_i
 
 def gather_patches(local: np.ndarray, mesh: Mesh, gather: str = "host",
                    device=None) -> np.ndarray:
-    """Every rank's ``local`` (each the same shape), in rank order, on every
-    rank. ``gather`` is ``"host"`` or ``"device"`` (on ``device``); a
-    process in no group returns ``local``."""
+    """Every ``dp`` coordinate's ``local`` (each the same shape), in ``dp``
+    order, on every rank, gathered along ``dp``. ``gather`` is ``"host"`` or
+    ``"device"`` (on ``device``); with a ``dp`` of one, or in no group, it
+    returns ``local``."""
     if gather not in GATHERS:
         raise ValueError(f"unknown gather {gather!r} ({'|'.join(GATHERS)})")
     if mesh.host_group is None:
         return local
-    shape = (mesh.size * local.shape[0],) + local.shape[1:]
+    shape = (mesh.shape("dp") * local.shape[0],) + local.shape[1:]
     if gather == "host":
-        out = torch.empty(shape, dtype=torch.float32)
+        out = torch.empty(shape, dtype=torch.from_numpy(local[:0]).dtype)
         _all_gather_into(out, torch.from_numpy(np.ascontiguousarray(local)),
                          group=mesh.host_group)
         return out.numpy()
     share = torch.from_numpy(np.ascontiguousarray(local)).to(device)
-    out = torch.empty(shape, dtype=share.dtype, device=share.device)
-    _all_gather_into(out, share)
-    return out.cpu().numpy()
+    full = torch.empty(shape, dtype=share.dtype, device=share.device)
+    _all_gather_into(full, share, group=mesh.group("dp"))
+    return full.cpu().numpy()
+
+
+def dp_share(mesh: Mesh, n: int):
+    """(the patches a batch of ``n`` is padded with, this rank's slice of the
+    padded batch): the batch split over ``dp`` alone."""
+    n_pad = (-n) % mesh.shape("dp")
+    return n_pad, batch_sharding(mesh, n + n_pad)
 
 
 def run_model_inference_sharded(
@@ -90,11 +101,11 @@ def run_model_inference_sharded(
     if need_degradation and noise_level is not None:
         patches = add_noise_batched(patches, noise_level)
     n = patches.shape[0]
-    n_pad = (-n) % mesh.size
+    n_pad, share = dp_share(mesh, n)
     if n_pad:
         patches = np.concatenate([patches, np.repeat(patches[-1:], n_pad, axis=0)])
 
-    mine = np.ascontiguousarray(patches[batch_sharding(mesh, patches.shape[0])])
+    mine = np.ascontiguousarray(patches[share])
     with maybe_trace(f"engine_sharded_{model.name.replace(' ', '_')}"):
         local = model.forward_patches(mine, max_in_flight=max_in_flight)
     preds = gather_patches(local, mesh)[:n]

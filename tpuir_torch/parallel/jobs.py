@@ -22,7 +22,7 @@ from tpuir_torch.core.engine import InferenceModel
 from tpuir_torch.ops import _kernels
 from tpuir_torch.parallel.dist import bound_device, get_dist_info
 from tpuir_torch.parallel.inference import run_model_inference_sharded
-from tpuir_torch.parallel.mesh import batch_sharding, make_mesh
+from tpuir_torch.parallel.mesh import Mesh, batch_sharding, make_mesh
 
 # a request: (HWC image, AWGN sigma or None)
 Request = Tuple[np.ndarray, Optional[float]]
@@ -46,14 +46,16 @@ def on_device(model: Union[InferenceModel, Callable], device: torch.device) -> I
     return model(device=device)
 
 
-def serve(models: Sequence, requests: Sequence[Sequence[Request]], rounds: int = 1) -> Dict:
+def serve(models: Sequence, requests: Sequence[Sequence[Request]], rounds: int = 1,
+          mesh: Optional[Mesh] = None) -> Dict:
     """Serve ``requests[i]`` with ``models[i]`` through
-    ``run_model_inference_sharded`` on this rank's device, ``rounds`` times.
+    ``run_model_inference_sharded`` on this rank's device and ``mesh``
+    (default: the world on ``dp``), ``rounds`` times.
     Returns {"outputs": [[image of each request] of each model] (the last
     round's), "ms": the same shape, the median over rounds, "launches":
     {kernel: launches over every round}}."""
     device = bound_device()
-    mesh = make_mesh()
+    mesh = make_mesh() if mesh is None else mesh
     outputs, ms = [], []
     _kernels.reset_launches()
     for model, reqs in zip(models, requests):
@@ -162,3 +164,36 @@ def several(calls: Sequence[Tuple[Callable, Sequence]]) -> List:
     """Each ``(fn, args)`` of ``calls`` in turn on this rank (one world for
     several jobs); their results in order."""
     return [fn(*args) for fn, args in calls]
+
+
+PROBES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
+          "reduce_scatter_tensor")
+
+
+def probe_collectives(names: Sequence[str] = PROBES) -> Dict[str, str]:
+    """Which of the collectives ``names`` (of ``PROBES``) this rank's group
+    takes on a tensor of its device: {collective: "ok" or the error's first
+    line}. Every rank calls each in the same order. (Gloo's send of a CUDA
+    tensor aborts the process, so it is not probed.)"""
+    dist = torch.distributed
+    device = bound_device()
+    world = dist.get_world_size()
+    t = torch.ones(4, device=device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * 4, device=device), t),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=device), torch.ones(world * 4, device=device)),
+    }
+    out = {}
+    for name in names:
+        try:
+            calls[name]()
+            _sync(device)
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = str(e).splitlines()[0][:160]
+    return out

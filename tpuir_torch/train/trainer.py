@@ -77,11 +77,18 @@ class TrainState:
             loss.backward()
 
     @torch.no_grad()
-    def apply_gradients(self, grad_clip: Optional[float] = None) -> torch.Tensor:
+    def apply_gradients(self, grad_clip: Optional[float] = None,
+                        norm: Optional[Callable] = None) -> torch.Tensor:
         """Clip, step the optimizer at ``schedule(step)``, update the EMA;
-        returns the gradient's global norm before the clip."""
+        returns the gradient's global norm before the clip. ``norm(params)``
+        gives that norm where this process holds only part of the gradient
+        (a mesh's ``tp`` shards: ``parallel/train.py``)."""
         params = [p for p in self.parameters() if p.grad is not None]
-        if grad_clip:
+        if norm is not None:
+            gnorm = norm(params)
+            if grad_clip:
+                torch.nn.utils.clip_grads_with_norm_(params, grad_clip, gnorm)
+        elif grad_clip:
             gnorm = torch.nn.utils.clip_grad_norm_(params, grad_clip)
         else:
             gnorm = global_norm([p.grad for p in params])
